@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -25,6 +26,26 @@ class Camera:
                       vel=self.vel.to(device))
 
 
+@dataclasses.dataclass
+class CameraController:
+    """Host-side pan/zoom controller (the reference's `World::update_camera`):
+    0.6 ls/s pan, zoom factor 1.0 per second.  It works on host floats, so a
+    key press costs no device round trip."""
+
+    pan_speed: float = 0.6
+    zoom_factor: float = 1.0
+
+    def update(self, pos, zoom, keys, dt: float):
+        """(pos, zoom) after one frame of `keys` (booleans left/right/up/down/
+        z/x); `pos` is (2,) np.float32, `zoom` np.float32, updated in f32 as
+        the JAX controller does."""
+        dx = (keys.get("right", False) - keys.get("left", False)) * dt * self.pan_speed
+        dy = (keys.get("down", False) - keys.get("up", False)) * dt * self.pan_speed
+        dz = (keys.get("x", False) - keys.get("z", False)) * dt * self.zoom_factor
+        return (pos + np.asarray([dx, dy], np.float32),
+                np.maximum(zoom + np.float32(dz), np.float32(1e-3)))
+
+
 def pixel_centers(width: int, height: int, cam: Camera) -> torch.Tensor:
     """Ground-frame positions of pixel centers, (H, W, 2)."""
     larger = max(width, height)
@@ -34,3 +55,14 @@ def pixel_centers(width: int, height: int, cam: Camera) -> torch.Tensor:
     ys = (torch.arange(height, dtype=torch.float32, device=dev) - (height - 1) / 2.0) * scale
     yy, xx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([xx + cam.pos[0], yy + cam.pos[1]], dim=-1)
+
+
+def world_to_pixel(pos: torch.Tensor, width: int, height: int, cam: Camera) -> torch.Tensor:
+    """Ground-frame (..., 2) -> fractional pixel coords (..., 2) [x, y], in
+    the JAX function's f32 order."""
+    larger = max(width, height)
+    scale = larger / cam.zoom  # pixels per lightsecond
+    rel = (pos - cam.pos) * scale
+    # per component with host scalars: no host-to-device copy (and sync)
+    return torch.stack([rel[..., 0] + (width - 1) / 2.0, rel[..., 1] + (height - 1) / 2.0],
+                       dim=-1)

@@ -1,0 +1,80 @@
+"""Command-line runner of the port: headless frames, stats, checkpoints.
+
+    python -m spacetime_tpu_torch --config flagship_1080p --frames 200
+    python -m spacetime_tpu_torch --config single_blob --frames 30 --mode points --cpu
+
+Counterpart of `spacetime_tpu/cli.py`, with its flag names.  It runs on
+CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
+(the plain-torch versions of the kernels).  With --stats it prints the
+stats summary as JSON, else one line.  Not accepted yet: --out, --every, --serve, --serve-bind, --overlay
+and --realtime (they wait for the frame and stream sinks); --stage-timing
+is not needed, because stage times are always measured.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+
+import torch
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="spacetime_tpu_torch", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--config", default="single_blob", help="named config (utils/config.py)")
+    ap.add_argument("--frames", type=int, default=30)
+    ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points"])
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
+    ap.add_argument("--stats", action="store_true", help="print the stats summary JSON")
+    ap.add_argument("--save", default=None, help="checkpoint path to write")
+    ap.add_argument("--load", default=None, help="checkpoint path to resume")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU")
+    return ap
+
+
+def run(argv=None):
+    """Parse `argv`, build the Engine and run its frames.  Returns
+    (engine, last image, stats summary)."""
+    args = _parser().parse_args(argv)
+    if args.cpu:
+        device = torch.device("cpu")
+    elif torch.cuda.is_available():
+        device = torch.device("cuda", 0)
+    else:
+        raise RuntimeError("no CUDA device: spacetime_tpu_torch runs on an NVIDIA GPU "
+                           "(pass --cpu for the CPU path)")
+
+    from .engine import Engine
+    from .utils.config import get_config
+
+    cfg = get_config(args.config)
+    overrides = {k: v for k, v in (("render_mode", args.mode), ("width", args.width),
+                                   ("height", args.height)) if v}
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    eng = Engine(cfg, device=device)
+    if args.load:
+        eng.load_checkpoint(args.load)
+    last = {}
+    summary = eng.run(args.frames, on_frame=lambda i, img: last.update(img=img))
+    if args.save:
+        eng.save_checkpoint(args.save)
+    return eng, last.get("img"), summary
+
+
+def main(argv=None) -> int:
+    eng, _, summary = run(argv)
+    if _parser().parse_args(argv).stats:
+        print(json.dumps(summary, indent=2))
+    else:
+        print(f"{eng.frame} frames of {eng.config.render_mode} on {eng.device}: "
+              f"{summary['fps_avg']:.2f} fps (--stats for the summary JSON)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

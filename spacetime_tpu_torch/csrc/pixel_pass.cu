@@ -1,5 +1,7 @@
 // Per-pixel pass of the flat retarded-time renderer: one CTA per view cell,
-// one thread per pixel of the cell's k x k block.
+// one thread per pixel of the cell's k x k block (cells wider than 32
+// pixels, which the Engine's cell ladder picks at deep zoom-in, loop over
+// their pixels with 1024 threads).
 //
 // Replaces the TPU kernel spacetime_tpu/ops/render_pallas.py `_pixel_kernel`
 // with its `_shade_group` (host function `pixel_pass_pallas`).  For each pixel:
@@ -57,28 +59,10 @@ __device__ float planck(float d_safe, float x, float num) {
 
 __device__ float hat(float x) { return fmaxf(0.0f, 1.0f - fabsf(x)); }
 
-__global__ void pixel_kernel(const float* __restrict__ entries,
-                             const int* __restrict__ cell_lo,
-                             const int* __restrict__ cell_hi,
-                             const float* __restrict__ sfq,
-                             const float* __restrict__ scal,
-                             const PixelParams p, float* __restrict__ out) {
-  extern __shared__ float sh[];
-  const int cell = blockIdx.x;
-  const int lo = cell_lo[cell];
-  const int count = min(cell_hi[cell] - lo, p.cap);
-  for (int e = threadIdx.x; e < count * NF; e += blockDim.x) {
-    sh[e] = entries[static_cast<size_t>(lo) * NF + e];
-  }
-  __syncthreads();
-
-  const int k = p.k;
-  const int crow = cell / p.wc_img;
-  const int ccol = cell - crow * p.wc_img;
-  const int gx = ccol * k + threadIdx.x % k;
-  const int gy = crow * k + threadIdx.x / k;
-  if (gx >= p.width || gy >= p.height) return;
-
+// The pass for pixel (gx, gy) over the cell's `count` entries staged in sh.
+__device__ void shade_pixel(const float* sh, int count, const float* __restrict__ sfq,
+                            const float* __restrict__ scal, const PixelParams& p,
+                            int gx, int gy, float* __restrict__ out) {
   const float t_now = scal[0], cxm = scal[1], cym = scal[2];
   const float cvx = scal[3], cvy = scal[4];
   const float x0 = scal[5], y0 = scal[6], ps = scal[7];
@@ -165,6 +149,31 @@ __global__ void pixel_kernel(const float* __restrict__ entries,
   out[2 * plane + idx] = o[2];
 }
 
+__global__ void pixel_kernel(const float* __restrict__ entries,
+                             const int* __restrict__ cell_lo,
+                             const int* __restrict__ cell_hi,
+                             const float* __restrict__ sfq,
+                             const float* __restrict__ scal,
+                             const PixelParams p, float* __restrict__ out) {
+  extern __shared__ float sh[];
+  const int cell = blockIdx.x;
+  const int lo = cell_lo[cell];
+  const int count = min(cell_hi[cell] - lo, p.cap);
+  for (int e = threadIdx.x; e < count * NF; e += blockDim.x) {
+    sh[e] = entries[static_cast<size_t>(lo) * NF + e];
+  }
+  __syncthreads();
+
+  const int k = p.k;
+  const int crow = cell / p.wc_img;
+  const int ccol = cell - crow * p.wc_img;
+  for (int q = threadIdx.x; q < k * k; q += blockDim.x) {
+    const int gx = ccol * k + q % k;
+    const int gy = crow * k + q / k;
+    if (gx < p.width && gy < p.height) shade_pixel(sh, count, sfq, scal, p, gx, gy, out);
+  }
+}
+
 }  // namespace
 
 extern "C" int pixel_pass_launch(const void* entries, const void* cell_lo,
@@ -173,8 +182,9 @@ extern "C" int pixel_pass_launch(const void* entries, const void* cell_lo,
                                  void* out, void* stream) {
   const PixelParams p = *static_cast<const PixelParams*>(params);
   const size_t smem = static_cast<size_t>(p.cap) * NF * sizeof(float);
+  const int threads = p.k * p.k < 1024 ? p.k * p.k : 1024;
   if (p.n_cells > 0) {
-    pixel_kernel<<<p.n_cells, p.k * p.k, smem,
+    pixel_kernel<<<p.n_cells, threads, smem,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(entries), static_cast<const int*>(cell_lo),
         static_cast<const int*>(cell_hi), static_cast<const float*>(sfq),

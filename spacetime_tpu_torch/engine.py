@@ -1,0 +1,439 @@
+"""Engine: the frame loop tying physics, worldlines and rendering together.
+
+Counterpart of `spacetime_tpu/engine.py` for one device.  Per frame it
+(1) moves the camera, (2) steps physics and pushes each new tick into the
+worldline ring, (3) renders in the config's mode — `retarded`, `instant`
+or `points` — and (4) records stage times and consumes the diagnostics.
+
+Differences by design:
+  * The frame is eager torch: no jit, no compiled-program cache.  The
+    device work of frame i is queued while the host moves on; the one
+    per-frame sync is the wait on frame i-1's end (as the JAX fused path
+    blocks on the previous image), so `frame_time` is the pipelined frame
+    time.
+  * Camera kinematics run on the host in f32 (np.float32, the JAX
+    package's rounding) and are mirrored into a device `Camera` only when
+    they change, by one non-blocking copy.
+  * Stage times (step, worldline, render) come from CUDA events on every
+    frame, read one frame late (utils/stats.py); the JAX fused frame
+    reports zeros there.
+  * The checkpoint keeps every adaptation field, `_seg_boost` included
+    (the JAX package's `_ADAPT_FIELDS` leaves it out).
+  * The collision and point kernels have no window cap, so the JAX
+    package's `wmax` adaptation has no counterpart.
+
+Not ported yet (they raise NotImplementedError): a mesh, aloof bodies,
+materials, the camera-frame view, defects and BTZ, and the retina,
+conical, btz and worldline3d modes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import math
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from . import scene as scene_mod
+from .camera import Camera, CameraController
+from .models.softbody import SoftbodyModel
+from .ops import forces, rasterize, raytrace
+from .ops import worldline as wl
+from .ops.points_cuda import PointsDiag
+from .ops.rk4 import StepAux
+from .state import Objects, Particles
+from .utils import logging as logmod
+from .utils.config import EngineConfig, SceneSpec
+from .utils.stats import FramePerfStats, StageClock, StatsWindow
+
+MODES = ("retarded", "instant", "points")
+
+
+def build_scene(spec: SceneSpec, device="cpu"):
+    """(particles, objects) on `device` for a SceneSpec."""
+    sb = scene_mod.SceneBuilder()
+    pad = spec.lattice_pad
+    mat_idx = spec.material_indices or (0,) * len(spec.bodies)
+    for i, (kind, arg, offset, vel, rgb) in enumerate(spec.bodies):
+        if kind == "disc":
+            body = scene_mod.disc_softbody(scene_mod.radius_for_count(arg), i, offset, vel,
+                                           lattice_pad=pad)
+        elif kind == "box":
+            body = scene_mod.mask_to_softbody(scene_mod.box_mask(arg[0], arg[1]), i, offset,
+                                              vel, lattice_pad=pad)
+        elif kind == "image":
+            body = scene_mod.image_to_softbody(arg, i, offset, vel, lattice_pad=pad)
+        else:
+            raise ValueError(f"unknown body kind {kind!r}")
+        if i >= len(mat_idx):
+            raise ValueError(
+                f"scene.material_indices has {len(mat_idx)} entries for "
+                f"{len(spec.bodies)} bodies — provide one per body")
+        sb.add(body, base_color=rgb, material_index=mat_idx[i])
+    return sb.build(spec.capacity, device=device)
+
+
+def _refuse_unported(config: EngineConfig, aloof_bodies, mesh) -> None:
+    missing = [
+        (mesh is not None, "a device mesh (parallel/)"),
+        (bool(aloof_bodies), "aloof bodies (models/aloofbody.py)"),
+        (config.materials is not None, "materials (ops/materials.py)"),
+        (config.render.camera_frame, "the camera-frame view (ops/boost.py)"),
+        (config.defect is not None or config.defect_source is not None,
+         "conical defects (ops/curved.py, ops/gravity.py)"),
+        (config.btz is not None, "BTZ (ops/btz.py)"),
+        (config.render_mode not in MODES, f"render_mode {config.render_mode!r}"),
+    ]
+    for absent, what in missing:
+        if absent:
+            raise NotImplementedError(f"{what} is not ported to spacetime_tpu_torch yet")
+
+
+class Engine:
+    """Owns the state on one device and drives the frame loop."""
+
+    def __init__(self, config: EngineConfig, particles: Optional[Particles] = None,
+                 objects: Optional[Objects] = None, device="cpu", aloof_bodies=(),
+                 mesh=None):
+        _refuse_unported(config, aloof_bodies, mesh)
+        self.log = logmod.initialize()
+        self.config = config
+        self.device = torch.device(device)
+        if particles is None:
+            particles, objects = build_scene(config.scene, self.device)
+        self.particles = particles.to(self.device)
+        self.objects = objects.to(self.device)
+        offsets = forces.derive_spring_offsets(self.particles.neighbors.cpu().numpy())
+        self.model = SoftbodyModel(self.particles.capacity, offsets, config.physics,
+                                   device=self.device)
+        # host camera state (f32), mirrored into the device Camera
+        self._cam_pos = np.asarray(config.cam_pos, np.float32)
+        self._cam_zoom = np.float32(config.cam_zoom)
+        self._cam_vel = np.asarray(config.cam_vel, np.float32)
+        self._upload_camera()
+        self.controller = CameraController()
+        self.time = 0.0
+        self.frame = 0
+        self.paused = False
+        self._stats = StatsWindow()
+        self._pending = None  # (StageClock, frame seconds) of the frame not yet in _stats
+        self.last_aux = None
+        self.last_diag = None
+        self._band_boost = 0  # diagnostics-driven adaptation (see _check_diag)
+        self._cap_boost = 0
+        self._pair_boost = 0  # pair_budget doublings
+        self._retina_boost = 0  # retina_budget doublings
+        self._entry_boost = 0  # entry_budget doublings
+        self._seg_boost = 0  # segments widenings
+        self._no_drop = PointsDiag(window_truncated=torch.zeros(
+            (), dtype=torch.int64, device=self.device))
+        # the FULL history primed with inertially extrapolated past states,
+        # so retarded visibility does not ramp in over `history` frames
+        buf = wl.create(config.history, self.particles.capacity, device=self.device)
+        self.worldline = wl.prefill_inertial(buf, self.particles.pos, self.particles.vel,
+                                             self.particles.active, self.time, config.physics.h)
+        self.log.debug("engine created on %s: %d particles, history %d, %dx%d %s",
+                       self.device, int(self.particles.active.sum()), config.history,
+                       config.width, config.height, config.render_mode)
+
+    # -- camera -------------------------------------------------------------
+
+    @property
+    def camera(self) -> Camera:
+        return self._camera
+
+    @camera.setter
+    def camera(self, cam: Camera) -> None:
+        self._cam_pos = cam.pos.detach().cpu().numpy().astype(np.float32)
+        self._cam_zoom = np.float32(cam.zoom.item())
+        self._cam_vel = cam.vel.detach().cpu().numpy().astype(np.float32)
+        self._upload_camera()
+
+    def _upload_camera(self) -> None:
+        """Mirror the host camera into the device Camera: one non-blocking
+        copy from pinned memory on CUDA (a pageable copy would sync)."""
+        host = torch.from_numpy(np.concatenate(
+            [self._cam_pos, [self._cam_zoom], self._cam_vel]).astype(np.float32))
+        if self.device.type == "cuda":
+            vals = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            vals = host.to(self.device)
+        self._camera = Camera(pos=vals[0:2], zoom=vals[2], vel=vals[3:5])
+
+    def update_camera_kinematics(self, dt: float) -> None:
+        """Relativistic camera motion: inertial, or under the config's proper
+        acceleration with the velocity clamped below c (f32, as JAX)."""
+        ax, ay = self.config.cam_accel
+        dt32 = np.float32(dt)
+        if ax == 0.0 and ay == 0.0:
+            if self._cam_vel.any():
+                self._cam_pos = self._cam_pos + self._cam_vel * dt32
+                self._upload_camera()
+            return
+        one = np.float32(1.0)
+        v = self._cam_vel
+        g = one / np.sqrt(np.maximum(one - np.sum(v * v), np.float32(1e-9)))
+        # dv/dt = a / gamma^3 for rectilinear proper acceleration
+        new_v = v + np.asarray([ax, ay], np.float32) * dt32 / (g * g * g)
+        speed = np.float32(np.linalg.norm(new_v))
+        if speed >= np.float32(0.999):
+            new_v = new_v / speed * np.float32(0.999)
+        self._cam_vel = new_v.astype(np.float32)
+        self._cam_pos = self._cam_pos + self._cam_vel * dt32
+        self._upload_camera()
+
+    # -- frame --------------------------------------------------------------
+
+    def step_physics(self, clock: Optional[StageClock] = None) -> None:
+        """`steps_per_frame` physics ticks, each pushed into the ring so the
+        retarded render sees a gap-free history.  `last_aux` sums the
+        ticks' StepAux counters, so an event in any tick reaches
+        _check_diag."""
+        clock = clock or StageClock(self.device)
+        total = None
+        for _ in range(self.config.steps_per_frame):
+            a = clock.mark()
+            self.particles, aux = self.model.step(self.particles)
+            b = clock.mark()
+            self.time += self.config.physics.h
+            wl.push_frame(self.worldline, self.particles, self.time)
+            clock.span("step_time", a, b)
+            clock.span("worldline_time", b, clock.mark())
+            total = aux if total is None else StepAux(*(x + y for x, y in zip(total, aux)))
+        self.last_aux = total
+
+    # coarse static ladder of view-cell sizes (the JAX package's): a zoom
+    # sweep lands on few distinct cell sizes
+    _CELL_LADDER = (8, 16, 24, 32, 48, 64)
+
+    def _render_params(self) -> raytrace.RenderParams:
+        """Render params for the CURRENT zoom: the minimal legal view-cell
+        size quantized UP to the ladder, the diagnostics-driven boosts, and
+        a view-derived sweep bound `max_age`."""
+        cfg = self.config
+        zoom = float(self._cam_zoom)
+        need = raytrace.auto_cell_px(cfg.render, cfg.width, cfg.height, zoom)
+        k = next((k for k in self._CELL_LADDER if k >= need), need)
+        out = cfg.render
+        if out.cell_px != k:
+            out = dataclasses.replace(out, cell_px=k)
+        if self._band_boost:
+            out = dataclasses.replace(out, band=min(out.band + self._band_boost, 12))
+        if self._cap_boost:
+            out = dataclasses.replace(
+                out, bin_capacity=min(out.bin_capacity + self._cap_boost, 384))
+        if self._pair_boost and out.pair_budget > 0:
+            out = dataclasses.replace(out, pair_budget=out.pair_budget << self._pair_boost)
+        if self._retina_boost and out.retina_budget > 0:
+            out = dataclasses.replace(out, retina_budget=out.retina_budget << self._retina_boost)
+        if self._entry_boost and out.entry_budget > 0:
+            out = dataclasses.replace(out, entry_budget=out.entry_budget << self._entry_boost)
+        if self._seg_boost and 0 < out.segments < out.band:
+            out = dataclasses.replace(
+                out, segments=min(out.segments << self._seg_boost, out.band))
+        # light reaching the (camera-centred) view comes from within
+        # corner-distance / h ticks; quantized to 64 ticks
+        if cfg.render_mode in ("retarded", "instant") and out.max_age == 0:
+            ps = zoom / max(cfg.width, cfg.height)
+            corner = 0.5 * ps * math.hypot(cfg.width, cfg.height)
+            a = int(math.ceil(corner / cfg.physics.h)) + out.band + 8
+            a = min(cfg.history, ((a + 63) // 64) * 64)
+            if a < cfg.history:
+                out = dataclasses.replace(out, max_age=a)
+        return out
+
+    def render(self) -> torch.Tensor:
+        """The current frame, (H, W, 3) f32; sets `last_diag`."""
+        cfg = self.config
+        if cfg.render_mode == "points":
+            self.last_diag = self._no_drop
+            return rasterize.render_points(self.particles, self.objects, self.camera,
+                                           cfg.width, cfg.height)
+        rparams = self._render_params()
+        if cfg.render_mode == "instant":
+            rparams = dataclasses.replace(rparams, opaque=False, retarded=False)
+        img, self.last_diag = raytrace.render_retarded_with_diag(
+            self.worldline, self.particles.object_index, self.objects, self.camera,
+            cfg.width, cfg.height, rparams, boundary=wl.boundary_mask(self.particles))
+        return img
+
+    def run_frame(self, keys: Optional[Dict] = None) -> torch.Tensor:
+        """One full frame: camera -> physics -> worldline -> render -> stats
+        and diagnostics.  Returns the image (its device work may still be
+        queued; the call waits only for the previous frame)."""
+        t0 = time.perf_counter()
+        cfg = self.config
+        frame_dt = cfg.physics.h * cfg.steps_per_frame
+        if keys:
+            pos, zoom = self.controller.update(self._cam_pos, self._cam_zoom, keys, frame_dt)
+            if not (np.array_equal(pos, self._cam_pos) and zoom == self._cam_zoom):
+                self._cam_pos, self._cam_zoom = pos, zoom
+                self._upload_camera()
+            if keys.get("p"):
+                self.paused = not self.paused
+        self.update_camera_kinematics(frame_dt)
+        clock = StageClock(self.device)
+        if not self.paused:
+            self.step_physics(clock)
+        r0 = clock.mark()
+        img = self.render()
+        clock.span("render_time", r0, clock.mark())
+        self.frame += 1
+        self._flush_stats()  # waits for the previous frame
+        self._pending = (clock, time.perf_counter() - t0)
+        self._check_diag()
+        return img
+
+    def _flush_stats(self) -> None:
+        """Add the pending frame to the stats window (waits for its end)."""
+        if self._pending is not None:
+            clock, frame_time = self._pending
+            self._stats.add(FramePerfStats(**clock.seconds(), frame_time=frame_time))
+            self._pending = None
+
+    @property
+    def stats(self) -> StatsWindow:
+        """The stats window, with every frame run so far."""
+        self._flush_stats()
+        return self._stats
+
+    def _check_diag(self) -> None:
+        """Consume RenderDiag every `diag_every` frames: warn on silent-
+        quality conditions and ADAPT the budgets, on evidence only (the JAX
+        package's rules).  The StepAux counters need no reading here: the
+        port's collision kernel has no cell cap or window to overflow."""
+        if self.config.diag_every <= 0 or self.frame % self.config.diag_every:
+            return
+        diag = self.last_diag
+        if diag is None or isinstance(diag, PointsDiag):
+            return  # the point view drops nothing (no window cap)
+        fields = [f for f in diag._fields if getattr(diag, f) is not None]
+        # ONE device-to-host transfer for all counters
+        vals = torch.stack([torch.as_tensor(getattr(diag, f)).to(torch.int64)
+                            for f in fields]).tolist()
+        d = dict(zip(fields, vals))
+        render = self.config.render
+        if d["band_truncated"] > 0 and self._band_boost < 6:
+            self._band_boost += 2
+            self.log.warning("cone band truncated for %d particles: raising band to %d",
+                             d["band_truncated"], render.band + self._band_boost)
+        cap_now = render.bin_capacity + self._cap_boost
+        # a capped bin drops its FARTHEST candidates; below 0.1% of the
+        # pairs that is inside the retina's quantization: log, don't adapt
+        dropped = d["bin_dropped"]
+        drop_tol = max(1, int(1e-3 * max(d["pairs_used"], 1)))
+        if 0 < dropped <= drop_tol:
+            self.log.debug("%d far candidates dropped from full bins (<= %d tolerance): "
+                           "within the nearest-k envelope, not adapting", dropped, drop_tol)
+        elif dropped > 0:
+            if cap_now < 384:
+                # doubling converges in <= 3 steps from the default 64
+                self._cap_boost = min(cap_now * 2, 384) - render.bin_capacity
+                self.log.warning("%d candidates dropped from full view bins: raising "
+                                 "bin_capacity to %d", dropped,
+                                 render.bin_capacity + self._cap_boost)
+            else:
+                self.log.warning("%d candidates dropped from full view bins at the "
+                                 "bin_capacity ceiling (%d)", dropped, cap_now)
+        if render.pair_budget > 0 and d["pairs_used"] > (render.pair_budget << self._pair_boost):
+            self._grow_budget("_pair_boost", render.pair_budget, d["pairs_used"],
+                              "cone-crossing pairs exceed pair_budget",
+                              "occupancy/occlusion may drop surfaces")
+        if d["cell_too_small"]:
+            self.log.warning("view cells smaller than capsule reach: splat coverage is "
+                             "incomplete at this zoom")
+        if d.get("retina_dropped", 0) > 0:
+            self._grow_budget("_retina_boost", render.retina_budget, d["retina_dropped"],
+                              "boundary pairs beyond retina_budget",
+                              "occlusion may miss surfaces")
+        if d.get("entry_dropped", 0) > 0:
+            self._grow_budget("_entry_boost", render.entry_budget, d["entry_dropped"],
+                              "valid splat entries beyond entry_budget",
+                              "whole view cells may be missing")
+        if d.get("segment_dropped", 0) > 0:
+            self._grow_budget("_seg_boost", render.segments, d["segment_dropped"],
+                              "valid crossings beyond the segments slots",
+                              "fast approachers lose trailing-edge capsules")
+
+    def _grow_budget(self, boost_attr: str, base: int, count: int,
+                     what: str, consequence: str) -> None:
+        """Shared budget-doubling adaptation: up to 4 doublings, then warn at
+        the ceiling.  _render_params applies `base << boost`."""
+        if base <= 0:
+            return
+        boost = getattr(self, boost_attr)
+        if boost < 4:
+            setattr(self, boost_attr, boost + 1)
+            self.log.warning("%d %s: raising the budget to %d", count, what,
+                             base << (boost + 1))
+        else:
+            self.log.warning("%d %s at the adaptation ceiling: %s", count, what, consequence)
+
+    def run(self, n_frames: int,
+            on_frame: Optional[Callable[[int, torch.Tensor], None]] = None) -> Dict[str, float]:
+        """Headless loop of `n_frames`; returns the stats summary."""
+        for i in range(n_frames):
+            img = self.run_frame()
+            if on_frame is not None:
+                on_frame(i, img)
+        return self.stats.summary()
+
+    def conserved_quantities(self):
+        """Relativistic totals (momentum/energy/KE/bonds) — see
+        utils/diagnostics.py."""
+        from .utils import diagnostics
+
+        return diagnostics.totals(self.particles)
+
+    # -- persistence --------------------------------------------------------
+
+    _ADAPT_FIELDS = ("_band_boost", "_cap_boost", "_pair_boost", "_retina_boost",
+                     "_entry_boost", "_seg_boost")
+
+    def _config_fingerprint(self) -> str:
+        """Digest of the frozen config + scene shape, so a resumed engine can
+        refuse a checkpoint from another scene/config."""
+        desc = repr((dataclasses.asdict(self.config), int(self.particles.capacity),
+                     int(self.worldline.capacity)))
+        return hashlib.sha256(desc.encode()).hexdigest()[:16]
+
+    def _state(self) -> dict:
+        return {"particles": self.particles, "worldline": self.worldline,
+                "camera": self.camera}
+
+    def save_checkpoint(self, path: str) -> None:
+        from .utils import checkpoint
+
+        meta = {"time": self.time, "frame": self.frame,
+                "config_fingerprint": self._config_fingerprint(),
+                "paused": bool(self.paused)}
+        for f in self._ADAPT_FIELDS:
+            meta[f] = int(getattr(self, f))
+        checkpoint.save(path, self._state(), meta)
+
+    def load_checkpoint(self, path: str, strict: bool = True) -> None:
+        """Restore state + learned adaptation budgets.  `strict` validates
+        the config/scene fingerprint.  Everything is loaded and validated
+        before any field of the engine changes."""
+        from .utils import checkpoint
+
+        state, meta = checkpoint.load(path, self._state())
+        fp = meta.get("config_fingerprint")
+        if strict and fp is not None and fp != self._config_fingerprint():
+            raise ValueError(
+                f"checkpoint {path!r} was saved under a different engine config/scene "
+                "(fingerprint mismatch) — construct the engine with the saved run's "
+                "config, or pass strict=False")
+        self.particles, self.worldline = state["particles"], state["worldline"]
+        self.camera = state["camera"]
+        self.time = float(meta["time"])
+        self.frame = int(meta["frame"])
+        for f in self._ADAPT_FIELDS:
+            if f in meta:
+                setattr(self, f, int(meta[f]))
+        if "paused" in meta:
+            self.paused = bool(meta["paused"])

@@ -7,6 +7,11 @@ opaque retarded render with Doppler and beaming.
 A frame is `model.step -> worldline.push_frame -> raytrace.render_retarded`
 (planar, with `boundary=worldline.boundary_mask(particles)`), as
 `bench.py:88-95` runs it; the discs meet at about frame 170.
+
+`refdemo_config()` is the Engine config of the reference's demo scene in
+points mode: the procedural fallback of `tools/refdemo.py` (two
+lattice-padded discs of 57,980 particles each, 116,178 active at capacity
+149,248) seen at 1920x1080 through the camera of its benches.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from .camera import Camera
 from .models.softbody import SoftbodyModel
 from .ops import forces, raytrace
 from .ops import worldline as wl
+from .utils.config import BLUE, RED, EngineConfig, SceneSpec
 
 WIDTH, HEIGHT, HISTORY = 1920, 1080, 1024
 
@@ -42,3 +48,21 @@ def build(device):
     )
     return model, particles, objects, buf, cam, params
 
+
+def refdemo_config() -> EngineConfig:
+    """The reference demo scene (`tools/refdemo.py:43-55`, the procedural
+    fallback for testimg4/5: discs of radius_for_count(57980) = 136 px at
+    (0, 0) and (1.2, 0.8), closing at 0.1c per axis each) in points mode,
+    camera (0.6, 0.4) at zoom 2.0 (`tools/refdemo.py:92`), history 1024."""
+    return EngineConfig(
+        scene=SceneSpec(bodies=(
+            ("disc", 57980, (0.0, 0.0), (0.1, 0.1), BLUE),
+            ("disc", 57980, (1.2, 0.8), (-0.1, -0.1), RED),
+        )),
+        width=WIDTH,
+        height=HEIGHT,
+        history=HISTORY,
+        cam_pos=(0.6, 0.4),
+        cam_zoom=2.0,
+        render_mode="points",
+    )

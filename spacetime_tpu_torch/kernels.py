@@ -1,10 +1,11 @@
 """Build, load and count the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled by `nvcc` into one shared library with a plain C
-interface and loaded with ctypes — never at import, only at the first call
-that needs a kernel.  The library lands in `build/spacetime_tpu_torch/`
-beside the package, named by a hash of the sources and flags, so a source
-change rebuilds it.
+The sources are compiled by `nvcc`, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes — never at import, only at the first call that needs a
+kernel.  The library lands in `build/spacetime_tpu_torch/` beside the
+package, named by a hash of the sources and flags, so a source change
+rebuilds it.
 
 `-fmad=false` keeps nvcc from contracting a*b + c into one fused multiply-
 add: the kernels then round every operation as the plain-torch versions do,
@@ -26,14 +27,14 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("collision.cu", "pixel_pass.cu")
+SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "spacetime_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-launches = {"collision": 0, "pixel_pass": 0}
+launches = {"collision": 0, "pixel_pass": 0, "band": 0, "points": 0}
 
 _lib = None
 build_seconds = None  # wall time of this process's build, None if cached
@@ -69,7 +70,8 @@ def _source_hash() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists: one
+    `nvcc -c` per source in parallel, then one link."""
     global build_seconds
     out = BUILD_DIR / f"libspacetime_kernels_{_source_hash()}.so"
     if out.is_file():
@@ -77,18 +79,27 @@ def build() -> Path:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a temporary name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    # build in a temporary directory, then rename: a concurrent loader
+    # never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for name in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{name}.o", str(CSRC / name)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+        # wait for every compiler before reporting the first failure
+        results = [(cmd, proc, *proc.communicate()) for cmd, proc in jobs]
+        for cmd, proc, _, err in results:
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+        lib = f"{tmp}/lib.so"
+        cmd = [nvcc, "-shared", "-o", lib, *(f"{tmp}/{name}.o" for name in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)
     build_seconds = time.perf_counter() - t0
     return out
 
@@ -106,6 +117,12 @@ def library() -> ctypes.CDLL:
     lib.collision_forces_launch.restype = ci
     lib.pixel_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.pixel_pass_launch.restype = ci
+    lib.band_window_launch.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+    ]
+    lib.band_window_launch.restype = ci
+    lib.points_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.points_launch.restype = ci
     _lib = lib
     return lib
 

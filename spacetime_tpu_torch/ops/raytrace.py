@@ -1,15 +1,19 @@
 """Retarded-time raytracer over the worldline ring (flat spacetime).
 
-Counterpart of the flat retarded path of `spacetime_tpu/ops/raytrace.py`.
-What map point p shows is what the camera at c sees of p at coordinate time
-t_now: the event (p, t_now - |p - c|) on its past light cone.  Softbodies
-are unions of radius-rho discs; between stored ticks each disc sweeps a
-linear capsule in (x, y, t).
+Counterpart of the flat retarded and instantaneous paths of
+`spacetime_tpu/ops/raytrace.py`.  What map point p shows is what the
+camera at c sees of p at coordinate time t_now: the event
+(p, t_now - |p - c|) on its past light cone.  Softbodies are unions of
+radius-rho discs; between stored ticks each disc sweeps a linear capsule
+in (x, y, t).
 
 Per frame (`render_retarded`):
-  1. `_band_pairs`: a dense sweep over the ring finds each particle's
-     cone-crossing tick band; its (N, band) segments become pair rows of 10
-     fields (`_F_*`), culled to the view hull.
+  1. `_band_pairs`: the cone band search (ops/band_cuda.py: a CUDA kernel
+     on the card, a dense sweep on the CPU) finds each particle's
+     cone-crossing tick band; its (N, band) segments become pair rows of
+     10 fields (`_F_*`), culled to the view hull.  With
+     `retarded=False` (the instantaneous view) `_instant_pairs` takes its
+     place: each particle's newest segment only, and no occlusion.
   2. compaction to `pair_budget`; with a boundary mask, boundary pairs go to
      the front so the occlusion retina reads a prefix of `retina_budget`.
   3. `_retina`: the first hit per angle over the retina pairs.
@@ -20,11 +24,10 @@ Per frame (`render_retarded`):
   5. the pixel pass (ops/render_cuda.py): per pixel, the nearest in-time
      capsule of its cell, Doppler/beaming shading and occlusion.
 
-Only steps 5's kernel is CUDA; the sweep, compaction, retina and splat are
+Steps 1 and 5 have CUDA kernels; the compaction, retina and splat are
 plain torch on every device (in the JAX package they are XLA, not Pallas).
-Not ported yet: the camera-frame (boosted) view, the instantaneous view
-(`retarded=False`), `segments` rank compaction, the nearest-corner 2x2
-splat (`splat_cells=4`) and the band kernel.
+Not ported yet: the camera-frame (boosted) view, `segments` rank
+compaction and the nearest-corner 2x2 splat (`splat_cells=4`).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from ..camera import Camera, pixel_centers
 from ..constants import C2
 from ..state import Objects
-from . import render_cuda
+from . import band_cuda, render_cuda
 from .worldline import WorldlineBuffer
 
 _BIG = 3.0e38
@@ -62,7 +65,7 @@ class RenderParams:
     pair_budget: int = 131072  # compact valid pairs to this many rows (0 = never)
     entry_budget: int = 0  # cap on sorted splat entries (0 = all)
     opaque: bool = True  # False = x-ray: no occlusion shading
-    retarded: bool = True  # False = instantaneous view (not ported)
+    retarded: bool = True  # False = instantaneous view (newest segment, no occlusion)
     camera_frame: bool = False  # boosted map view (not ported)
     occlusion_downsample: int = 2  # retina lookup per d x d pixel quad
     max_age: int = 0  # oldest age (ticks) the cone sweep scans; 0 = the ring
@@ -80,6 +83,14 @@ class RenderParams:
     def reach(self) -> float:
         """Max capsule reach: rho + half a max-speed tick of motion."""
         return self.rho + 0.5 * self.dt
+
+
+def auto_cell_px(params: RenderParams, width: int, height: int, zoom: float) -> int:
+    """Smallest view-cell edge (pixels) satisfying the coverage constraint
+    cell_px * pixel_size >= reach, so a capsule splatted into its 3x3 cells
+    is visible from every pixel it can cover."""
+    pixel_size = zoom / max(width, height)
+    return max(1, int(-(-params.reach // pixel_size)))
 
 
 class RenderDiag(NamedTuple):
@@ -230,54 +241,6 @@ def _occupancy_xy(px, py, t_e, ax, ay, bx, by, ta, dt, rho):
 # ---------------------------------------------------------------------------
 
 
-def _cone_band_window(buf: WorldlineBuffer, params: RenderParams, cam: Camera):
-    """Each particle's cone-crossing tick band and its window.
-
-    Because |v| < c while the cone radius grows at c per tick,
-    f(age) = |pos(age) - cam| - age * dt is monotone, so each worldline
-    crosses the cone in one contiguous band.  One dense sweep over ages
-    [0, A) finds the youngest entering age a0 and the oldest crossing age;
-    the window holds ages [a0 + band - 1 .. a0 - 1] as ascending mirrored
-    rows, read by one gather.
-
-    Returns (a0, hi0, truncated, (wx, wy, wvx, wvy, ages)), window tensors
-    (N, band + 1).  Window rows outside the swept ages hold the ring's
-    values there; they only feed pairs that fail the age-range validity."""
-    dt, rho, band = params.dt, params.rho, params.band
-    t_cap = buf.capacity
-    n = buf.num_particles
-    dev = buf.pos_x.device
-    thresh = rho + dt
-    base_col = buf.cursor + t_cap  # mirrored row of age 0
-    a_sw = t_cap if params.max_age <= 0 else min(params.max_age, t_cap)
-    col0 = buf.cursor + 1 + (t_cap - a_sw)  # rows col0.. hold ages A-1 .. 0
-    # no window column (or its younger endpoint) may reach an unswept tick
-    hi0 = min(buf.frames_in_use - 1, t_cap - 1, a_sw - 1)
-    route = _euclid_route(cam.pos[0], cam.pos[1])
-
-    sx = buf.pos_x[col0:col0 + a_sw]
-    sy = buf.pos_y[col0:col0 + a_sw]
-    age_row = torch.arange(a_sw - 1, -1, -1, dtype=torch.int32, device=dev)[:, None]
-    f = route(sx, sy) - age_row.to(torch.float32) * dt
-    in_range = (age_row >= 1) & (age_row <= hi0)
-    enter = (f <= thresh) & in_range
-    a0 = torch.where(enter, age_row, hi0 + 1).amin(dim=0)
-    crossing = enter & (f >= -thresh)
-    a_last = torch.where(crossing, age_row, -1).amax(dim=0)
-    truncated = (a_last >= a0 + band).sum()
-
-    w = band + 1
-    start_col = torch.clamp(base_col - (a0 + band - 1), 0, 2 * t_cap - w)
-    rows = start_col[:, None] + torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    ages = base_col - rows
-    rows = rows.long()
-    cols = torch.arange(n, device=dev)[:, None]
-    window = lambda plane: plane[rows, cols]  # (N, w)
-    return a0, hi0, truncated, (
-        window(buf.pos_x), window(buf.pos_y), window(buf.vel_x), window(buf.vel_y), ages
-    )
-
-
 def _view_grid(width, height, cam, k):
     """View-cell grid dims + geometry: (wc_img, hc_img, pixel_size, x0, y0),
     (x0, y0) the world position of pixel (0, 0)'s center."""
@@ -300,7 +263,10 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
         raise NotImplementedError("segments rank compaction is not ported yet")
     n = buf.num_particles
     cxm, cym = cam.pos[0], cam.pos[1]
-    a0, hi0, truncated, (wx, wy, wvx, wvy, ages) = _cone_band_window(buf, params, cam)
+    # the cone band search: the kernel for CUDA tensors, the dense sweep for CPU ones
+    bw = band_cuda.cone_band_window(buf, params, cam)
+    hi0, truncated = bw.hi0, bw.truncated
+    wx, wy, wvx, wvy, ages = bw.wx, bw.wy, bw.wvx, bw.wvy, bw.ages
     route = _euclid_route(cxm, cym)
 
     # segment j: older endpoint = window column j (age a_j), younger = j + 1
@@ -350,6 +316,31 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
     )
     pairs = PairData(pdata=pdata, pair_valid=valid.reshape(-1), n_pairs=valid.sum())
     return pairs, truncated, None
+
+
+def _instant_pairs(buf: WorldlineBuffer, obj_index, objects: Objects,
+                   params: RenderParams) -> PairData:
+    """Pairs for the instantaneous view: only the newest segment (age 1 ->
+    age 0) of each particle, i.e. "measured reality" — the filled upgrade
+    of the reference's debug point renderer."""
+    t_cap = buf.capacity
+    row = lambda plane, age: plane[buf.cursor + t_cap - age]
+    qax, qay = row(buf.pos_x, 1), row(buf.pos_y, 1)
+    qbx, qby = row(buf.pos_x, 0), row(buf.pos_y, 0)
+    pvx, pvy = row(buf.vel_x, 1), row(buf.vel_y, 1)
+    pta = buf.times[buf.cursor] - params.dt
+    valid = (torch.abs(qax) < 1.0e8) & (buf.frames_in_use >= 2)
+    far = 2.0e9
+    keep = lambda v: torch.where(valid, v, far)
+    prgb = objects.base_color[obj_index.long()]  # (N, 3)
+    pdata = torch.stack(
+        [
+            keep(qax), keep(qay), keep(qbx), keep(qby), pta.expand(qax.shape),
+            pvx, pvy, prgb[:, 0], prgb[:, 1], prgb[:, 2],
+        ],
+        dim=1,
+    )
+    return PairData(pdata=pdata, pair_valid=valid, n_pairs=valid.sum())
 
 
 def _compact_by_class(pairs: PairData, key: torch.Tensor, budget: int,
@@ -573,28 +564,32 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
     (PixelInputs, RenderDiag); the diag fields are device tensors."""
     if params.camera_frame:
         raise NotImplementedError("camera_frame needs ops/boost.py, not ported yet")
-    if not params.retarded:
-        raise NotImplementedError("retarded=False needs _instant_pairs, not ported yet")
     t_now = buf.times[buf.cursor]
-    use_rays = params.opaque
+    use_rays = params.opaque and params.retarded
 
     retina_dropped = None
-    pairs_raw, band_truncated, segment_dropped = _band_pairs(
-        buf, obj_index, objects, cam, t_now, width, height, params
-    )
-    if use_rays and boundary is not None and 0 < params.retina_budget < pairs_raw.pdata.shape[0]:
-        # boundary pairs at the buffer front; the retina reads a prefix
-        rmask = boundary.repeat_interleave(params.band)
-        pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
-        rb = min(params.retina_budget, pairs.pdata.shape[0])
-        n_r = torch.clamp(n_b, max=rb)
-        in_prefix = torch.arange(rb, device=n_b.device) < n_r
-        rpairs = PairData(pdata=pairs.pdata[:rb], pair_valid=pairs.pair_valid[:rb] & in_prefix,
-                          n_pairs=n_r)
-        retina_dropped = torch.clamp(n_b - rb, min=0)
+    segment_dropped = None
+    if not params.retarded:
+        pairs = rpairs = _instant_pairs(buf, obj_index, objects, params)
+        band_truncated = torch.zeros((), dtype=torch.int64, device=pairs.pdata.device)
     else:
-        pairs = _compact_pairs_to_budget(pairs_raw, params.pair_budget)
-        rpairs = pairs
+        pairs_raw, band_truncated, segment_dropped = _band_pairs(
+            buf, obj_index, objects, cam, t_now, width, height, params
+        )
+        rows = pairs_raw.pdata.shape[0]
+        if use_rays and boundary is not None and 0 < params.retina_budget < rows:
+            # boundary pairs at the buffer front; the retina reads a prefix
+            rmask = boundary.repeat_interleave(params.band)
+            pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
+            rb = min(params.retina_budget, pairs.pdata.shape[0])
+            n_r = torch.clamp(n_b, max=rb)
+            in_prefix = torch.arange(rb, device=n_b.device) < n_r
+            rpairs = PairData(pdata=pairs.pdata[:rb],
+                              pair_valid=pairs.pair_valid[:rb] & in_prefix, n_pairs=n_r)
+            retina_dropped = torch.clamp(n_b - rb, min=0)
+        else:
+            pairs = _compact_pairs_to_budget(pairs_raw, params.pair_budget)
+            rpairs = pairs
 
     entries, cell_lo, cell_hi, bin_dropped, entry_dropped, cell_too_small, geom = _splat_csr(
         pairs, cam, width, height, params

@@ -140,8 +140,6 @@ def pixel_pass(inputs, params, *, width, height):
     wq = wc_img * k // ds
     if sfq is not None:
         need(sfq, "sfq", torch.float32, (hc_img * k // ds, wq))
-    if k * k > 1024:
-        raise ValueError(f"pixel_pass: cell_px {k} needs more than 1024 threads per block")
     if cap * 10 * 4 > 48 * 1024:
         raise ValueError(f"pixel_pass: bin_capacity {cap} exceeds 48 KB of shared memory")
 

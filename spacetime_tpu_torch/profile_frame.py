@@ -34,6 +34,7 @@ LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 KINDS = (
     ("collision kernel", r"collision_kernel"),
     ("pixel kernel", r"pixel_kernel"),
+    ("band kernel", r"band_kernel"),
     ("sort", r"[Ss]ort|[Rr]adix"),
     ("reduction", r"[Rr]educe"),
     ("index / gather / scatter", r"[Ii]ndex|[Gg]ather|[Ss]catter"),

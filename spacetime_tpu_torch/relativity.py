@@ -1,8 +1,9 @@
 """Special-relativity helpers (c = 1 units) used by the ported slice.
 
 Counterpart of `spacetime_tpu/relativity.py`: `gamma` and `r_acc` drive the
-RK4 step; the Doppler factors drive the renderer's shading.  Functions take
-`(..., 2)` tensors and broadcast.
+RK4 step; the Doppler factors drive the renderer's shading; the mass,
+momentum and energy feed utils/diagnostics.py.  Functions take `(..., 2)`
+tensors and broadcast.
 """
 
 from __future__ import annotations
@@ -20,6 +21,26 @@ def gamma(speed: torch.Tensor) -> torch.Tensor:
 def gamma_v(vel: torch.Tensor) -> torch.Tensor:
     """Lorentz factor from a velocity vector `(..., 2)`."""
     return gamma(torch.linalg.vector_norm(vel, dim=-1))
+
+
+def r_mass(vel: torch.Tensor, rest_mass: torch.Tensor) -> torch.Tensor:
+    """Relativistic mass m = gamma * m0."""
+    return gamma_v(vel) * rest_mass
+
+
+def r_momentum(vel: torch.Tensor, rest_mass: torch.Tensor) -> torch.Tensor:
+    """Relativistic momentum p = m v."""
+    return r_mass(vel, rest_mass)[..., None] * vel
+
+
+def r_energy(vel: torch.Tensor, rest_mass: torch.Tensor) -> torch.Tensor:
+    """Relativistic energy E = m c^2."""
+    return r_mass(vel, rest_mass) * C2
+
+
+def r_ke(vel: torch.Tensor, rest_mass: torch.Tensor) -> torch.Tensor:
+    """Relativistic kinetic energy E - m0 c^2."""
+    return r_energy(vel, rest_mass) - rest_mass * C2
 
 
 def r_acc(force: torch.Tensor, vel: torch.Tensor, rest_mass: torch.Tensor) -> torch.Tensor:

@@ -147,6 +147,11 @@ def disc_mask(radius_px: int) -> np.ndarray:
     return (xx - radius_px) ** 2 + (yy - radius_px) ** 2 <= radius_px**2
 
 
+def box_mask(w_px: int, h_px: int) -> np.ndarray:
+    """Filled w x h rectangle occupancy grid."""
+    return np.ones((h_px, w_px), bool)
+
+
 def disc_softbody(radius_px, object_index, offset, vel, lattice_pad=False) -> dict:
     return mask_to_softbody(
         disc_mask(radius_px), object_index, offset, vel, lattice_pad=lattice_pad

@@ -20,7 +20,8 @@ from spacetime_tpu_torch import kernels, scene
 from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.constants import DEFAULT_PARAMS as P
 from spacetime_tpu_torch.models.softbody import SoftbodyModel, default_bin_resolution
-from spacetime_tpu_torch.ops import forces, forces_cuda, grid, raytrace, render_cuda
+from spacetime_tpu_torch.ops import (band_cuda, forces, forces_cuda, grid, points_cuda, raytrace,
+                                     render_cuda)
 from spacetime_tpu_torch.ops import worldline as wl
 
 CD, REP = P.collision_distance, P.collision_repulsion_coefficient
@@ -95,6 +96,10 @@ def test_wrappers_refuse_other_devices():
     meta = inputs._replace(entries=inputs.entries.to("meta"))
     with pytest.raises(ValueError, match="unsupported device"):
         render_cuda.pixel_pass(meta, _params(), width=48, height=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        band_cuda.cone_band_window(buf.to("meta"), _params(), cam)
+    with pytest.raises(ValueError, match="unsupported device"):
+        points_cuda.render_points(p.to("meta"), objects, cam, 48, 32)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -144,6 +149,20 @@ def test_pixel_kernel_matches_plain(cuda_device, opaque):
 
 
 @pytest.mark.cuda
+def test_pixel_kernel_wide_cells_match_plain(cuda_device):
+    """Cells wider than 32 pixels (the Engine's ladder picks 48 and 64 at
+    deep zoom-in) take more pixels than a block's 1024 threads."""
+    p, objects, buf, cam = _frame(cuda_device)
+    params = _params(cell_px=48, occlusion_downsample=2)
+    inputs, _ = raytrace.prepare_pixel_pass(buf, p.object_index, objects, cam, 96, 64, params,
+                                            boundary=wl.boundary_mask(p))
+    ours = render_cuda.pixel_pass(inputs, params, width=96, height=64)
+    plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
+    assert (plain < 0.99).float().mean() > 0.05
+    assert _mismatch(ours, plain) <= PIXEL_SHARE
+
+
+@pytest.mark.cuda
 def test_slice_on_card_matches_cpu(cuda_device):
     """The whole frame on the card vs the CPU path, through the impact; every
     collision and pixel pass on the card goes through the kernels."""
@@ -159,3 +178,34 @@ def test_slice_on_card_matches_cpu(cuda_device):
                                    planar=True, boundary=wl.boundary_mask(p))
     assert kernels.launches["pixel_pass"] == 1
     assert _mismatch(imgg, img) <= PIXEL_SHARE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band,max_age", [(6, 48), (2, 0)])
+def test_band_kernel_matches_plain(cuda_device, band, max_age):
+    """Exactly equal: a0, alast, truncated, every window value and age."""
+    p, objects, buf, cam = _frame(cuda_device)
+    params = _params(band=band, max_age=max_age)
+    kernels.reset_launch_counts()
+    ours = band_cuda.cone_band_window(buf, params, cam)
+    plain = band_cuda.cone_band_window_plain(buf, params, cam)
+    assert kernels.launches["band"] == 1
+    for name in ("a0", "alast", "truncated", "wx", "wy", "wvx", "wvy", "ages"):
+        assert torch.equal(getattr(ours, name), getattr(plain, name)), name
+    assert ours.hi0 == plain.hi0
+    assert (plain.a0 <= plain.hi0).any()
+    assert (int(plain.truncated) > 0) == (band == 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zoom", [0.15, 2.0])
+def test_points_kernel_matches_plain(cuda_device, zoom):
+    """Bit-equal, with shared pixels (zoom 2.0) and without."""
+    p, objects, _, _ = _frame(cuda_device, frames=1)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=zoom, device=cuda_device)
+    kernels.reset_launch_counts()
+    ours = points_cuda.render_points(p, objects, cam, 96, 64)
+    plain = points_cuda.render_points_plain(p, objects, cam, 96, 64)
+    assert kernels.launches["points"] == 1
+    assert torch.equal(ours, plain)
+    assert (plain != 1.0).any()

@@ -342,6 +342,8 @@ def test_package_imports_without_jax():
         "from spacetime_tpu_torch import scene, convert, kernels\n"
         "from spacetime_tpu_torch.models.softbody import SoftbodyModel\n"
         "from spacetime_tpu_torch.ops import forces, raytrace, render_cuda, worldline\n"
+        "from spacetime_tpu_torch.ops import band_cuda, points_cuda, rasterize\n"
+        "from spacetime_tpu_torch import cli, engine, headline\n"
         "sb = scene.SceneBuilder(); sb.add(scene.disc_softbody(3, 0, (0, 0), (0.1, 0), True))\n"
         "p, o = sb.build()\n"
         "m = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()))\n"

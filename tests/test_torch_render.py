@@ -19,6 +19,7 @@ from spacetime_tpu.camera import Camera as JCamera
 from spacetime_tpu.ops import raytrace as jrt
 from spacetime_tpu.ops import worldline as jwl
 from spacetime_tpu_torch import convert
+from spacetime_tpu_torch.ops import band_cuda
 from spacetime_tpu_torch.ops import raytrace as rt
 from spacetime_tpu_torch.ops import worldline as wl
 
@@ -102,7 +103,8 @@ def test_cone_band_window_and_pairs_match_jax(frame, band):
     jparams = _jparams(band=band)
     params = _port_params(jparams)
     ja0, jhi0, jtr, _ = jrt._cone_band_window(jbuf, None, jparams, cam=jcam)
-    a0, hi0, tr, _ = rt._cone_band_window(buf, params, cam)
+    bw = band_cuda.cone_band_window(buf, params, cam)
+    a0, hi0, tr = bw.a0, bw.hi0, bw.truncated
     np.testing.assert_array_equal(a0.numpy(), np.asarray(ja0))
     assert hi0 == int(jhi0) and int(tr) == int(jtr)
     assert (int(tr) > 0) == (band == 2)
@@ -239,8 +241,35 @@ def test_brute_oracle_matches_jax_and_fast_path(frame):
     assert _mismatch(fast.numpy().transpose(2, 0, 1), ours.transpose(2, 0, 1)) < 0.03
 
 
-@pytest.mark.parametrize("change", [dict(camera_frame=True), dict(retarded=False),
-                                    dict(segments=2)])
+def test_instant_pairs_match_jax(frame):
+    """The instantaneous view's pairs: each particle's newest segment."""
+    jbuf, jp, jo, jcam = frame["j"]
+    buf, tp, to, cam = frame["t"]
+    jparams = _jparams(opaque=False, retarded=False)
+    ref = jrt._instant_pairs(jbuf, jp.object_index, jo, jparams)
+    ours = rt._instant_pairs(buf, tp.object_index, to, _port_params(jparams))
+    valid = np.asarray(ref.pair_valid)
+    np.testing.assert_array_equal(ours.pair_valid.numpy(), valid)
+    assert int(ours.n_pairs) == int(ref.n_pairs) == int(np.asarray(jp.active).sum())
+    np.testing.assert_array_equal(ours.pdata.numpy(), np.asarray(ref.pdata))
+
+
+@pytest.mark.parametrize("cell_px", [16, 9])
+def test_instant_render_matches_jax(frame, cell_px):
+    """opaque=False, retarded=False, as the Engine's instant mode sets it:
+    no band search, no retina, band_truncated 0."""
+    img, jimg, diag, jdiag = _images(frame, _jparams(opaque=False, retarded=False,
+                                                     cell_px=cell_px))
+    assert img.shape == (3, HT, W) and np.isfinite(img).all()
+    assert (img < 0.99).mean() > 0.02  # the discs are in view
+    assert _mismatch(img, jimg) <= PIXEL_SHARE
+    assert int(diag.band_truncated) == int(jdiag.band_truncated) == 0
+    assert diag.retina_dropped is None and jdiag.retina_dropped is None
+    for name in ("pairs_used", "bin_dropped", "cell_too_small", "entry_dropped"):
+        assert int(getattr(diag, name)) == int(getattr(jdiag, name)), name
+
+
+@pytest.mark.parametrize("change", [dict(camera_frame=True), dict(segments=2)])
 def test_unported_modes_raise(frame, change):
     buf, tp, to, cam = frame["t"]
     params = dataclasses.replace(_port_params(_jparams()), **change)
