@@ -1,13 +1,18 @@
 """spacetime_tpu_torch — the PyTorch/CUDA port of `spacetime_tpu`.
 
-It covers the headline frame: one relativistic RK4 softbody step, one push
-into the mirrored worldline ring, and one flat retarded-time render.  Module
-names mirror the JAX package so each counterpart is easy to find; the JAX
-package stays the reference that the tests hold this one against.
+It covers the relativistic RK4 softbody step (lattice-padded or row-gather
+bonds, materials with plastic creep), the mirrored worldline ring, the flat
+retarded, boosted (camera-frame), instantaneous and point renders, and the
+Engine with its CLI.  Module names mirror the JAX package so each
+counterpart is easy to find; the JAX package stays the reference that the
+tests hold this one against.
 
 Conventions:
-  * plain functions on tensors, dataclasses of tensors for state, and an
-    explicit `device` argument wherever state is created (no hidden `.cuda()`);
+  * plain functions on tensors, dataclasses of tensors for state, and a
+    `device` argument wherever state is created.  The entry points (Engine,
+    SoftbodyModel, engine.build_scene, the CLI) run on cuda:0 when none is
+    named and raise without CUDA (device.py); only an explicit "cpu" runs on
+    the CPU;
   * each hand-written CUDA kernel (`csrc/`) sits beside a plain-torch version
     of the same function.  A wrapper takes the plain version only for CPU
     tensors; for CUDA tensors it launches the kernel or raises;

@@ -18,8 +18,6 @@ import dataclasses
 import json
 import sys
 
-import torch
-
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="spacetime_tpu_torch", description=__doc__,
@@ -40,15 +38,10 @@ def run(argv=None):
     """Parse `argv`, build the Engine and run its frames.  Returns
     (engine, last image, stats summary)."""
     args = _parser().parse_args(argv)
-    if args.cpu:
-        device = torch.device("cpu")
-    elif torch.cuda.is_available():
-        device = torch.device("cuda", 0)
-    else:
-        raise RuntimeError("no CUDA device: spacetime_tpu_torch runs on an NVIDIA GPU "
-                           "(pass --cpu for the CPU path)")
-
+    from . import device as device_mod
     from .engine import Engine
+
+    device = device_mod.resolve("cpu" if args.cpu else None)
     from .utils.config import get_config
 
     cfg = get_config(args.config)

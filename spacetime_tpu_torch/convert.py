@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
+from .ops.materials import ParticleMaterials
 from .ops.worldline import WorldlineBuffer
 from .state import Objects, Particles
 
@@ -62,3 +63,11 @@ def camera_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> Camera:
         zoom=_t(fields["zoom"], device, np.float32),
         vel=_t(fields["vel"], device, np.float32),
     )
+
+
+def materials_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> ParticleMaterials:
+    """ParticleMaterials from its fields; a field missing or None stays None."""
+    return ParticleMaterials(**{
+        name: None if fields.get(name) is None else _t(fields[name], device, np.float32)
+        for name in ParticleMaterials._fields
+    })

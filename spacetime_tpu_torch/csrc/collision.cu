@@ -3,8 +3,15 @@
 // Replaces the TPU kernel spacetime_tpu/ops/forces_pallas.py
 // `_collision_kernel` (host function `collision_forces_pallas`).  Per particle i it
 // sums  repulsion * (p_i - p_j) / |p_i - p_j|  over every j with
-// 0 < |p_i - p_j|^2 < cd^2, bonded pairs included (the caller subtracts
-// them with `bonded_repulsion_shifted`); dist2 > 0 is the self-exclusion.
+// 0 < |p_i - p_j|^2 < cd^2, in one of the TPU kernel's two variants:
+//   * include (`exclude_bonds=False`, collision_forces_launch): bonded
+//     pairs stay in the sum, the caller subtracts them with
+//     `bonded_repulsion_shifted`; dist2 > 0 is the self-exclusion;
+//   * exclude (`exclude_bonds=True`, collision_forces_exclude_launch): the
+//     kernel itself drops j == i and j == neighbors[i][0..7], for scenes
+//     whose bonds have no shifted offsets (forces_pallas.py:68-73, 158-163).
+//     Each thread loads its particle's 8 neighbours into registers before
+//     the scan; a -1 slot never equals a candidate, whose ids are >= 0.
 //
 // Layout: particles are stable-sorted by flat halo cell id once per step
 // (ops/forces_cuda.py), and `cell_start[c]` is the first sorted row of cell
@@ -25,6 +32,8 @@
 // dependent loads per candidate (index, then position); the design
 // keeps every candidate read a cached load and accumulates in registers in
 // a fixed order, so results are deterministic run to run (no atomics).
+// The exclude variant adds 9 integer compares per candidate against
+// registers, no memory traffic.
 // The TPU kernel's 128-element window alignment, DMA chunking, split
 // windows and BIGPOS overscan exist to feed the TPU's DMA engine and do not
 // carry over.
@@ -33,6 +42,7 @@
 
 namespace {
 
+template <bool EXCLUDE>
 __global__ void collision_kernel(const float2* __restrict__ pos,
                                  const int* __restrict__ sorted_idx,
                                  const int* __restrict__ sorted_cell,
@@ -40,6 +50,7 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
                                  const float* __restrict__ max_disp, int n,
                                  int n_cells, int side, float cd, float cd2,
                                  float bres, float repulsion,
+                                 const int* __restrict__ neighbors,
                                  float2* __restrict__ out) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n) return;
@@ -48,6 +59,10 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
   float fx = 0.0f, fy = 0.0f;
   if (c < n_cells) {  // inactive particles (cell id n_cells) get no force
     const float2 p = pos[i];
+    int nbr[8];
+    if (EXCLUDE) {
+      for (int s = 0; s < 8; ++s) nbr[s] = neighbors[static_cast<size_t>(i) * 8 + s];
+    }
     const int cy = c / side;
     const int cx = c - cy * side;
     // cells were assigned at the step's start positions; since then every
@@ -62,8 +77,14 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
       // row * side + x_hi + 1 <= n_cells, the last entry of cell_start
       const int lo = cell_start[row * side + x_lo];
       const int hi = cell_start[row * side + x_hi + 1];
-      for (int j = lo; j < hi; ++j) {
-        const float2 q = pos[sorted_idx[j]];
+      for (int k = lo; k < hi; ++k) {
+        const int j = sorted_idx[k];
+        if (EXCLUDE) {
+          bool bonded = j == i;
+          for (int s = 0; s < 8; ++s) bonded |= j == nbr[s];
+          if (bonded) continue;
+        }
+        const float2 q = pos[j];
         const float dx = p.x - q.x;
         const float dy = p.y - q.y;
         const float d2 = dx * dx + dy * dy;
@@ -78,6 +99,24 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
   out[i] = make_float2(fx, fy);
 }
 
+template <bool EXCLUDE>
+int launch(const void* pos, const void* sorted_idx, const void* sorted_cell,
+           const void* cell_start, const void* max_disp, int n, int n_cells,
+           int side, float cd, float cd2, float bres, float repulsion,
+           const void* neighbors, void* out, void* stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  if (blocks > 0) {
+    collision_kernel<EXCLUDE><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(pos), static_cast<const int*>(sorted_idx),
+        static_cast<const int*>(sorted_cell),
+        static_cast<const int*>(cell_start),
+        static_cast<const float*>(max_disp), n, n_cells, side, cd, cd2, bres,
+        repulsion, static_cast<const int*>(neighbors), static_cast<float2*>(out));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int collision_forces_launch(const void* pos, const void* sorted_idx,
@@ -87,15 +126,17 @@ extern "C" int collision_forces_launch(const void* pos, const void* sorted_idx,
                                        int n_cells, int side, float cd,
                                        float cd2, float bres, float repulsion,
                                        void* out, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  if (blocks > 0) {
-    collision_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float2*>(pos), static_cast<const int*>(sorted_idx),
-        static_cast<const int*>(sorted_cell),
-        static_cast<const int*>(cell_start),
-        static_cast<const float*>(max_disp), n, n_cells, side, cd, cd2, bres,
-        repulsion, static_cast<float2*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(pos, sorted_idx, sorted_cell, cell_start, max_disp, n,
+                       n_cells, side, cd, cd2, bres, repulsion, nullptr, out,
+                       stream);
+}
+
+extern "C" int collision_forces_exclude_launch(
+    const void* pos, const void* sorted_idx, const void* sorted_cell,
+    const void* cell_start, const void* max_disp, int n, int n_cells, int side,
+    float cd, float cd2, float bres, float repulsion, const void* neighbors,
+    void* out, void* stream) {
+  return launch<true>(pos, sorted_idx, sorted_cell, cell_start, max_disp, n,
+                      n_cells, side, cd, cd2, bres, repulsion, neighbors, out,
+                      stream);
 }

@@ -18,6 +18,15 @@
 // The planar (3, H, W) image is written directly; pixels of the partial
 // last cell row/column (1080 = 67.5 x 16) are skipped.
 //
+// CAMERA_FRAME (the boosted view, the TPU kernel's `camera_frame` branch,
+// render_pallas.py:110-118): the pixel is a point of the camera's rest
+// frame, so it is first mapped back to its ground query point by the
+// closed-form inverse warp `unwarp_xy` (ops/boost.py, same f32 operation
+// order, the v < 1e-9 still-camera select after the arithmetic, no
+// fast-math intrinsics); r, t_e, the shading direction and everything
+// after them use the ground point.  The retina quads (sfq) were looked up
+// from the unwarped bearing on the host side and are read unchanged.
+//
 // What bounds it on an H100: arithmetic and instruction throughput in the candidate loop
 // (~15 flops per candidate per pixel, up to bin_capacity candidates), not
 // memory: a cell's entries (<= bin_capacity x 10 floats, 2.5 KB at 64) are
@@ -39,6 +48,7 @@ enum {
   DOPPLER = 4,
   BEAMING = 8,
   SPECTRAL = 16,
+  CAMERA_FRAME = 32,
 };
 
 // Mirrors render_cuda.PixelParams (ctypes) field for field.
@@ -59,6 +69,31 @@ __device__ float planck(float d_safe, float x, float num) {
 
 __device__ float hat(float x) { return fmaxf(0.0f, 1.0f - fabsf(x)); }
 
+// ops/boost.py unwarp_xy: camera-frame offset (ux, uy) -> ground cone
+// offset (dx, dy) for camera velocity (vx, vy).
+__device__ void unwarp_xy(float ux, float uy, float vx, float vy, float* dx,
+                          float* dy) {
+  const float eps = 1e-12f;
+  const float v = sqrtf(vx * vx + vy * vy);
+  const float inv = 1.0f / fmaxf(v, eps);
+  const float vhx = vx * inv;
+  const float vhy = vy * inv;
+  const float g = 1.0f / sqrtf(fmaxf(1.0f - (vx * vx + vy * vy), eps));
+  const float u_par = ux * vhx + uy * vhy;
+  const float u2 = ux * ux + uy * uy;
+  const float uperp2 = fmaxf(u2 - u_par * u_par, 0.0f);
+  const float a = u_par / g;
+  const float inv_g2 = fmaxf(1.0f - v * v, eps);  // 1/gamma^2
+  const float s = sqrtf(a * a * v * v + (a * a + uperp2) * inv_g2);
+  const float r = (s - a * v) / inv_g2;
+  const float d_par = a - v * r;
+  const float wx = ux + vhx * (d_par - u_par);
+  const float wy = uy + vhy * (d_par - u_par);
+  const bool still = v < 1e-9f;
+  *dx = still ? ux : wx;
+  *dy = still ? uy : wy;
+}
+
 // The pass for pixel (gx, gy) over the cell's `count` entries staged in sh.
 __device__ void shade_pixel(const float* sh, int count, const float* __restrict__ sfq,
                             const float* __restrict__ scal, const PixelParams& p,
@@ -66,8 +101,14 @@ __device__ void shade_pixel(const float* sh, int count, const float* __restrict_
   const float t_now = scal[0], cxm = scal[1], cym = scal[2];
   const float cvx = scal[3], cvy = scal[4];
   const float x0 = scal[5], y0 = scal[6], ps = scal[7];
-  const float pxw = x0 + static_cast<float>(gx) * ps;
-  const float pyw = y0 + static_cast<float>(gy) * ps;
+  float pxw = x0 + static_cast<float>(gx) * ps;
+  float pyw = y0 + static_cast<float>(gy) * ps;
+  if (p.flags & CAMERA_FRAME) {
+    float ox, oy;
+    unwarp_xy(pxw - cxm, pyw - cym, cvx, cvy, &ox, &oy);
+    pxw = cxm + ox;
+    pyw = cym + oy;
+  }
   const float relx = pxw - cxm;
   const float rely = pyw - cym;
   const float r = sqrtf(relx * relx + rely * rely);

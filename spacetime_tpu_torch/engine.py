@@ -21,10 +21,15 @@ Differences by design:
     (the JAX package's `_ADAPT_FIELDS` leaves it out).
   * The collision and point kernels have no window cap, so the JAX
     package's `wmax` adaptation has no counterpart.
+  * The Engine runs on cuda:0 unless `device` names another (`"cpu"` for
+    the plain-torch path); without CUDA the default raises.
 
-Not ported yet (they raise NotImplementedError): a mesh, aloof bodies,
-materials, the camera-frame view, defects and BTZ, and the retina,
-conical, btz and worldline3d modes.
+Materials (`config.materials`, with plastic creep), the camera-frame
+(boosted) view and scenes without spring offsets (the row-gather physics,
+e.g. `SceneSpec(lattice_pad=False)` bodies with irregular rows) run as in
+the JAX package.  Not ported yet (they raise NotImplementedError): a mesh,
+aloof bodies, defects and BTZ, and the retina, conical, btz and worldline3d
+modes.
 """
 
 from __future__ import annotations
@@ -38,14 +43,15 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from . import device as device_mod
 from . import scene as scene_mod
 from .camera import Camera, CameraController
 from .models.softbody import SoftbodyModel
-from .ops import forces, rasterize, raytrace
+from .ops import forces, materials as materials_ops, rasterize, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .ops.rk4 import StepAux
-from .state import Objects, Particles
+from .state import Objects, Particles, with_rest_len
 from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
 from .utils.stats import FramePerfStats, StageClock, StatsWindow
@@ -53,8 +59,10 @@ from .utils.stats import FramePerfStats, StageClock, StatsWindow
 MODES = ("retarded", "instant", "points")
 
 
-def build_scene(spec: SceneSpec, device="cpu"):
-    """(particles, objects) on `device` for a SceneSpec."""
+def build_scene(spec: SceneSpec, device=None):
+    """(particles, objects) on `device` (None: cuda:0, raising without CUDA)
+    for a SceneSpec."""
+    device = device_mod.resolve(device)
     sb = scene_mod.SceneBuilder()
     pad = spec.lattice_pad
     mat_idx = spec.material_indices or (0,) * len(spec.bodies)
@@ -81,8 +89,6 @@ def _refuse_unported(config: EngineConfig, aloof_bodies, mesh) -> None:
     missing = [
         (mesh is not None, "a device mesh (parallel/)"),
         (bool(aloof_bodies), "aloof bodies (models/aloofbody.py)"),
-        (config.materials is not None, "materials (ops/materials.py)"),
-        (config.render.camera_frame, "the camera-frame view (ops/boost.py)"),
         (config.defect is not None or config.defect_source is not None,
          "conical defects (ops/curved.py, ops/gravity.py)"),
         (config.btz is not None, "BTZ (ops/btz.py)"),
@@ -94,22 +100,34 @@ def _refuse_unported(config: EngineConfig, aloof_bodies, mesh) -> None:
 
 
 class Engine:
-    """Owns the state on one device and drives the frame loop."""
+    """Owns the state on one device and drives the frame loop.  `device`
+    None means cuda:0 and raises without CUDA; pass "cpu" for the CPU."""
 
     def __init__(self, config: EngineConfig, particles: Optional[Particles] = None,
-                 objects: Optional[Objects] = None, device="cpu", aloof_bodies=(),
+                 objects: Optional[Objects] = None, device=None, aloof_bodies=(),
                  mesh=None):
         _refuse_unported(config, aloof_bodies, mesh)
+        self.device = device_mod.resolve(device)
         self.log = logmod.initialize()
         self.config = config
-        self.device = torch.device(device)
         if particles is None:
             particles, objects = build_scene(config.scene, self.device)
         self.particles = particles.to(self.device)
         self.objects = objects.to(self.device)
+        # None for an irregular bond graph: the row-gather physics
         offsets = forces.derive_spring_offsets(self.particles.neighbors.cpu().numpy())
         self.model = SoftbodyModel(self.particles.capacity, offsets, config.physics,
                                    device=self.device)
+        # per-particle material planes (None when everything is default)
+        self.materials = None
+        if config.materials is not None:
+            self.materials = materials_ops.particle_materials(
+                config.materials, self.objects.material_index, self.particles.object_index)
+        if (self.materials is not None and self.materials.creep_rate is not None
+                and self.particles.rest_len is None):
+            # plastic creep needs the per-bond rest-length state; an evolved
+            # one passed in (or loaded from a checkpoint) is kept as it is
+            self.particles = with_rest_len(self.particles, config.physics.rest_lengths())
         # host camera state (f32), mirrored into the device Camera
         self._cam_pos = np.asarray(config.cam_pos, np.float32)
         self._cam_zoom = np.float32(config.cam_zoom)
@@ -197,7 +215,7 @@ class Engine:
         total = None
         for _ in range(self.config.steps_per_frame):
             a = clock.mark()
-            self.particles, aux = self.model.step(self.particles)
+            self.particles, aux = self.model.step(self.particles, self.materials)
             b = clock.mark()
             self.time += self.config.physics.h
             wl.push_frame(self.worldline, self.particles, self.time)
@@ -240,6 +258,12 @@ class Engine:
         if cfg.render_mode in ("retarded", "instant") and out.max_age == 0:
             ps = zoom / max(cfg.width, cfg.height)
             corner = 0.5 * ps * math.hypot(cfg.width, cfg.height)
+            if out.camera_frame:
+                # the boosted view's GROUND footprint reaches gamma (1 + |v|)
+                # times the corner distance on the trailing side; the host
+                # camera velocity, so no device sync
+                v = min(float(np.linalg.norm(self._cam_vel)), 0.999)
+                corner *= (1.0 + v) / math.sqrt(1.0 - v * v)
             a = int(math.ceil(corner / cfg.physics.h)) + out.band + 8
             a = min(cfg.history, ((a + 63) // 64) * 64)
             if a < cfg.history:

@@ -13,6 +13,8 @@ so kernel-vs-plain checks on the card compare like with like.
 
 `launches` counts kernel launches by name.  Each wrapper adds one where it
 launches its kernel and nowhere else; `reset_launch_counts` zeroes them.
+A kernel's variants count apart: `collision` (bonded pairs included) and
+`collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC",
 )
 
-launches = {"collision": 0, "pixel_pass": 0, "band": 0, "points": 0}
+launches = {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
+            "pixel_pass_camera_frame": 0, "band": 0, "points": 0}
 
 _lib = None
 build_seconds = None  # wall time of this process's build, None if cached
@@ -115,6 +118,10 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp,
     ]
     lib.collision_forces_launch.restype = ci
+    lib.collision_forces_exclude_launch.argtypes = [
+        vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp, vp,
+    ]
+    lib.collision_forces_exclude_launch.restype = ci
     lib.pixel_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.pixel_pass_launch.restype = ci
     lib.band_window_launch.argtypes = [

@@ -3,8 +3,12 @@
 Counterpart of `spacetime_tpu/models/softbody.py`.  The module holds the
 static configuration and, as buffers, the per-slot rest lengths and the
 spring-offset table; the state is a `Particles` dataclass passed in and
-returned.  The collision kernel runs exactly when the particles are CUDA
-tensors (ops/forces_cuda.py).
+returned, and optional `materials` (ops/materials.py) ride along each step.
+With spring offsets (lattice-padded scenes) the step reads bonds by the
+shifted rule; without them (`spring_offsets=None`, any bond graph) it takes
+the row-gather physics and the collision kernel's bond-excluding variant.
+The collision kernel runs exactly when the particles are CUDA tensors
+(ops/forces_cuda.py).
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from .. import device as device_mod
 from ..constants import DEFAULT_PARAMS, PhysicsParams
 from ..ops import forces as forces_ops
 from ..ops import rk4 as rk4_ops
@@ -30,10 +35,12 @@ def default_bin_resolution(params: PhysicsParams) -> float:
 
 
 class SoftbodyModel(nn.Module):
-    """Static config + step for a lattice-padded scene.
+    """Static config + step.
 
     `spring_offsets` (forces.derive_spring_offsets of the scene's neighbor
-    table) is required: the port has only the shifted-spring physics.
+    table) selects the shifted-spring physics; None selects the row-gather
+    physics.  `device` None means cuda:0 (device.resolve: raises without
+    CUDA).
     """
 
     def __init__(
@@ -41,14 +48,10 @@ class SoftbodyModel(nn.Module):
         capacity: int,
         spring_offsets: Optional[tuple],
         params: PhysicsParams = DEFAULT_PARAMS,
-        device="cpu",
+        device=None,
     ):
         super().__init__()
-        if spring_offsets is None:
-            raise NotImplementedError(
-                "scenes without spring_offsets need the row-gather physics, "
-                "which is not ported yet (use lattice_pad=True scenes)"
-            )
+        device = device_mod.resolve(device)
         self.capacity = capacity
         self.params = params
         self.grid_dim = GRID_DIM
@@ -57,20 +60,23 @@ class SoftbodyModel(nn.Module):
             "rest_lengths", torch.from_numpy(params.rest_lengths()).to(device)
         )
         self.register_buffer(
-            "spring_offsets", forces_ops.spring_offsets_tensor(spring_offsets, device)
+            "spring_offsets",
+            None if spring_offsets is None
+            else forces_ops.spring_offsets_tensor(spring_offsets, device),
         )
 
-    def step(self, particles: Particles) -> tuple[Particles, rk4_ops.StepAux]:
+    def step(self, particles: Particles, materials=None
+             ) -> tuple[Particles, rk4_ops.StepAux]:
         """One physics frame: cell sort + RK4."""
         return rk4_ops.physics_step(
             particles, self.params, self.rest_lengths, self.grid_dim,
-            self.spring_offsets, self.bin_resolution,
+            self.spring_offsets, self.bin_resolution, materials=materials,
         )
 
-    def step_n(self, particles: Particles, n_steps: int
+    def step_n(self, particles: Particles, n_steps: int, materials=None
                ) -> tuple[Particles, rk4_ops.StepAux]:
         """`n_steps` frames; returns the last frame's diagnostics."""
         aux = None
         for _ in range(n_steps):
-            particles, aux = self.step(particles)
+            particles, aux = self.step(particles, materials)
         return particles, aux

@@ -1,20 +1,30 @@
 """Spring and collision forces (plain torch).
 
-Counterpart of the shifted-spring half of `spacetime_tpu/ops/forces.py`:
+Counterpart of `spacetime_tpu/ops/forces.py`:
 
   * Hooke springs to up to 8 bonded neighbors,
-        F += -k (|d| - rest) * d/|d|,  d = p_self - p_neighbor;
+        F += -k (|d| - rest) * d/|d|,  d = p_self - p_neighbor,
+    with an optional per-particle stiffness scale (pairwise mean) and a
+    spring-damper term (ops/materials.py);
+  * plastic creep of the per-bond rest lengths;
   * the repulsion of BONDED pairs, subtracted from the collision kernel's
     all-pairs sum (ops/forces_cuda.py) to exclude bonded neighbors;
   * the O(n^2) collision oracle the tests hold the kernel against.
 
-"Shifted" keeps the JAX package's rule for which bonds count: slot s of
-particle i bonds to i + d for one of the slot's offsets d
-(`derive_spring_offsets`).  JAX reads those partners with static rolls;
-here they are read with one gather `px[col]`, which returns the same value
-on every lane the rule selects (col = i + d lies in [0, N), so the roll
-never wraps there).  Per-slot contributions are summed slot by slot in slot
-order, as JAX's loop does.
+Two ways to read a particle's bonded partners, as in the JAX package:
+
+  * "shifted" (lattice-padded scenes): slot s of particle i bonds to i + d
+    for one of the slot's offsets d (`derive_spring_offsets`).  JAX reads
+    those partners with static rolls; here they are read with one gather
+    `px[col]`, which returns the same value on every lane the rule selects
+    (col = i + d lies in [0, N), so the roll never wraps there).
+  * "rows" (any bond graph, `derive_spring_offsets` returned None): every
+    valid slot is a bond, read by the same gather.  JAX packs each
+    particle's fields into an (N, 8) row for one row gather, a TPU layout
+    trick; a plain gather per field replaces it.
+
+Per-slot contributions are summed slot by slot in slot order, as JAX's
+loop does.
 """
 
 from __future__ import annotations
@@ -56,18 +66,15 @@ def spring_offsets_tensor(offsets, device="cpu") -> torch.Tensor:
     return torch.from_numpy(table).to(device)
 
 
-def _bonded_deltas(px, py, neighbors, offsets):
-    """(sel, dx, dy), each (N, 8): `sel` marks slots whose bond is one of the
-    slot's offsets (the -1 sentinel never selects), dx/dy = p_i - p_bond."""
-    n = px.shape[0]
+def _bonded_slots(neighbors, offsets):
+    """(sel, j), each (N, 8): `sel` marks slots whose bond is one of the
+    slot's offsets (the -1 sentinel never selects), `j` the bonded index
+    (clamped to 0 where the slot is empty)."""
+    n = neighbors.shape[0]
     iota = torch.arange(n, dtype=neighbors.dtype, device=neighbors.device)
-    col = neighbors
-    diff = col - iota[:, None]  # (N, 8)
-    sel = (col >= 0) & (diff[:, :, None] == offsets[None, :, :]).any(dim=2)
-    j = col.clamp(min=0).long()
-    dx = px[:, None] - px[j]
-    dy = py[:, None] - py[j]
-    return sel, dx, dy
+    diff = neighbors - iota[:, None]  # (N, 8)
+    sel = (neighbors >= 0) & (diff[:, :, None] == offsets[None, :, :]).any(dim=2)
+    return sel, neighbors.clamp(min=0).long()
 
 
 def _sum_slots(c: torch.Tensor) -> torch.Tensor:
@@ -78,15 +85,74 @@ def _sum_slots(c: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def spring_forces_shifted(px, py, neighbors, offsets, rest_lengths, k):
-    """Hooke spring force sum over bonded slots; returns (fx, fy).
-    `rest_lengths` is (8,) per slot or (N, 8) per bond."""
-    sel, dx, dy = _bonded_deltas(px, py, neighbors, offsets)
+def _row_slots(neighbors):
+    """(valid, j) for any bond graph: every valid slot is a bond."""
+    return neighbors >= 0, neighbors.clamp(min=0).long()
+
+
+def _springs(bonded, j, px, py, rest_lengths, k, k_pp):
+    dx = px[:, None] - px[j]
+    dy = py[:, None] - py[j]
     dist = torch.sqrt(dx * dx + dy * dy)
     inv = torch.where(dist > 0, 1.0 / torch.clamp(dist, min=_EPS), 0.0)
+    kk = k if k_pp is None else k * 0.5 * (k_pp[:, None] + k_pp[j])
     rl = rest_lengths if rest_lengths.dim() == 2 else rest_lengths[None, :]
-    mag = torch.where(sel, -k * (dist - rl) * inv, 0.0)
+    mag = torch.where(bonded, -kk * (dist - rl) * inv, 0.0)
     return _sum_slots(mag * dx), _sum_slots(mag * dy)
+
+
+def _damping(bonded, j, px, py, vx, vy, c_pp):
+    dx = px[:, None] - px[j]
+    dy = py[:, None] - py[j]
+    dvx = vx[:, None] - vx[j]
+    dvy = vy[:, None] - vy[j]
+    inv2 = 1.0 / torch.clamp(dx * dx + dy * dy, min=_EPS)
+    cc = 0.5 * (c_pp[:, None] + c_pp[j])
+    mag = torch.where(bonded, -cc * (dvx * dx + dvy * dy) * inv2, 0.0)
+    return _sum_slots(mag * dx), _sum_slots(mag * dy)
+
+
+def _creep(bonded, j, px, py, rest_len, creep_rate, yield_strain, h):
+    dx = px[:, None] - px[j]
+    dy = py[:, None] - py[j]
+    dist = torch.sqrt(dx * dx + dy * dy)
+    c_pair = torch.minimum(creep_rate[:, None], creep_rate[j])
+    if yield_strain is None:
+        y_pair = 0.0
+    else:
+        y_pair = torch.maximum(yield_strain[:, None], yield_strain[j])
+    excess = torch.clamp(dist - rest_len * (1.0 + y_pair), min=0.0)
+    return torch.where(bonded, rest_len + c_pair * h * excess, rest_len)
+
+
+def spring_forces_shifted(px, py, neighbors, offsets, rest_lengths, k, k_pp=None):
+    """Hooke spring force sum over bonded slots; returns (fx, fy).
+    `rest_lengths` is (8,) per slot or (N, 8) per bond; `k_pp` (N,)
+    optionally scales the stiffness per particle, the pair taking the
+    endpoint mean so forces stay equal and opposite."""
+    return _springs(*_bonded_slots(neighbors, offsets), px, py, rest_lengths, k, k_pp)
+
+
+def bond_damping_shifted(px, py, vx, vy, neighbors, offsets, c_pp):
+    """Spring-damper force along bonds, F_i = -c_ij ((v_i - v_j) . d^) d^
+    with c_ij the endpoint mean of `c_pp` (symmetric, so momentum is
+    conserved).  The velocities are the step's ORIGINAL ones (ops/rk4.py
+    evaluates every stage against them)."""
+    return _damping(*_bonded_slots(neighbors, offsets), px, py, vx, vy, c_pp)
+
+
+def creep_rest_lengths_shifted(px, py, neighbors, offsets, rest_len, creep_rate,
+                               yield_strain, h):
+    """Plastic creep: per-bond rest lengths grow toward the current length
+    when stretched past the yield strain,
+
+        R' = R + c_pair * h * max(0, L - R * (1 + y_pair)),
+
+    with c_pair = min(c_i, c_j) and y_pair = max(y_i, y_j) (0 when
+    `yield_strain` is None), so both reciprocal slots of a bond update to
+    the same value.  Returns the new (N, 8) rest lengths."""
+    return _creep(*_bonded_slots(neighbors, offsets), px, py, rest_len, creep_rate,
+                  yield_strain, h)
 
 
 def bonded_repulsion_shifted(px, py, neighbors, offsets, collision_distance,
@@ -94,13 +160,36 @@ def bonded_repulsion_shifted(px, py, neighbors, offsets, collision_distance,
     """Repulsion contributed by BONDED neighbors — the collision kernel's own
     per-pair formula (rsqrt of dist2, constant magnitude) — for subtraction
     from the kernel's all-pairs sum."""
-    sel, dx, dy = _bonded_deltas(px, py, neighbors, offsets)
+    sel, j = _bonded_slots(neighbors, offsets)
+    dx = px[:, None] - px[j]
+    dy = py[:, None] - py[j]
     cd2 = collision_distance * collision_distance
     dist2 = dx * dx + dy * dy
     hit = sel & (dist2 < cd2) & (dist2 > 0.0)
     inv = torch.rsqrt(torch.clamp(dist2, min=1e-20))
     mag = torch.where(hit, repulsion * inv, 0.0)
     return _sum_slots(mag * dx), _sum_slots(mag * dy)
+
+
+def spring_forces_rows(px, py, neighbors, rest_lengths, k, k_pp=None, c_pp=None,
+                       vx=None, vy=None):
+    """Hooke springs over every valid bond slot (any bond graph); returns
+    (fx, fy).  With materials it adds the pairwise-mean stiffness scale
+    `k_pp` and the spring-damper force of `c_pp` against the velocities
+    (vx, vy), as spring_forces_shifted and bond_damping_shifted do."""
+    slots = _row_slots(neighbors)
+    fx, fy = _springs(*slots, px, py, rest_lengths, k, k_pp)
+    if c_pp is not None:
+        dfx, dfy = _damping(*slots, px, py, vx, vy, c_pp)
+        fx, fy = fx + dfx, fy + dfy
+    return fx, fy
+
+
+def creep_rest_lengths_rows(pos, neighbors, rest_len, creep_rate, yield_strain, h):
+    """creep_rest_lengths_shifted over every valid bond slot (any bond
+    graph)."""
+    return _creep(*_row_slots(neighbors), pos[:, 0], pos[:, 1], rest_len, creep_rate,
+                  yield_strain, h)
 
 
 def collision_forces(pos, cand_idx, cand_valid, neighbors, collision_distance,

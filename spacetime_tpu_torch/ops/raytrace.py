@@ -24,10 +24,17 @@ Per frame (`render_retarded`):
   5. the pixel pass (ops/render_cuda.py): per pixel, the nearest in-time
      capsule of its cell, Doppler/beaming shading and occlusion.
 
+With `camera_frame` (the boosted view, ops/boost.py) the view cells and
+pixels live in the camera's rest frame: step 4 splats each pair's warped
+centre with its reach scaled by `boost.stretch`, the retina lookup and the
+pixel pass unwarp each pixel to its ground query point, and step 1 skips
+the view-hull cull, since the view's ground footprint goes beyond the
+output rect.
+
 Steps 1 and 5 have CUDA kernels; the compaction, retina and splat are
 plain torch on every device (in the JAX package they are XLA, not Pallas).
-Not ported yet: the camera-frame (boosted) view, `segments` rank
-compaction and the nearest-corner 2x2 splat (`splat_cells=4`).
+Not ported yet: `segments` rank compaction and the nearest-corner 2x2
+splat (`splat_cells=4`).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch
 from ..camera import Camera, pixel_centers
 from ..constants import C2
 from ..state import Objects
-from . import band_cuda, render_cuda
+from . import band_cuda, boost, render_cuda
 from .worldline import WorldlineBuffer
 
 _BIG = 3.0e38
@@ -66,7 +73,7 @@ class RenderParams:
     entry_budget: int = 0  # cap on sorted splat entries (0 = all)
     opaque: bool = True  # False = x-ray: no occlusion shading
     retarded: bool = True  # False = instantaneous view (newest segment, no occlusion)
-    camera_frame: bool = False  # boosted map view (not ported)
+    camera_frame: bool = False  # boosted map view (ops/boost.py); needs retarded=True
     occlusion_downsample: int = 2  # retina lookup per d x d pixel quad
     max_age: int = 0  # oldest age (ticks) the cone sweep scans; 0 = the ring
     retina_budget: int = 8192  # boundary-pair budget of the occlusion retina
@@ -256,8 +263,9 @@ def _view_grid(width, height, cam, k):
 def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                 t_now, width: int, height: int, params: RenderParams):
     """Cone-crossing segments in the (N * band) pair layout, validity
-    re-checked exactly per segment and culled to the view + camera hull.
-    Returns (PairData, band_truncated, segment_dropped)."""
+    re-checked exactly per segment and culled to the view + camera hull
+    (not in the camera frame, whose ground footprint goes beyond the output
+    rect).  Returns (PairData, band_truncated, segment_dropped)."""
     dt, rho, band = params.dt, params.rho, params.band
     if 0 < params.segments < band:
         raise NotImplementedError("segments rank compaction is not ported yet")
@@ -286,20 +294,21 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
         & (torch.minimum(ra, rb) <= s_hi + rho)
         & (torch.abs(qax) < 1.0e8)
     )
-    # straight rays: a camera -> pixel segment stays in the view + camera hull
-    _, _, pixel_size, x0, y0 = _view_grid(width, height, cam, params.cell_px)
-    margin = 4.0 * (rho + dt)
-    vx0 = torch.minimum(x0, cxm) - margin
-    vx1 = torch.maximum(x0 + width * pixel_size, cxm) + margin
-    vy0 = torch.minimum(y0, cym) - margin
-    vy1 = torch.maximum(y0 + height * pixel_size, cym) + margin
-    valid = (
-        valid
-        & (torch.maximum(qax, qbx) >= vx0)
-        & (torch.minimum(qax, qbx) <= vx1)
-        & (torch.maximum(qay, qby) >= vy0)
-        & (torch.minimum(qay, qby) <= vy1)
-    )
+    if not params.camera_frame:
+        # straight rays: a camera -> pixel segment stays in the view + camera hull
+        _, _, pixel_size, x0, y0 = _view_grid(width, height, cam, params.cell_px)
+        margin = 4.0 * (rho + dt)
+        vx0 = torch.minimum(x0, cxm) - margin
+        vx1 = torch.maximum(x0 + width * pixel_size, cxm) + margin
+        vy0 = torch.minimum(y0, cym) - margin
+        vy1 = torch.maximum(y0 + height * pixel_size, cym) + margin
+        valid = (
+            valid
+            & (torch.maximum(qax, qbx) >= vx0)
+            & (torch.minimum(qax, qbx) <= vx1)
+            & (torch.maximum(qay, qby) >= vy0)
+            & (torch.minimum(qay, qby) <= vy1)
+        )
 
     far = 2.0e9
     keep = lambda v: torch.where(valid, v, far).reshape(-1)
@@ -403,6 +412,14 @@ def _splat_keys(pairs: PairData, cam: Camera, width: int, height: int,
     cy = 0.5 * (pd[:, _F_AY] + pd[:, _F_BY])
     sx, sy = pd[:, _F_BX] - pd[:, _F_AX], pd[:, _F_BY] - pd[:, _F_AY]
     reach = params.rho + 0.5 * torch.sqrt(sx * sx + sy * sy)
+    if params.camera_frame:
+        # cells live in the boosted view: splat the pair's warped centre; a
+        # ground disc of radius `reach` maps inside a warped disc of radius
+        # stretch * reach
+        wux, wuy = boost.warp_xy(cx - cam.pos[0], cy - cam.pos[1], cam.vel[0], cam.vel[1])
+        cx = cam.pos[0] + wux
+        cy = cam.pos[1] + wuy
+        reach = reach * boost.stretch(cam.vel[0], cam.vel[1])
     # clamp before the int cast (far sentinels would overflow i32); values
     # past the clamp are out of the grid for every splat offset either way
     cell_x = torch.floor((cx - gx0) / lam).clamp(-2, wc + 1).to(torch.int32)
@@ -429,7 +446,10 @@ def _splat_keys(pairs: PairData, cam: Camera, width: int, height: int,
     key = torch.stack(keys, dim=1).reshape(-1).to(torch.int32)
     val = torch.arange(pcap, dtype=torch.int32, device=dev)[:, None].expand(
         pcap, n_splat).reshape(-1)
-    cell_too_small = lam < params.reach  # a 3x3 splat needs cells >= the reach
+    min_lam = params.reach  # a 3x3 splat needs cells >= the reach
+    if params.camera_frame:
+        min_lam = min_lam * boost.stretch(cam.vel[0], cam.vel[1])
+    cell_too_small = lam < min_lam
     geom = (wc_img, hc_img, pixel_size, x0, y0)
     return key, val, wc, hc, geom, cell_too_small
 
@@ -513,11 +533,18 @@ def _occlusion_ds(params: RenderParams) -> int:
     return ds if params.cell_px % ds == 0 else 1
 
 
-def _sfirst_lookup(s_first, gxq, gyq, x0, y0, pixel_size, cam, n_rays, off):
-    """Retina value at the angle of pixel (gxq, gyq) + `off` pixels."""
+def _sfirst_lookup(s_first, gxq, gyq, x0, y0, pixel_size, cam, n_rays, off,
+                   camera_frame: bool):
+    """Retina value at the angle of pixel (gxq, gyq) + `off` pixels.  With
+    `camera_frame` the pixel is a boosted-view point; the retina bins by
+    GROUND bearing, so it is unwarped first."""
     pxw = x0 + (gxq.to(torch.float32) + off) * pixel_size
     pyw = y0 + (gyq.to(torch.float32) + off) * pixel_size
-    phi = torch.atan2(pyw - cam.pos[1], pxw - cam.pos[0])
+    ox = pxw - cam.pos[0]
+    oy = pyw - cam.pos[1]
+    if camera_frame:
+        ox, oy = boost.unwarp_xy(ox, oy, cam.vel[0], cam.vel[1])
+    phi = torch.atan2(oy, ox)
     ri = torch.floor((phi + float(_PI)) / float(np.float32(2 * _PI)) * n_rays)
     ri = ri.clamp(0, n_rays - 1).long()
     return s_first[ri]
@@ -535,7 +562,7 @@ def _retina_quads(s_first, cam, width, height, params: RenderParams, geom):
     qx = torch.arange(wc_img * (k // ds), dtype=torch.int32, device=dev)[None, :]
     return _sfirst_lookup(
         s_first, qx * ds, qy * ds, x0, y0, pixel_size, cam, params.num_rays,
-        (ds - 1) * 0.5,
+        (ds - 1) * 0.5, params.camera_frame,
     ).contiguous()
 
 
@@ -562,10 +589,13 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
                        params: RenderParams, boundary=None):
     """Steps 1-4 of the frame (see the module docstring).  Returns
     (PixelInputs, RenderDiag); the diag fields are device tensors."""
-    if params.camera_frame:
-        raise NotImplementedError("camera_frame needs ops/boost.py, not ported yet")
     t_now = buf.times[buf.cursor]
     use_rays = params.opaque and params.retarded
+    if params.camera_frame and not params.retarded:
+        raise ValueError(
+            "camera_frame requires retarded=True (the boosted view is a warp of the past "
+            "light cone; an instantaneous boosted view would need a per-event "
+            "simultaneity re-slice)")
 
     retina_dropped = None
     segment_dropped = None
@@ -574,8 +604,7 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
         band_truncated = torch.zeros((), dtype=torch.int64, device=pairs.pdata.device)
     else:
         pairs_raw, band_truncated, segment_dropped = _band_pairs(
-            buf, obj_index, objects, cam, t_now, width, height, params
-        )
+            buf, obj_index, objects, cam, t_now, width, height, params)
         rows = pairs_raw.pdata.shape[0]
         if use_rays and boundary is not None and 0 < params.retina_budget < rows:
             # boundary pairs at the buffer front; the retina reads a prefix
@@ -673,6 +702,12 @@ def render_retarded_brute(buf: WorldlineBuffer, obj_index, objects: Objects,
     pc = pixel_centers(width, height, cam)
     px = pc[..., 0].reshape(-1)
     py = pc[..., 1].reshape(-1)
+    if params.camera_frame:
+        # pixels are boosted-view points: evaluate everything at the ground
+        # query point the inverse warp gives
+        ox, oy = boost.unwarp_xy(px - cam.pos[0], py - cam.pos[1], cam.vel[0], cam.vel[1])
+        px = cam.pos[0] + ox
+        py = cam.pos[1] + oy
     relx, rely = px - cam.pos[0], py - cam.pos[1]
     r = torch.sqrt(relx * relx + rely * rely)
     inv_r = 1.0 / torch.clamp(r, min=1e-12)

@@ -14,7 +14,9 @@ of splat entries built by ops/raytrace.py (`PixelInputs`):
   * scal (8,) f32 on the device: t_now, camera x, y, vx, vy, the world
     position x0, y0 of pixel (0, 0) and the pixel size;
 
-and return the planar (3, H, W) image.  The wrapper takes the plain version
+and return the planar (3, H, W) image.  With `params.camera_frame` each
+pixel is first unwarped to its ground query point (`boost.unwarp_xy`, the
+TPU kernel's `camera_frame` branch, render_pallas.py:110-118).  The wrapper takes the plain version
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
 """
 
@@ -26,10 +28,11 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import boost
 
 _F_AX, _F_AY, _F_BX, _F_BY, _F_TA, _F_VX, _F_VY, _F_CR, _F_CG, _F_CB = range(10)
 _LAMBDA_RGB = (610e-9, 550e-9, 465e-9)
-_USE_RAYS, _RETARDED, _DOPPLER, _BEAMING, _SPECTRAL = 1, 2, 4, 8, 16
+_USE_RAYS, _RETARDED, _DOPPLER, _BEAMING, _SPECTRAL, _CAMERA_FRAME = 1, 2, 4, 8, 16, 32
 PLAIN_CELL_CHUNK = 256  # view cells per block of the plain version
 
 
@@ -84,6 +87,9 @@ def pixel_pass_plain(inputs, params, *, width, height):
         gy = (cells // wc_img)[:, None] * k + sub // k
         pxw = x0 + gx.to(torch.float32) * ps
         pyw = y0 + gy.to(torch.float32) * ps
+        if params.camera_frame:
+            ox, oy = boost.unwarp_xy(pxw - cxm, pyw - cym, cvx, cvy)
+            pxw, pyw = cxm + ox, cym + oy
         relx, rely = pxw - cxm, pyw - cym
         r = torch.sqrt(relx * relx + rely * rely)
         t_e = t_now - r if params.retarded else t_now.expand(r.shape)
@@ -150,6 +156,7 @@ def pixel_pass(inputs, params, *, width, height):
         | (_DOPPLER if params.doppler else 0)
         | (_BEAMING if params.beaming else 0)
         | (_SPECTRAL if params.spectral else 0)
+        | (_CAMERA_FRAME if params.camera_frame else 0)
     )
     from .raytrace import planck_constants
 
@@ -170,6 +177,7 @@ def pixel_pass(inputs, params, *, width, height):
         sfq.data_ptr() if sfq is not None else None, scal.data_ptr(),
         ctypes.byref(p), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    kernels.check(status, "pixel_pass")
-    kernels.launches["pixel_pass"] += 1
+    name = "pixel_pass_camera_frame" if params.camera_frame else "pixel_pass"
+    kernels.check(status, name)
+    kernels.launches[name] += 1
     return out

@@ -3,7 +3,10 @@
 particles, worldline ring, camera — and a JSON meta record in one .npz.
 
 Arrays are stored by name (`<part>.<field>`); fields that are None are
-left out.  Host ints of a dataclass (the ring's cursor) are stored as 0-d
+left out, so an optional field such as `Particles.rest_len` (the per-bond
+rest lengths of plastic creep) is saved when the state has it and expected
+back exactly when the resuming state has it — the JAX package's rule,
+whose pytree has a `rest_len` leaf only when the field is set.  Host ints of a dataclass (the ring's cursor) are stored as 0-d
 arrays.  `load` validates the names and shapes against the current state
 before it returns anything, and puts each tensor on the device and dtype
 of its counterpart there.

@@ -5,10 +5,10 @@
 `render` holds the port's RenderParams.  Two JAX fields are left out: the
 `wl3d` view parameters, which wait for the worldline3d mode, and
 `stage_timing`, because the port measures stage times on every frame
-(utils/stats.py).  Fields whose feature is not ported yet (defects, BTZ,
-materials) are kept so configs read the same; the Engine refuses them.
+(utils/stats.py).  Fields whose feature is not ported yet (defects, BTZ)
+are kept so configs read the same; the Engine refuses them.
 
-The registry keeps every name of the JAX package.  Five named configs are
+The registry keeps every name of the JAX package.  Seven named configs are
 built field for field as the JAX functions build them; every other name
 raises NotImplementedError naming what it waits for; an unknown name
 raises KeyError.
@@ -32,7 +32,8 @@ class SceneSpec:
     bodies: Tuple[tuple, ...]
     capacity: Optional[int] = None
     # pad bodies to their bounding boxes (regular bond offsets -> shifted-
-    # slice spring physics, the only physics the port has so far)
+    # slice spring physics); False keeps the masks' own rows, whose
+    # irregular bond offsets take the row-gather physics
     lattice_pad: bool = True
     # per-body material id into EngineConfig.materials (None = all 0)
     material_indices: Optional[Tuple[int, ...]] = None
@@ -64,7 +65,8 @@ class EngineConfig:
     btz: Optional[Tuple] = None
     # read StepAux/RenderDiag every N frames: warn + adapt budgets
     diag_every: int = 30
-    # per-material rows (not ported yet: the Engine raises when set)
+    # per-material rows (ops/materials.py): (k_scale, damping, break_scale
+    # [, creep_rate, yield_strain]) per material id; None = all default
     materials: Optional[Tuple[Tuple[float, ...], ...]] = None
 
 
@@ -145,6 +147,49 @@ def config_accelerated_camera() -> EngineConfig:
     )
 
 
+def config_boosted_observer() -> EngineConfig:
+    """Camera-frame (boosted) map view: a camera at 0.5c flies between two
+    blobs, and the view plots every past-cone event in the camera's
+    instantaneous rest frame (ops/boost.py)."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(3000, (0.55, 0.30), (0.0, 0.0), BLUE),
+                _blob(3000, (0.05, 0.55), (0.0, 0.0), RED),
+            )
+        ),
+        width=512,
+        height=512,
+        history=512,
+        cam_pos=(0.25, 0.5),
+        cam_vel=(0.5, 0.0),
+        # bin_capacity pre-sized 256: the warped splat's stretched reach
+        # densifies bins
+        render=RenderParams(bin_capacity=256, camera_frame=True),
+    )
+
+
+def config_plastic_collision() -> EngineConfig:
+    """Plastic vs damped elastic collision: the blue blob creeps (it stays
+    dented after the impact), the red one does not."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(3000, (0.30, 0.50), (0.12, 0.0), BLUE),
+                _blob(3000, (0.70, 0.50), (-0.12, 0.0), RED),
+            ),
+            material_indices=(0, 1),
+        ),
+        width=512,
+        height=512,
+        history=384,
+        cam_pos=(0.5, 0.5),
+        render=RenderParams(bin_capacity=128),
+        # blue: creeping solder-like material; red: damped elastic
+        materials=((1.0, 25.0, 1.0, 25.0, 0.10), (1.0, 10.0, 1.0)),
+    )
+
+
 def config_rindler_horizon() -> EngineConfig:
     """A camera under proper acceleration 2 c/s: its horizon 0.5 ls behind
     it freezes the trailing blob's image while the leading blob stays
@@ -187,11 +232,11 @@ CONFIGS = {
     "two_body_collision": config_two_body_collision,
     "flagship_1080p": config_flagship_1080p,
     "accelerated_camera": config_accelerated_camera,
-    "boosted_observer": _waits_for("boosted_observer", "the boosted view (ops/boost.py)"),
+    "boosted_observer": config_boosted_observer,
     "conical_defect": _waits_for("conical_defect", "the conical render mode (ops/curved.py)"),
     "selfgravity": _waits_for(
         "selfgravity", "the conical render mode and gravity (ops/curved.py, ops/gravity.py)"),
-    "plastic_collision": _waits_for("plastic_collision", "materials (ops/materials.py)"),
+    "plastic_collision": config_plastic_collision,
     "rindler_horizon": config_rindler_horizon,
 }
 

@@ -9,6 +9,7 @@ only PyTorch is installed:
 the `cuda` tests skip; the rest check the wrappers' refusals on the CPU.
 """
 
+import dataclasses
 import os
 import shutil
 
@@ -40,13 +41,14 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _overlapping(device):
+def _overlapping(device, lattice_pad=True, squeeze=1.0):
     sb = scene.SceneBuilder()
-    sb.add(scene.disc_softbody(4, 0, (0.0, 0.0), (0.0, 0.0), lattice_pad=True))
-    sb.add(scene.disc_softbody(4, 1, (0.012, 0.007), (0.0, 0.0), lattice_pad=True))
+    sb.add(scene.disc_softbody(4, 0, (0.0, 0.0), (0.0, 0.0), lattice_pad=lattice_pad))
+    sb.add(scene.disc_softbody(4, 1, (0.012, 0.007), (0.0, 0.0), lattice_pad=lattice_pad))
     p, _ = sb.build(capacity=256, device=device)
     jitter = np.random.default_rng(0).uniform(-2e-4, 2e-4, tuple(p.pos.shape))
-    return p, p.pos + torch.from_numpy(jitter.astype(np.float32)).to(device) * p.active[:, None]
+    pos = p.pos * squeeze + torch.from_numpy(jitter.astype(np.float32)).to(device)
+    return p, torch.where(p.active[:, None], pos, p.pos)
 
 
 def _frame(device, frames=3):
@@ -133,6 +135,70 @@ def test_collision_kernel_matches_plain(cuda_device, disp):
     plain = forces_cuda.collision_forces_plain(moved, p.active, CD, REP)
     torch.testing.assert_close(ours[p.active], plain[p.active], **COLL)
     assert plain[p.active].abs().max() > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("disp", [0.0, 1.5e-3])
+def test_collision_exclude_kernel_matches_plain(cuda_device, disp):
+    """The bond-excluding variant on an unpadded scene squeezed so bonded
+    pairs lie inside the collision distance; it launches its own kernel."""
+    p, pos = _overlapping(cuda_device, lattice_pad=False, squeeze=0.55)
+    bres = default_bin_resolution(P)
+    cell, _ = grid.cell_ids(pos, p.active, bres, 64)
+    order = forces_cuda.build_cell_order(cell, 66 ** 2, 66, bres)
+    step = np.random.default_rng(1).uniform(-disp, disp, tuple(pos.shape)).astype(np.float32)
+    moved = (pos + torch.from_numpy(step).to(cuda_device) * p.active[:, None]).contiguous()
+    max_disp = torch.tensor(float(np.abs(step).max()), device=cuda_device)
+    kernels.reset_launch_counts()
+    ours = forces_cuda.collision_forces(moved, p.active, order, CD, REP, max_disp,
+                                        neighbors=p.neighbors)
+    assert kernels.launches["collision_exclude"] == 1 and kernels.launches["collision"] == 0
+    plain = forces_cuda.collision_forces_plain(moved, p.active, CD, REP, p.neighbors)
+    torch.testing.assert_close(ours[p.active], plain[p.active], **COLL)
+    incl = forces_cuda.collision_forces_plain(moved, p.active, CD, REP)
+    assert (incl - plain)[p.active].abs().max() > 1.0  # bonded pairs were excluded
+    assert ours[~p.active].abs().max() == 0.0
+
+
+@pytest.mark.cuda
+def test_row_physics_on_card_matches_cpu(cuda_device):
+    """Row-gather steps (no spring offsets) through the unpadded discs'
+    impact on the card vs the CPU path: every collision launch is the
+    exclude variant."""
+    out = {}
+    kernels.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        sb = scene.SceneBuilder()
+        sb.add(scene.disc_softbody(5, 0, (0.35, 0.40), (0.25, 0.05)))
+        sb.add(scene.disc_softbody(5, 1, (0.387, 0.405), (-0.25, -0.05)))
+        p, _ = sb.build(device=dev)
+        model = SoftbodyModel(p.capacity, None, device=dev)
+        p, _ = model.step_n(p, 4)
+        out[str(dev)] = p
+    assert kernels.launches["collision_exclude"] == 16 and kernels.launches["collision"] == 0
+    cpu, gpu = out["cpu"], out[str(cuda_device)]
+    torch.testing.assert_close(gpu.pos.cpu()[cpu.active], cpu.pos[cpu.active], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [True, False])
+def test_pixel_kernel_camera_frame_matches_plain(cuda_device, opaque):
+    """The CAMERA_FRAME branch (inverse warp before shading) against the
+    plain version on the same warped CSR, camera at 0.5c."""
+    p, objects, buf, cam = _frame(cuda_device)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=0.15, vel=(0.5, 0.1), device=cuda_device)
+    params = _params(opaque=opaque, camera_frame=True)
+    inputs, _ = raytrace.prepare_pixel_pass(buf, p.object_index, objects, cam, 96, 64, params,
+                                            boundary=wl.boundary_mask(p))
+    kernels.reset_launch_counts()
+    ours = render_cuda.pixel_pass(inputs, params, width=96, height=64)
+    assert kernels.launches["pixel_pass_camera_frame"] == 1 and kernels.launches["pixel_pass"] == 0
+    plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
+    assert (plain < 0.99).float().mean() > 0.02
+    assert _mismatch(ours, plain) <= PIXEL_SHARE
+    ground = render_cuda.pixel_pass(inputs, dataclasses.replace(params, camera_frame=False),
+                                    width=96, height=64)
+    assert _mismatch(ours, ground) > 0.01  # the branch changes the picture
 
 
 @pytest.mark.cuda

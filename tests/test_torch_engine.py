@@ -54,7 +54,7 @@ def runs():
         je = JEngine(_tiny(jconfig, jrt.RenderParams, render_mode=mode))
         jimgs = []
         je.run(FRAMES, on_frame=lambda i, img: jimgs.append(np.asarray(img)))
-        pe = Engine(_tiny(config, rt.RenderParams, render_mode=mode))
+        pe = Engine(_tiny(config, rt.RenderParams, render_mode=mode), device="cpu")
         imgs = []
         pe.run(FRAMES, on_frame=lambda i, img: imgs.append(img.numpy().copy()))
         out[mode] = (je, jimgs, pe, imgs)
@@ -98,7 +98,7 @@ def test_render_params_match_jax_at_zooms():
     kw = dict(width=256, height=128, history=512)
     rkw = dict(num_rays=256, pair_budget=4096, entry_budget=8192, retina_budget=512, segments=2)
     je = JEngine(_tiny(jconfig, jrt.RenderParams, **kw, render=jrt.RenderParams(**rkw)))
-    pe = Engine(_tiny(config, rt.RenderParams, **kw, render=rt.RenderParams(**rkw)))
+    pe = Engine(_tiny(config, rt.RenderParams, **kw, render=rt.RenderParams(**rkw)), device="cpu")
     seen = set()
     for boosts in ((0, 0, 0, 0, 0, 0), (2, 64, 1, 2, 1, 1)):
         for eng in (je, pe):
@@ -127,7 +127,8 @@ def test_check_diag_adapts_as_jax():
     rkw = dict(num_rays=128, bin_capacity=64, pair_budget=1024, entry_budget=4096,
                retina_budget=256, segments=2)
     je = JEngine(_tiny(jconfig, jrt.RenderParams, diag_every=1, render=jrt.RenderParams(**rkw)))
-    pe = Engine(_tiny(config, rt.RenderParams, diag_every=1, render=rt.RenderParams(**rkw)))
+    pe = Engine(_tiny(config, rt.RenderParams, diag_every=1, render=rt.RenderParams(**rkw)),
+                device="cpu")
     je.last_aux = None
     seq = [dict(bin_dropped=500), dict(bin_dropped=1), dict(band_truncated=3),
            dict(pairs_used=5000), dict(retina_dropped=7), dict(entry_dropped=9),
@@ -154,7 +155,7 @@ def test_build_scene_matches_jax():
                         ("box", (7, 3), (0.4, 0.2), (0.0, -0.1), (0, 1, 0))),
                 material_indices=(0, 1))
     jp, jo = jbuild(jconfig.SceneSpec(**spec))
-    p, o = engine_mod.build_scene(config.SceneSpec(**spec))
+    p, o = engine_mod.build_scene(config.SceneSpec(**spec), device="cpu")
     for a, b in ((p, jp), (o, jo)):
         for f in dataclasses.fields(a):
             if getattr(a, f.name) is not None:

@@ -1,7 +1,7 @@
 """The port's Engine surface on the CPU, mirroring tests/test_engine.py:
 pause, camera keys, the accelerated camera, stats, checkpoints, StepAux
-summing, the refusals of what is not ported, the named configs (held to
-the JAX ones field for field) and the CLI."""
+summing, the refusals of what is not ported, the default device, the named
+configs (held to the JAX ones field for field) and the CLI."""
 
 import dataclasses
 import json
@@ -18,7 +18,7 @@ from spacetime_tpu_torch.utils import config
 from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec, get_config
 
 PORTED = ("single_blob", "two_body_collision", "flagship_1080p", "accelerated_camera",
-          "rindler_horizon")
+          "rindler_horizon", "boosted_observer", "plastic_collision")
 
 
 def _tiny(**kw):
@@ -31,7 +31,7 @@ def _tiny(**kw):
 
 
 def test_pause_freezes_physics():
-    eng = Engine(_tiny(render_mode="points"))
+    eng = Engine(_tiny(render_mode="points"), device="cpu")
     eng.run_frame(keys={"p": True})  # toggles pause before stepping
     pos0 = eng.particles.pos.clone()
     eng.run_frame()
@@ -42,7 +42,7 @@ def test_pause_freezes_physics():
 
 
 def test_camera_keys_pan_and_zoom():
-    eng = Engine(_tiny(render_mode="points"))
+    eng = Engine(_tiny(render_mode="points"), device="cpu")
     x0 = float(eng.camera.pos[0])
     eng.run_frame(keys={"right": True})
     assert float(eng.camera.pos[0]) > x0
@@ -53,7 +53,7 @@ def test_camera_keys_pan_and_zoom():
 
 
 def test_accelerated_camera_velocity_grows():
-    eng = Engine(_tiny(render_mode="points", cam_accel=(0.5, 0.0)))
+    eng = Engine(_tiny(render_mode="points", cam_accel=(0.5, 0.0)), device="cpu")
     eng.run(10)
     v = eng.camera.vel.numpy()
     assert v[0] > 0.0 and np.linalg.norm(v) < 1.0
@@ -63,14 +63,14 @@ def test_accelerated_camera_velocity_grows():
 
 
 def test_rindler_velocity_stays_below_c():
-    eng = Engine(_tiny(render_mode="points", cam_accel=(400.0, 0.0)))
+    eng = Engine(_tiny(render_mode="points", cam_accel=(400.0, 0.0)), device="cpu")
     eng.run(8)
     assert 0.99 < float(eng.camera.vel[0]) <= 0.999 + 1e-6
 
 
 @pytest.mark.parametrize("mode", ["points", "retarded", "instant"])
 def test_stats_report_stage_times(mode):
-    eng = Engine(_tiny(render_mode=mode))
+    eng = Engine(_tiny(render_mode=mode), device="cpu")
     summary = eng.run(4)
     assert summary["fps_avg"] > 0 and summary["frame_avg_ms"] > 0
     for k in ("step_avg_ms", "worldline_avg_ms", "render_avg_ms"):
@@ -86,10 +86,10 @@ def test_steps_per_frame_sums_step_aux():
                         capacity=256),
         render_mode="points", width=16, height=16, history=8, steps_per_frame=4,
         diag_every=1)
-    particles, objects = build_scene(cfg.scene)
+    particles, objects = build_scene(cfg.scene, device="cpu")
     vel = torch.zeros_like(particles.vel)
     vel[0, 0], vel[1, 0] = -0.95, 0.95  # apart at 0.95c each
-    eng = Engine(cfg, dataclasses.replace(particles, vel=vel), objects)
+    eng = Engine(cfg, dataclasses.replace(particles, vel=vel), objects, device="cpu")
     eng.run_frame()
     assert int(eng.last_aux.bonds_broken) >= 2
     assert eng.time == pytest.approx(4 * cfg.physics.h)
@@ -101,7 +101,7 @@ def test_steps_per_frame_sums_step_aux():
 def test_checkpoint_roundtrip_with_every_adapt_field(tmp_path):
     """State, time, frame, pause and ALL adaptation fields, _seg_boost
     included, survive a round trip; the resumed engine steps identically."""
-    eng = Engine(_tiny(render_mode="points"))
+    eng = Engine(_tiny(render_mode="points"), device="cpu")
     eng.run(3)
     for i, name in enumerate(Engine._ADAPT_FIELDS):
         setattr(eng, name, i + 1)
@@ -109,7 +109,7 @@ def test_checkpoint_roundtrip_with_every_adapt_field(tmp_path):
     path = str(tmp_path / "ckpt.npz")
     eng.save_checkpoint(path)
 
-    eng2 = Engine(_tiny(render_mode="points"))
+    eng2 = Engine(_tiny(render_mode="points"), device="cpu")
     eng2.load_checkpoint(path)
     assert (eng2.time, eng2.frame) == (eng.time, eng.frame)
     for name in Engine._ADAPT_FIELDS:
@@ -126,11 +126,11 @@ def test_checkpoint_roundtrip_with_every_adapt_field(tmp_path):
 
 
 def test_checkpoint_rejects_foreign_config(tmp_path):
-    eng = Engine(_tiny(render_mode="points"))
+    eng = Engine(_tiny(render_mode="points"), device="cpu")
     eng.run(2)
     path = str(tmp_path / "ckpt.npz")
     eng.save_checkpoint(path)
-    eng2 = Engine(_tiny(render_mode="points", cam_zoom=2.5))
+    eng2 = Engine(_tiny(render_mode="points", cam_zoom=2.5), device="cpu")
     with pytest.raises(ValueError, match="fingerprint"):
         eng2.load_checkpoint(path)
     assert eng2.frame == 0  # nothing committed
@@ -138,14 +138,14 @@ def test_checkpoint_rejects_foreign_config(tmp_path):
     assert eng2.frame == eng.frame
     # another capacity: refused on shape before any field changes
     eng3 = Engine(_tiny(render_mode="points", scene=dataclasses.replace(
-        _tiny().scene, capacity=512)))
+        _tiny().scene, capacity=512)), device="cpu")
     with pytest.raises(ValueError, match="shape"):
         eng3.load_checkpoint(path, strict=False)
     assert eng3.frame == 0 and eng3.particles.capacity == 512
 
 
 def test_conserved_quantities():
-    eng = Engine(_tiny(render_mode="points"))
+    eng = Engine(_tiny(render_mode="points"), device="cpu")
     tot = eng.conserved_quantities()
     n = int(eng.particles.active.sum())
     v = np.float32(0.1)
@@ -161,21 +161,37 @@ def test_conserved_quantities():
 @pytest.mark.parametrize("change,what", [
     (dict(render_mode="conical"), "render_mode"),
     (dict(render_mode="retina"), "render_mode"),
-    (dict(materials=((1.0, 10.0, 1.0),)), "materials"),
-    (dict(render=RenderParams(camera_frame=True)), "camera-frame"),
     (dict(btz=((0.5, 0.5), 0.03, 0.45)), "BTZ"),
     (dict(defect=((0.5, 0.5), 1.0)), "defects"),
 ])
 def test_unported_engine_features_raise(change, what):
     with pytest.raises(NotImplementedError, match=what):
-        Engine(_tiny(**change))
+        Engine(_tiny(**change), device="cpu")
+
+
+def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch):
+    """With no device named, the Engine, SoftbodyModel and build_scene run
+    on cuda:0; without CUDA they raise and never fall back to the CPU."""
+    from spacetime_tpu_torch.models.softbody import SoftbodyModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    stepped = []
+    monkeypatch.setattr(SoftbodyModel, "step", lambda self, *a, **k: stepped.append(1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(_tiny())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SoftbodyModel(256, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_scene(_tiny().scene)
+    assert not stepped
+    assert Engine(_tiny(), device="cpu").device.type == "cpu"
 
 
 def test_mesh_and_aloof_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(_tiny(), mesh=object())
+        Engine(_tiny(), device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="aloof"):
-        Engine(_tiny(), aloof_bodies=(object(),))
+        Engine(_tiny(), device="cpu", aloof_bodies=(object(),))
 
 
 # --------------------------------------------------------------------------

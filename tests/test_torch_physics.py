@@ -258,7 +258,7 @@ def test_cell_order_ranges_cover_all_contacts(rng):
 
 def _models(jp):
     offs = jforces.derive_spring_offsets(np.asarray(jp.neighbors))
-    return offs, SoftbodyModel(jp.capacity, offs)
+    return offs, SoftbodyModel(jp.capacity, offs, device="cpu")
 
 
 def test_physics_step_matches_jax_before_contact():
@@ -330,11 +330,6 @@ def test_step_n_matches_repeated_step():
     torch.testing.assert_close(a.pos, b.pos, rtol=0, atol=0)
 
 
-def test_model_without_offsets_raises():
-    with pytest.raises(NotImplementedError):
-        SoftbodyModel(256, None)
-
-
 def test_package_imports_without_jax():
     """The port must import and step with jax made unimportable."""
     code = (
@@ -343,10 +338,12 @@ def test_package_imports_without_jax():
         "from spacetime_tpu_torch.models.softbody import SoftbodyModel\n"
         "from spacetime_tpu_torch.ops import forces, raytrace, render_cuda, worldline\n"
         "from spacetime_tpu_torch.ops import band_cuda, points_cuda, rasterize\n"
-        "from spacetime_tpu_torch import cli, engine, headline\n"
+        "from spacetime_tpu_torch.ops import boost, materials\n"
+        "from spacetime_tpu_torch import cli, device, engine, headline\n"
         "sb = scene.SceneBuilder(); sb.add(scene.disc_softbody(3, 0, (0, 0), (0.1, 0), True))\n"
         "p, o = sb.build()\n"
-        "m = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()))\n"
+        "m = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),\n"
+        "                  device='cpu')\n"
         "p, aux = m.step(p)\n"
         "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k])\n"
         "print('ok')\n"

@@ -132,7 +132,8 @@ def test_cpu_slice_launches_no_kernel(runs):
     """On CPU tensors the wrappers take the plain versions: nothing counts."""
     kernels.reset_launch_counts()
     _run_port("cpu", 1)
-    assert kernels.launches == {"collision": 0, "pixel_pass": 0, "band": 0, "points": 0}
+    assert kernels.launches == {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
+                                "pixel_pass_camera_frame": 0, "band": 0, "points": 0}
 
 
 def test_profile_ranges_reach_every_sub_stage():
