@@ -1,4 +1,4 @@
-// Collision forces over cell-sorted particles (one thread per particle).
+// Collision forces over cell-sorted particles (a group of lanes per particle).
 //
 // Replaces the TPU kernel spacetime_tpu/ops/forces_pallas.py
 // `_collision_kernel` (host function `collision_forces_pallas`).  Per particle i it
@@ -10,30 +10,48 @@
 //   * exclude (`exclude_bonds=True`, collision_forces_exclude_launch): the
 //     kernel itself drops j == i and j == neighbors[i][0..7], for scenes
 //     whose bonds have no shifted offsets (forces_pallas.py:68-73, 158-163).
-//     Each thread loads its particle's 8 neighbours into registers before
-//     the scan; a -1 slot never equals a candidate, whose ids are >= 0.
+//     The distance test runs first; the 9 id compares run only for a
+//     candidate inside the cutoff, against the 8 neighbour slots each lane
+//     loaded once before its scan (a -1 slot never equals a candidate,
+//     whose ids are >= 0).  The sum is the same as comparing first.
 //
 // Layout: particles are stable-sorted by flat halo cell id once per step
 // (ops/forces_cuda.py), and `cell_start[c]` is the first sorted row of cell
 // c (an empty cell starts where the next one does).  Row-major cell ids
-// make the cells (cx-R .. cx+R) of one grid row a contiguous range of
-// sorted rows, so a particle's neighbourhood is 2R+1 exact ranges — no
-// window cap, hence `window_truncated` is always 0 on this path.  R is 1
-// (the 3x3 scan) for the stage-0 positions the cells were built from; the
-// later RK4 stages move particles by up to `max_disp` (a device scalar the
-// caller reduces per stage), and R grows to cover it, so contacts that
-// form during the step are found exactly as the all-pairs oracle finds
-// them.  A fixed 3x3 scan misses them: at a 0.5c impact, pairs close by
-// more than a 0.002 ls bin within one step.
+// make the cells x_lo..x_hi of one grid row a contiguous range of sorted
+// rows, so a particle's neighbourhood is one exact range per grid row — no
+// window cap, hence `window_truncated` is always 0 on this path.
 //
-// What bounds it on an H100: latency, not bandwidth or arithmetic.  At the
-// headline size (13k particles, a few candidates each at 0.002 ls bins)
-// the position table sits in L2, and the cost is the launch plus a few
-// dependent loads per candidate (index, then position); the design
-// keeps every candidate read a cached load and accumulates in registers in
-// a fixed order, so results are deterministic run to run (no atomics).
-// The exclude variant adds 9 integer compares per candidate against
-// registers, no memory traffic.
+// The scan: the cells were built from the step's start positions, and
+// since then every active particle moved by at most (Dx, Dy) (`disp`, a
+// device pair the caller reduces per RK4 stage).  A partner j of i at its
+// current position p has |p - q_j| < cd, so j's start position lies within
+// cd + Dx of p.x and cd + Dy of p.y.  The group scans exactly the cells
+// those two intervals map to, by the cell function of grid.cell_ids
+// (origin, bin, clamp into [1, grid_dim] — so particles parked outside the
+// extent in border cells are still found), each interval widened by
+// kRel of the magnitudes involved, many times the f32 rounding of the
+// bounds and of the cell division (here or in grid.cell_ids).  Contacts
+// that form during a step are found exactly as the all-pairs oracle finds
+// them.  At stage 0 (disp 0) this is about the 3 x 3 cells around the
+// particle; at stages 1-3 it is narrower than a square of reach
+// ceil((cd + 2 max(Dx, Dy)) / bin) around the start cell, and much
+// narrower across the direction of motion.
+//
+// What bounds it on an H100: latency, not bandwidth or arithmetic (its
+// bytes take a fraction of a launch's time).  At the
+// headline size (13k particles, a few to a few tens of candidates each) the
+// tables sit in L2, and each candidate is a chain of dependent loads (row
+// bounds, then the sorted id, then the position; the bounds of kRows rows
+// are loaded in one round trip).  One thread per particle would leave
+// most of the card idle (13k threads: about 100 blocks of 4 warps on 132
+// SMs), each thread walking its chain alone.  So each particle gets
+// a group of G lanes (a power of two: 8, or 16 when excluding); lane l takes the
+// candidates l, l + G, ... of the concatenation of the group's row ranges,
+// which splits each chain G ways and puts G times as many warps on the card
+// to overlap them.  The lanes' partial forces are summed by a __shfl_xor
+// butterfly in a fixed order: no float atomics, so the result is
+// bit-identical from run to run.
 // The TPU kernel's 128-element window alignment, DMA chunking, split
 // windows and BIGPOS overscan exist to feed the TPU's DMA engine and do not
 // carry over.
@@ -42,77 +60,128 @@
 
 namespace {
 
-template <bool EXCLUDE>
+// widening of each scan bound, relative to |p| + |origin| + cd + D: 16
+// roundings of f32 (2^-24 each) of the largest magnitude in the bound and
+// the cell division
+constexpr float kRel = 1.0f / 1048576.0f;  // 2^-20
+// grid rows whose range bounds are loaded at once (the 3 rows of stage 0
+// and the few of a step's later stages across the motion fit in one go)
+constexpr int kRows = 4;
+// the launch shape, chosen on an H100 (PERF.md, section 6): lanes per
+// particle for each variant (the exclude variant's later-stage scans hold
+// more candidates) and threads per block
+constexpr int kLanesInclude = 8;
+constexpr int kLanesExclude = 16;
+constexpr int kThreads = 256;
+
+// grid.cell_ids' cell of a coordinate already in cell units from the
+// origin: floor, clamped in float (a far particle would overflow an int)
+// into [0, grid_dim - 1], plus the halo
+__device__ __forceinline__ int cell_of(float u, int grid_dim) {
+  return static_cast<int>(fminf(fmaxf(floorf(u), 0.0f), static_cast<float>(grid_dim - 1))) + 1;
+}
+
+template <bool EXCLUDE, int G>
 __global__ void collision_kernel(const float2* __restrict__ pos,
                                  const int* __restrict__ sorted_idx,
                                  const int* __restrict__ sorted_cell,
                                  const int* __restrict__ cell_start,
-                                 const float* __restrict__ max_disp, int n,
+                                 const float* __restrict__ origin,
+                                 const float* __restrict__ disp, int n,
                                  int n_cells, int side, float cd, float cd2,
                                  float bres, float repulsion,
                                  const int* __restrict__ neighbors,
                                  float2* __restrict__ out) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n) return;
-  const int i = sorted_idx[t];
-  const int c = sorted_cell[t];
+  const int lane = threadIdx.x & (G - 1);
+  // the group's sorted row; neighbouring groups hold neighbouring cells,
+  // so their ranges overlap in L1
+  const int t = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  int i = 0;
   float fx = 0.0f, fy = 0.0f;
-  if (c < n_cells) {  // inactive particles (cell id n_cells) get no force
-    const float2 p = pos[i];
-    int nbr[8];
-    if (EXCLUDE) {
-      for (int s = 0; s < 8; ++s) nbr[s] = neighbors[static_cast<size_t>(i) * 8 + s];
-    }
-    const int cy = c / side;
-    const int cx = c - cy * side;
-    // cells were assigned at the step's start positions; since then every
-    // particle moved by at most max_disp per axis, so a pair in contact now
-    // was at most cd + 2 max_disp apart per axis at the start: R cells
-    const int reach = static_cast<int>(ceilf((cd + 2.0f * max_disp[0]) / bres));
-    const int r = min(max(reach, 1), side);
-    const int x_lo = max(cx - r, 0);
-    const int x_hi = min(cx + r, side - 1);
-    for (int row = max(cy - r, 0); row <= min(cy + r, side - 1); ++row) {
-      // cells x_lo..x_hi of one grid row are one contiguous sorted range;
-      // row * side + x_hi + 1 <= n_cells, the last entry of cell_start
-      const int lo = cell_start[row * side + x_lo];
-      const int hi = cell_start[row * side + x_hi + 1];
-      for (int k = lo; k < hi; ++k) {
-        const int j = sorted_idx[k];
-        if (EXCLUDE) {
-          bool bonded = j == i;
-          for (int s = 0; s < 8; ++s) bonded |= j == nbr[s];
-          if (bonded) continue;
+  if (t < n) {
+    i = sorted_idx[t];
+    if (sorted_cell[t] < n_cells) {  // inactive particles (cell id n_cells) get no force
+      const float2 p = pos[i];
+      int nbr[8];
+      if (EXCLUDE) {
+        for (int s = 0; s < 8; ++s) nbr[s] = neighbors[static_cast<size_t>(i) * 8 + s];
+      }
+      const int grid_dim = side - 2;
+      const float rx = cd + disp[0];
+      const float ry = cd + disp[1];
+      const float ox = origin[0];
+      const float oy = origin[1];
+      const float ex = rx + (fabsf(p.x) + fabsf(ox) + rx) * kRel;
+      const float ey = ry + (fabsf(p.y) + fabsf(oy) + ry) * kRel;
+      const int x_lo = cell_of((p.x - ex - ox) / bres, grid_dim);
+      const int x_hi = cell_of((p.x + ex - ox) / bres, grid_dim);
+      const int y_lo = cell_of((p.y - ey - oy) / bres, grid_dim);
+      const int y_hi = cell_of((p.y + ey - oy) / bres, grid_dim);
+      int base = 0;  // candidates in the rows before this one
+      for (int r0 = y_lo; r0 <= y_hi; r0 += kRows) {
+        // cells x_lo..x_hi of one grid row are one contiguous sorted range;
+        // row * side + x_hi + 1 < n_cells, an entry of cell_start.  The
+        // bounds of up to kRows rows are loaded together (independent
+        // loads, one round trip), then their candidates walked
+        int lo[kRows], hi[kRows];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int row = min(r0 + r, y_hi);
+          lo[r] = cell_start[row * side + x_lo];
+          hi[r] = r0 + r <= y_hi ? cell_start[row * side + x_hi + 1] : lo[r];
         }
-        const float2 q = pos[j];
-        const float dx = p.x - q.x;
-        const float dy = p.y - q.y;
-        const float d2 = dx * dx + dy * dy;
-        if (d2 < cd2 && d2 > 0.0f) {
-          const float mag = repulsion * rsqrtf(fmaxf(d2, 1e-20f));
-          fx += mag * dx;
-          fy += mag * dy;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          for (int k = lo[r] + ((lane - base) & (G - 1)); k < hi[r]; k += G) {
+            const int j = sorted_idx[k];
+            const float2 q = pos[j];
+            const float dx = p.x - q.x;
+            const float dy = p.y - q.y;
+            const float d2 = dx * dx + dy * dy;
+            if (d2 < cd2 && d2 > 0.0f) {
+              if (EXCLUDE) {
+                bool bonded = j == i;
+                for (int s = 0; s < 8; ++s) bonded |= j == nbr[s];
+                if (bonded) continue;
+              }
+              const float mag = repulsion * rsqrtf(fmaxf(d2, 1e-20f));
+              fx += mag * dx;
+              fy += mag * dy;
+            }
+          }
+          base += hi[r] - lo[r];
         }
       }
     }
   }
-  out[i] = make_float2(fx, fy);
+  // every lane of the warp reaches here (no early return): the butterfly
+  // adds the same pairs in the same order on every run, and commutes, so
+  // all G lanes hold the same bits
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    fx += __shfl_xor_sync(0xffffffffu, fx, o);
+    fy += __shfl_xor_sync(0xffffffffu, fy, o);
+  }
+  if (t < n && lane == 0) out[i] = make_float2(fx, fy);
 }
 
 template <bool EXCLUDE>
 int launch(const void* pos, const void* sorted_idx, const void* sorted_cell,
-           const void* cell_start, const void* max_disp, int n, int n_cells,
-           int side, float cd, float cd2, float bres, float repulsion,
+           const void* cell_start, const void* origin, const void* disp, int n,
+           int n_cells, int side, float cd, float cd2, float bres, float repulsion,
            const void* neighbors, void* out, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
+  constexpr int G = EXCLUDE ? kLanesExclude : kLanesInclude;
+  static_assert(G <= 32 && (G & (G - 1)) == 0 && kThreads % 32 == 0, "launch shape");
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * G;
+  const int blocks = static_cast<int>((total + kThreads - 1) / kThreads);
   if (blocks > 0) {
-    collision_kernel<EXCLUDE><<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    collision_kernel<EXCLUDE, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(pos), static_cast<const int*>(sorted_idx),
-        static_cast<const int*>(sorted_cell),
-        static_cast<const int*>(cell_start),
-        static_cast<const float*>(max_disp), n, n_cells, side, cd, cd2, bres,
-        repulsion, static_cast<const int*>(neighbors), static_cast<float2*>(out));
+        static_cast<const int*>(sorted_cell), static_cast<const int*>(cell_start),
+        static_cast<const float*>(origin), static_cast<const float*>(disp), n, n_cells, side,
+        cd, cd2, bres, repulsion, static_cast<const int*>(neighbors),
+        static_cast<float2*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -121,22 +190,19 @@ int launch(const void* pos, const void* sorted_idx, const void* sorted_cell,
 
 extern "C" int collision_forces_launch(const void* pos, const void* sorted_idx,
                                        const void* sorted_cell,
-                                       const void* cell_start,
-                                       const void* max_disp, int n,
-                                       int n_cells, int side, float cd,
-                                       float cd2, float bres, float repulsion,
-                                       void* out, void* stream) {
-  return launch<false>(pos, sorted_idx, sorted_cell, cell_start, max_disp, n,
-                       n_cells, side, cd, cd2, bres, repulsion, nullptr, out,
-                       stream);
+                                       const void* cell_start, const void* origin,
+                                       const void* disp, int n, int n_cells,
+                                       int side, float cd, float cd2, float bres,
+                                       float repulsion, void* out, void* stream) {
+  return launch<false>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n,
+                       n_cells, side, cd, cd2, bres, repulsion, nullptr, out, stream);
 }
 
 extern "C" int collision_forces_exclude_launch(
     const void* pos, const void* sorted_idx, const void* sorted_cell,
-    const void* cell_start, const void* max_disp, int n, int n_cells, int side,
-    float cd, float cd2, float bres, float repulsion, const void* neighbors,
-    void* out, void* stream) {
-  return launch<true>(pos, sorted_idx, sorted_cell, cell_start, max_disp, n,
-                      n_cells, side, cd, cd2, bres, repulsion, neighbors, out,
-                      stream);
+    const void* cell_start, const void* origin, const void* disp, int n,
+    int n_cells, int side, float cd, float cd2, float bres, float repulsion,
+    const void* neighbors, void* out, void* stream) {
+  return launch<true>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n,
+                      n_cells, side, cd, cd2, bres, repulsion, neighbors, out, stream);
 }

@@ -115,11 +115,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.collision_forces_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp,
     ]
     lib.collision_forces_launch.restype = ci
     lib.collision_forces_exclude_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp, vp,
     ]
     lib.collision_forces_exclude_launch.restype = ci
     lib.pixel_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]

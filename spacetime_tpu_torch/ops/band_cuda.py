@@ -119,9 +119,10 @@ def cone_band_window(buf, params, cam) -> BandWindow:
     if w > t2:
         raise ValueError(f"cone_band_window: band {band} exceeds the ring's {t2} rows")
     base_col, a_sw, col0, hi0 = _sweep_bounds(buf, params)
-    a0 = torch.empty(n, dtype=torch.int32, device=dev)
-    alast = torch.empty(n, dtype=torch.int32, device=dev)
-    wins = [torch.empty((n, w), dtype=torch.float32, device=dev) for _ in range(4)]
+    # one buffer for a0 and alast and one for the four windows (fewer host
+    # allocations a call); each output is a contiguous slice of its buffer
+    a0, alast = torch.empty((2, n), dtype=torch.int32, device=dev)
+    wins = torch.empty((4, n, w), dtype=torch.float32, device=dev)
     ages = torch.empty((n, w), dtype=torch.int32, device=dev)
     truncated = torch.zeros((), dtype=torch.int64, device=dev)
     status = kernels.library().band_window_launch(

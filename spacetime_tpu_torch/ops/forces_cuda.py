@@ -6,9 +6,9 @@ Replaces `spacetime_tpu/ops/forces_pallas.py` (`_collision_kernel`,
 `build_cell_order` stable-sorts the particles by flat halo cell id and
 builds a dense `[start, end)` table over all (bdim + 2)^2 cells by one
 `searchsorted`; the kernel then scans exact sorted ranges, so no window is
-ever truncated.  The scan covers (2R+1)^2 cells, R = 1 at the positions
-the cells were built from and wider by the particles' displacement since
-(see csrc/collision.cu), so its candidate set is exact at every RK4
+ever truncated.  Each particle's scan covers the cells within the
+collision distance plus the per-axis displacement since the cells were
+built (see csrc/collision.cu), so its candidate set is exact at every RK4
 stage.  The TPU-only machinery — the sort-as-permutation, the
 128-element alignment, `chunk_sub`, `split_windows`, the BIGPOS overscan —
 does not carry over: gathers and scatters on the card are plain indexing.
@@ -43,16 +43,18 @@ class CellOrder(NamedTuple):
     sorted_idx: torch.Tensor  # (N,) i32 particle index per sorted row
     sorted_cell: torch.Tensor  # (N,) i32 cell id per sorted row (n_cells = inactive)
     cell_start: torch.Tensor  # (n_cells + 1,) i32 first sorted row of each cell
+    origin: torch.Tensor  # (2,) f32 grid origin the cell ids were computed from
     n_cells: int
     side: int  # cells per grid row (grid_dim + 2)
     bin_resolution: float  # cell edge, lightseconds
 
 
-def build_cell_order(cell: torch.Tensor, n_cells: int, side: int,
+def build_cell_order(cell: torch.Tensor, origin: torch.Tensor, n_cells: int, side: int,
                      bin_resolution: float) -> CellOrder:
-    """Stable sort by cell id plus the dense per-cell start table.  Empty
-    cells start where the next cell does, so cells [a, b] span the sorted
-    rows [cell_start[a], cell_start[b + 1]); cell_start[n_cells] counts the
+    """Stable sort by cell id plus the dense per-cell start table; `cell`
+    and `origin` are what grid.cell_ids returns.  Empty cells start where
+    the next cell does, so cells [a, b] span the sorted rows
+    [cell_start[a], cell_start[b + 1]); cell_start[n_cells] counts the
     active particles."""
     sorted_cell, perm = torch.sort(cell, stable=True)
     queries = torch.arange(n_cells + 1, dtype=sorted_cell.dtype, device=cell.device)
@@ -61,6 +63,7 @@ def build_cell_order(cell: torch.Tensor, n_cells: int, side: int,
         sorted_idx=perm.to(torch.int32),
         sorted_cell=sorted_cell,
         cell_start=cell_start,
+        origin=origin,
         n_cells=n_cells,
         side=side,
         bin_resolution=bin_resolution,
@@ -97,14 +100,14 @@ def collision_forces_plain(pos: torch.Tensor, active: torch.Tensor,
 
 def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
                      collision_distance: float, repulsion: float,
-                     max_disp: torch.Tensor,
+                     disp: torch.Tensor,
                      neighbors: torch.Tensor | None = None) -> torch.Tensor:
     """(N, 2) collision forces: bonded pairs included, or excluded with
     self pairs when `neighbors` ((N, 8) i32) is given.  `order` was built
-    from earlier positions; `max_disp` (0-d f32 on the device) bounds how
-    far any particle moved per axis since, so the kernel widens its scan to
-    keep the candidate set exact.  CPU tensors take the plain version;
-    CUDA tensors launch `collision_forces_launch`, or
+    from earlier positions; `disp` ((2,) f32 on the device) bounds how far
+    any active particle moved along x and along y since, so the kernel
+    widens its scan to keep the candidate set exact.  CPU tensors take the
+    plain version; CUDA tensors launch `collision_forces_launch`, or
     `collision_forces_exclude_launch` with `neighbors`."""
     if pos.device.type == "cpu":
         return collision_forces_plain(pos, active, collision_distance, repulsion, neighbors)
@@ -119,8 +122,11 @@ def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
             raise ValueError(f"collision_forces: {name} must be contiguous int32 on {pos.device}")
     if order.sorted_idx.shape[0] != n or order.cell_start.shape[0] != order.n_cells + 1:
         raise ValueError("collision_forces: cell order does not match the particles")
-    if max_disp.dtype != torch.float32 or max_disp.numel() != 1 or max_disp.device != pos.device:
-        raise ValueError(f"collision_forces: max_disp must be one float32 on {pos.device}")
+    for name, t in (("origin", order.origin), ("disp", disp)):
+        if (t.dtype != torch.float32 or t.shape != (2,) or not t.is_contiguous()
+                or t.device != pos.device):
+            raise ValueError(f"collision_forces: {name} must be contiguous float32 (2,) "
+                             f"on {pos.device}")
     if neighbors is not None and (neighbors.dtype != torch.int32 or neighbors.shape != (n, 8)
                                   or not neighbors.is_contiguous()
                                   or neighbors.device != pos.device):
@@ -130,17 +136,17 @@ def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
     out = torch.empty_like(pos)
     cd2 = float(np.float32(collision_distance * collision_distance))
     args = (pos.data_ptr(), order.sorted_idx.data_ptr(), order.sorted_cell.data_ptr(),
-            order.cell_start.data_ptr(), max_disp.data_ptr(), n, order.n_cells,
-            order.side, float(collision_distance), cd2, float(order.bin_resolution),
-            float(repulsion))
+            order.cell_start.data_ptr(), order.origin.data_ptr(), disp.data_ptr(), n,
+            order.n_cells, order.side, float(collision_distance), cd2,
+            float(order.bin_resolution), float(repulsion))
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     if neighbors is None:
-        status = lib.collision_forces_launch(*args, out.data_ptr(), stream)
         name = "collision"
+        status = lib.collision_forces_launch(*args, out.data_ptr(), stream)
     else:
+        name = "collision_exclude"
         status = lib.collision_forces_exclude_launch(*args, neighbors.data_ptr(),
                                                      out.data_ptr(), stream)
-        name = "collision_exclude"
     kernels.check(status, name)
     kernels.launches[name] += 1
     return out

@@ -27,8 +27,9 @@ are kept:
 
 The cell sort is built once from the start-of-step positions and shared by
 all four force evaluations; each evaluation passes the collision kernel the
-largest displacement since, which widens its scan so no contact that forms
-during the step is missed.  The Euler integrator is not ported.
+largest displacement since along each axis, which widens its scan so no
+contact that forms during the step is missed.  The Euler integrator is not
+ported.
 """
 
 from __future__ import annotations
@@ -118,8 +119,9 @@ def physics_step(
     if bin_resolution < params.collision_distance - 1e-9:
         raise ValueError("bin_resolution below collision_distance breaks window coverage")
     bdim = max(1, int(round(grid_dim * params.grid_resolution / bin_resolution)))
-    cell, _origin = grid_ops.cell_ids(pos0, active, bin_resolution, bdim)
-    order = forces_cuda.build_cell_order(cell, (bdim + 2) ** 2, bdim + 2, bin_resolution)
+    cell, origin = grid_ops.cell_ids(pos0, active, bin_resolution, bdim)
+    order = forces_cuda.build_cell_order(cell, origin, (bdim + 2) ** 2, bdim + 2,
+                                         bin_resolution)
     cd = params.collision_distance
     rep = params.collision_repulsion_coefficient
     k_pp = materials.k_scale if materials is not None else None
@@ -129,9 +131,10 @@ def physics_step(
     nbr_rows = nbr.contiguous() if rows else None
 
     def F(pos):
-        # how far any particle moved per axis since the cells were built
-        max_disp = torch.where(act, (pos - pos0).abs(), 0.0).amax()
-        coll = forces_cuda.collision_forces(pos, active, order, cd, rep, max_disp,
+        # how far any particle moved along x and along y since the cells
+        # were built
+        disp = torch.where(act, (pos - pos0).abs(), 0.0).amax(dim=0)
+        coll = forces_cuda.collision_forces(pos, active, order, cd, rep, disp,
                                             neighbors=nbr_rows)
         px, py = pos[:, 0], pos[:, 1]
         if rows:

@@ -41,14 +41,30 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _overlapping(device, lattice_pad=True, squeeze=1.0):
+def _overlapping(device, lattice_pad=True, squeeze=1.0, capacity=256):
     sb = scene.SceneBuilder()
     sb.add(scene.disc_softbody(4, 0, (0.0, 0.0), (0.0, 0.0), lattice_pad=lattice_pad))
     sb.add(scene.disc_softbody(4, 1, (0.012, 0.007), (0.0, 0.0), lattice_pad=lattice_pad))
-    p, _ = sb.build(capacity=256, device=device)
+    p, _ = sb.build(capacity=capacity, device=device)
     jitter = np.random.default_rng(0).uniform(-2e-4, 2e-4, tuple(p.pos.shape))
     pos = p.pos * squeeze + torch.from_numpy(jitter.astype(np.float32)).to(device)
     return p, torch.where(p.active[:, None], pos, p.pos)
+
+
+def _cell_order(pos, active, dim=64):
+    bres = default_bin_resolution(P)
+    cell, origin = grid.cell_ids(pos, active, bres, dim)
+    return forces_cuda.build_cell_order(cell, origin, (dim + 2) ** 2, dim + 2, bres)
+
+
+def _moved(pos, active, lim, seed=1):
+    """pos moved by up to `lim` (per axis) where active, and the per-axis
+    displacement the RK4 stages would pass."""
+    lim = np.broadcast_to(np.asarray(lim, dtype=np.float64), (2,))
+    step = np.random.default_rng(seed).uniform(-lim, lim, tuple(pos.shape)).astype(np.float32)
+    moved = (pos + torch.from_numpy(step).to(pos.device) * active[:, None]).contiguous()
+    disp = torch.where(active[:, None], (moved - pos).abs(), 0.0).amax(dim=0)
+    return moved, disp
 
 
 def _frame(device, frames=3):
@@ -88,9 +104,8 @@ def _mismatch(a, b):
 
 def test_wrappers_refuse_other_devices():
     p, pos = _overlapping("cpu")
-    cell, _ = grid.cell_ids(pos, p.active, 0.002, 64)
-    order = forces_cuda.build_cell_order(cell, 66 ** 2, 66, 0.002)
-    still = torch.zeros(())
+    order = _cell_order(pos, p.active)
+    still = torch.zeros(2)
     with pytest.raises(ValueError, match="unsupported device"):
         forces_cuda.collision_forces(pos.to("meta"), p.active, order, CD, REP, still)
     p, objects, buf, cam = _frame("cpu", frames=1)
@@ -125,13 +140,9 @@ def test_collision_kernel_matches_plain(cuda_device, disp):
     """At the positions the cells were built from, and after every particle
     moved by up to `disp` (the kernel widens its scan to stay exact)."""
     p, pos = _overlapping(cuda_device)
-    bres = default_bin_resolution(P)
-    cell, _ = grid.cell_ids(pos, p.active, bres, 64)
-    order = forces_cuda.build_cell_order(cell, 66 ** 2, 66, bres)
-    step = np.random.default_rng(1).uniform(-disp, disp, tuple(pos.shape)).astype(np.float32)
-    moved = (pos + torch.from_numpy(step).to(cuda_device) * p.active[:, None]).contiguous()
-    max_disp = torch.tensor(float(np.abs(step).max()), device=cuda_device)
-    ours = forces_cuda.collision_forces(moved, p.active, order, CD, REP, max_disp)
+    order = _cell_order(pos, p.active)
+    moved, d = _moved(pos, p.active, disp)
+    ours = forces_cuda.collision_forces(moved, p.active, order, CD, REP, d)
     plain = forces_cuda.collision_forces_plain(moved, p.active, CD, REP)
     torch.testing.assert_close(ours[p.active], plain[p.active], **COLL)
     assert plain[p.active].abs().max() > 1.0
@@ -143,14 +154,10 @@ def test_collision_exclude_kernel_matches_plain(cuda_device, disp):
     """The bond-excluding variant on an unpadded scene squeezed so bonded
     pairs lie inside the collision distance; it launches its own kernel."""
     p, pos = _overlapping(cuda_device, lattice_pad=False, squeeze=0.55)
-    bres = default_bin_resolution(P)
-    cell, _ = grid.cell_ids(pos, p.active, bres, 64)
-    order = forces_cuda.build_cell_order(cell, 66 ** 2, 66, bres)
-    step = np.random.default_rng(1).uniform(-disp, disp, tuple(pos.shape)).astype(np.float32)
-    moved = (pos + torch.from_numpy(step).to(cuda_device) * p.active[:, None]).contiguous()
-    max_disp = torch.tensor(float(np.abs(step).max()), device=cuda_device)
+    order = _cell_order(pos, p.active)
+    moved, d = _moved(pos, p.active, disp)
     kernels.reset_launch_counts()
-    ours = forces_cuda.collision_forces(moved, p.active, order, CD, REP, max_disp,
+    ours = forces_cuda.collision_forces(moved, p.active, order, CD, REP, d,
                                         neighbors=p.neighbors)
     assert kernels.launches["collision_exclude"] == 1 and kernels.launches["collision"] == 0
     plain = forces_cuda.collision_forces_plain(moved, p.active, CD, REP, p.neighbors)
@@ -158,6 +165,56 @@ def test_collision_exclude_kernel_matches_plain(cuda_device, disp):
     incl = forces_cuda.collision_forces_plain(moved, p.active, CD, REP)
     assert (incl - plain)[p.active].abs().max() > 1.0  # bonded pairs were excluded
     assert ours[~p.active].abs().max() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exclude", [False, True], ids=["include", "exclude"])
+@pytest.mark.parametrize("case", ["r1", "widened", "one_axis", "clamped", "parked", "inactive",
+                                  "ragged"])
+def test_collision_kernel_cases(cuda_device, exclude, case):
+    """Both variants against plain, each input launched twice (bit-equal:
+    the lane butterfly sums in a fixed order, which replay needs): at the
+    cells' own positions (the 3 x 3 scan), after a move along both axes
+    and along x only (the per-axis scan), after a displacement wider than
+    the grid (the scan clamps to it), with a contact pair parked outside
+    the grid's extent (border cells), with real particles switched off,
+    and with N = 203 (no multiple of the block).  The exclude variant runs
+    on the squeezed unpadded scene, where bonded pairs lie inside the
+    cutoff, with two of its bond slots set to -1: the id test decides."""
+    capacity = 203 if case == "ragged" else 256
+    if exclude:
+        p, pos = _overlapping(cuda_device, lattice_pad=False, squeeze=0.55, capacity=capacity)
+    else:
+        p, pos = _overlapping(cuda_device, capacity=capacity)
+    active = p.active.clone()
+    ids = torch.nonzero(active).flatten().tolist()
+    nbr = p.neighbors.clone()
+    if exclude:
+        nbr[ids[5], :2] = -1
+    if case == "parked":  # ids[0] and ids[-1] lie in different discs: not bonded
+        pos = pos.clone()
+        pos[ids[0]] = pos[ids[1]] + torch.tensor([0.5, 0.3], device=cuda_device)
+        pos[ids[-1]] = pos[ids[0]] + torch.tensor([1e-3, 5e-4], device=cuda_device)
+    if case == "inactive":
+        active[ids[::3]] = False
+    order = _cell_order(pos, active)
+    lim = {"widened": 1.5e-3, "one_axis": (2e-3, 0.0), "clamped": 1.5e-3}.get(case, 0.0)
+    moved, d = _moved(pos, active, lim)
+    if case == "clamped":
+        d = torch.tensor([0.5, 0.5], device=cuda_device)  # wider than the 64-cell grid
+    nbrs = nbr if exclude else None
+    ours = forces_cuda.collision_forces(moved, active, order, CD, REP, d, neighbors=nbrs)
+    again = forces_cuda.collision_forces(moved, active, order, CD, REP, d, neighbors=nbrs)
+    plain = forces_cuda.collision_forces_plain(moved, active, CD, REP, nbrs)
+    torch.testing.assert_close(ours[active], plain[active], **COLL)
+    assert torch.equal(ours, again)
+    assert ours[~active].abs().max() == 0.0
+    assert plain[active].abs().max() > 1.0
+    if case == "parked":
+        assert plain[ids[0]].abs().max() > 1.0
+    if exclude:
+        incl = forces_cuda.collision_forces_plain(moved, active, CD, REP)
+        assert (incl - plain)[active].abs().max() > 1.0  # bonded pairs were excluded
 
 
 @pytest.mark.cuda
@@ -261,6 +318,40 @@ def test_band_kernel_matches_plain(cuda_device, band, max_age):
     assert ours.hi0 == plain.hi0
     assert (plain.a0 <= plain.hi0).any()
     assert (int(plain.truncated) > 0) == (band == 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["few_ages", "ragged_ages", "ragged_n", "truncated"])
+def test_band_kernel_cases(cuda_device, case):
+    """Exactly equal to plain, and two launches bit-equal: with hi0 below
+    the kernel's age slices (max_age 5: hi0 4), hi0 no multiple of them
+    (max_age 20: hi0 19), N = 203 (no multiple of the 32 particles of a
+    block), and a band short enough that crossings are truncated; each
+    case has particles that never enter the band (a0 = hi0 + 1,
+    alast = -1)."""
+    n = 203 if case == "ragged_n" else None
+    max_age = {"few_ages": 5, "ragged_ages": 20}.get(case, 48)
+    band = 2 if case == "truncated" else 6
+    p, _, buf, cam = _frame(cuda_device)
+    if n is not None:
+        sb = scene.SceneBuilder()
+        sb.add(scene.disc_softbody(5, 0, (0.35, 0.40), (0.25, 0.05), lattice_pad=True))
+        p, _ = sb.build(capacity=n, device=cuda_device)
+        buf = wl.prefill_inertial(wl.create(64, n, device=cuda_device), p.pos, p.vel, p.active,
+                                  0.0, H)
+    params = _params(band=band, max_age=max_age)
+    ours = band_cuda.cone_band_window(buf, params, cam)
+    again = band_cuda.cone_band_window(buf, params, cam)
+    plain = band_cuda.cone_band_window_plain(buf, params, cam)
+    for name in ("a0", "alast", "truncated", "wx", "wy", "wvx", "wvy", "ages"):
+        assert torch.equal(getattr(ours, name), getattr(plain, name)), name
+        assert torch.equal(getattr(ours, name), getattr(again, name)), name
+    assert ours.hi0 == plain.hi0 == max_age - 1
+    never = plain.a0 == plain.hi0 + 1
+    assert never.any() and (plain.a0 <= plain.hi0).any()
+    assert (plain.alast[never] == -1).all()
+    if case == "truncated":
+        assert int(plain.truncated) > 0
 
 
 @pytest.mark.cuda

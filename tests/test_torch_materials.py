@@ -318,27 +318,34 @@ def test_collision_exclude_plain_matches_jax_kernel_interpret(rng):
     assert (incl - ours)[tact].abs().max() > 1.0 and np.abs(ref[act]).max() > 1.0
 
 
-def _exclude_kernel_model(pos, nbr, order, max_disp):
-    """The exclude kernel's candidate ranges, id tests and per-pair sum in
-    numpy (the kernel itself runs only on the card)."""
+def _exclude_kernel_model(pos, nbr, order, disp):
+    """The exclude kernel's candidate ranges (cells within cd + D of the
+    current position per axis, widened by kRel = 2^-20 of the magnitudes,
+    clamped as grid.cell_ids clamps), distance test, then id tests, and
+    per-pair sum in numpy (the kernel itself runs only on the card)."""
+    f32 = np.float32
     sidx, scell, start = (order.sorted_idx.numpy(), order.sorted_cell.numpy(),
                           order.cell_start.numpy())
-    side, bres = order.side, np.float32(order.bin_resolution)
-    r = max(int(np.ceil((np.float32(CD) + np.float32(2.0) * np.float32(max_disp)) / bres)), 1)
+    side, bres, rel = order.side, f32(order.bin_resolution), f32(2.0 ** -20)
+    cell = lambda u: int(np.clip(np.floor(u), 0, side - 3)) + 1
     out = np.zeros_like(pos)
     for t in range(pos.shape[0]):
-        i, c = sidx[t], scell[t]
-        if c >= order.n_cells:
+        i = sidx[t]
+        if scell[t] >= order.n_cells:
             continue
-        cy, cx = divmod(int(c), side)
-        x_lo, x_hi = max(cx - r, 0), min(cx + r, side - 1)
+        lim = []
+        for axis in (0, 1):
+            x, r, o = pos[i, axis], f32(CD) + f32(disp[axis]), f32(order.origin[axis].item())
+            e = r + (abs(x) + abs(o) + r) * rel
+            lim += [cell((x - e - o) / bres), cell((x + e - o) / bres)]
+        x_lo, x_hi, y_lo, y_hi = lim
         cand = np.concatenate([
             sidx[start[row * side + x_lo]:start[row * side + x_hi + 1]]
-            for row in range(max(cy - r, 0), min(cy + r, side - 1) + 1)])
-        cand = cand[(cand != i) & ~np.isin(cand, nbr[i])]
+            for row in range(y_lo, y_hi + 1)])
         d = pos[i] - pos[cand]
         d2 = (d * d).sum(-1)
         hit = (d2 < np.float32(CD * CD)) & (d2 > 0)
+        hit &= (cand != i) & ~np.isin(cand, nbr[i])
         out[i] = ((REP / np.sqrt(d2[hit]))[:, None] * d[hit]).sum(0)
     return out
 
@@ -350,10 +357,10 @@ def test_exclude_kernel_ranges_match_plain(rng):
     act = np.array(jp.active)
     nbr = np.array(jp.neighbors)
     bres = default_bin_resolution(P)
-    cell, _ = grid.cell_ids(torch.from_numpy(pos), torch.from_numpy(act), bres, 64)
-    order = forces_cuda.build_cell_order(cell, 66 ** 2, 66, bres)
+    cell, origin = grid.cell_ids(torch.from_numpy(pos), torch.from_numpy(act), bres, 64)
+    order = forces_cuda.build_cell_order(cell, origin, 66 ** 2, 66, bres)
     step = rng.uniform(-1.5e-3, 1.5e-3, pos.shape).astype(np.float32) * act[:, None]
-    for moved, disp in ((pos, 0.0), (pos + step, np.abs(step).max())):
+    for moved, disp in ((pos, np.zeros(2)), (pos + step, np.abs(step).max(0))):
         plain = forces_cuda.collision_forces_plain(
             torch.from_numpy(moved), torch.from_numpy(act), CD, REP,
             torch.from_numpy(nbr)).numpy()

@@ -206,24 +206,39 @@ def test_collision_plain_matches_jax_kernel_interpret(rng, exclude_bonds):
     np.testing.assert_allclose(ours.numpy()[act], ref[act], **COLL)
 
 
-def _kernel_model(pos, active, order, max_disp):
+def _scan_cells(p, order, disp):
+    """(x_lo, x_hi, y_lo, y_hi): the cells csrc/collision.cu scans for a
+    particle at `p` given the per-axis displacement `disp`, in the kernel's
+    f32 arithmetic (cell function of grid.cell_ids, bounds widened by
+    kRel = 2^-20 of the magnitudes)."""
+    f32 = np.float32
+    grid_dim, bres, rel = order.side - 2, f32(order.bin_resolution), f32(2.0 ** -20)
+    cell = lambda u: int(np.clip(np.floor(u), 0, grid_dim - 1)) + 1
+    out = []
+    for axis in (0, 1):
+        x, r = f32(p[axis]), f32(CD) + f32(disp[axis])
+        o = f32(order.origin[axis].item())
+        e = r + (abs(x) + abs(o) + r) * rel
+        out += [cell((x - e - o) / bres), cell((x + e - o) / bres)]
+    return out
+
+
+def _kernel_model(pos, active, order, disp):
     """The CUDA kernel's candidate ranges and per-pair sum, in numpy, for
     the CPU tests (the kernel itself runs only on the card)."""
     pos32 = pos.astype(np.float32)
     sidx, scell, start = (order.sorted_idx.numpy(), order.sorted_cell.numpy(),
                           order.cell_start.numpy())
-    side, bres = order.side, np.float32(order.bin_resolution)
-    r = max(int(np.ceil((np.float32(CD) + np.float32(2.0) * np.float32(max_disp)) / bres)), 1)
+    side = order.side
     out = np.zeros_like(pos32)
     for t in range(pos.shape[0]):
-        i, c = sidx[t], scell[t]
-        if c >= order.n_cells:
+        i = sidx[t]
+        if scell[t] >= order.n_cells:
             continue
-        cy, cx = divmod(int(c), side)
-        x_lo, x_hi = max(cx - r, 0), min(cx + r, side - 1)
+        x_lo, x_hi, y_lo, y_hi = _scan_cells(pos32[i], order, disp)
         cand = np.concatenate([
             sidx[start[row * side + x_lo]:start[row * side + x_hi + 1]]
-            for row in range(max(cy - r, 0), min(cy + r, side - 1) + 1)])
+            for row in range(y_lo, y_hi + 1)])
         d = pos32[i] - pos32[cand]
         d2 = (d * d).sum(-1)
         hit = (d2 < np.float32(CD * CD)) & (d2 > 0)
@@ -231,24 +246,76 @@ def _kernel_model(pos, active, order, max_disp):
     return out
 
 
+def _order(pos, act, dim=64):
+    bres = default_bin_resolution(P)
+    cell, origin = grid.cell_ids(torch.from_numpy(pos), torch.from_numpy(act), bres, dim)
+    return forces_cuda.build_cell_order(cell, origin, (dim + 2) ** 2, dim + 2, bres)
+
+
 def test_cell_order_ranges_cover_all_contacts(rng):
     """build_cell_order + the kernel's range arithmetic find every contact
     the all-pairs sum finds: at the positions the cells were built from
-    (R = 1), and after every particle moved by up to max_disp (wider R)."""
+    (disp 0), and after every particle moved by up to disp per axis."""
     jp, pos = _overlapping(rng)
     act = np.array(jp.active)
-    bres = default_bin_resolution(P)
-    dim = 64
-    cell, _ = grid.cell_ids(torch.from_numpy(pos), torch.from_numpy(act), bres, dim)
-    order = forces_cuda.build_cell_order(cell, (dim + 2) ** 2, dim + 2, bres)
+    order = _order(pos, act)
     assert order.cell_start[-1].item() == act.sum()
     step = rng.uniform(-1.5e-3, 1.5e-3, pos.shape).astype(np.float32) * act[:, None]
-    for moved, disp in ((pos, 0.0), (pos + step, np.abs(step).max())):
+    for moved, disp in ((pos, np.zeros(2)), (pos + step, np.abs(step).max(0))):
         plain = forces_cuda.collision_forces_plain(
             torch.from_numpy(moved), torch.from_numpy(act), CD, REP).numpy()
         model = _kernel_model(moved, act, order, disp)
         np.testing.assert_allclose(model[act], plain[act], **COLL)
         assert np.abs(plain[act]).max() > 1.0
+
+
+@pytest.mark.parametrize("case", ["still", "x_only", "both_axes", "clamped", "parked"])
+def test_narrow_scan_covers_every_contact(rng, case):
+    """The kernel's per-axis scan (cells within cd + D of the current
+    position, clamped as grid.cell_ids clamps) finds every contact: at
+    stage 0, after a move along x only (D_y = 0), along both axes, with a
+    displacement that clamps the scan to the whole grid, and with a pair
+    of particles parked outside the grid's extent (border cells).  Summed
+    over the particles it scans about the 3 x 3 cells of the reach-1
+    square at stage 0 (a bound landing within the widening of a cell edge
+    adds a row or column) and fewer cells than the square of reach
+    R = ceil((cd + 2 max D) / bin) it replaced after a move."""
+    jp, pos = _overlapping(rng)
+    act = np.array(jp.active)
+    pos = pos.astype(np.float32)
+    ids = np.flatnonzero(act)
+    if case == "parked":  # two particles in contact, 0.5 ls past the extent
+        pos[ids[0]] = pos[ids[1]] + np.float32([0.5, 0.3])
+        pos[ids[2]] = pos[ids[0]] + np.float32([1e-3, 5e-4])
+    order = _order(pos, act)
+    step = np.zeros_like(pos)
+    if case == "x_only":
+        step[:, 0] = rng.uniform(-2e-3, 2e-3, pos.shape[0])
+    elif case == "both_axes":
+        lim = np.array([2e-3, 5e-4])
+        step = rng.uniform(-lim, lim, pos.shape).astype(np.float32)
+    moved = pos + step * act[:, None]
+    disp = np.abs(moved - pos)[act].max(0)
+    if case == "clamped":
+        disp = np.float32([0.5, 0.5])  # wider than the 64-cell grid
+    plain = forces_cuda.collision_forces_plain(
+        torch.from_numpy(moved), torch.from_numpy(act), CD, REP).numpy()
+    model = _kernel_model(moved, act, order, disp)
+    np.testing.assert_allclose(model[act], plain[act], **COLL)
+    assert np.abs(plain[act]).max() > 1.0
+    if case == "parked":
+        assert np.abs(plain[ids[0]]).max() > 1.0  # the parked pair is in contact
+    # cells scanned, against the square scan of reach R
+    bres = np.float32(order.bin_resolution)
+    reach = max(int(np.ceil((np.float32(CD) + 2 * np.float32(disp.max())) / bres)), 1)
+    scans = [_scan_cells(moved[i], order, disp) for i in ids]
+    cells = [(x_hi - x_lo + 1) * (y_hi - y_lo + 1) for x_lo, x_hi, y_lo, y_hi in scans]
+    if case == "clamped":
+        assert set(cells) == {(order.side - 2) ** 2}
+    elif case == "still":
+        assert sum(cells) <= len(ids) * 9.5
+    else:
+        assert sum(cells) < len(ids) * (2 * reach + 1) ** 2
 
 
 # --------------------------------------------------------------------------
@@ -339,7 +406,8 @@ def test_package_imports_without_jax():
         "from spacetime_tpu_torch.ops import forces, raytrace, render_cuda, worldline\n"
         "from spacetime_tpu_torch.ops import band_cuda, points_cuda, rasterize\n"
         "from spacetime_tpu_torch.ops import boost, materials\n"
-        "from spacetime_tpu_torch import cli, device, engine, headline\n"
+        "from spacetime_tpu_torch import cli, compare_kernels, device, engine, headline\n"
+        "from spacetime_tpu_torch.utils import timing\n"
         "sb = scene.SceneBuilder(); sb.add(scene.disc_softbody(3, 0, (0, 0), (0.1, 0), True))\n"
         "p, o = sb.build()\n"
         "m = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),\n"

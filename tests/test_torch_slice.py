@@ -8,6 +8,9 @@ collision kernel (interpret mode) and the XLA pixel path.
 """
 
 import dataclasses
+import importlib
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +23,10 @@ from spacetime_tpu.models.softbody import SoftbodyModel as JModel
 from spacetime_tpu.ops import forces as jforces
 from spacetime_tpu.ops import raytrace as jrt
 from spacetime_tpu.ops import worldline as jwl
-from spacetime_tpu_torch import kernels, profile_frame, scene
+from spacetime_tpu_torch import compare_kernels, kernels, profile_frame, scene
 from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.models.softbody import SoftbodyModel
-from spacetime_tpu_torch.ops import forces, raytrace
+from spacetime_tpu_torch.ops import band_cuda, forces, raytrace
 from spacetime_tpu_torch.ops import worldline as wl
 
 H = 0.005
@@ -176,3 +179,70 @@ def test_profile_attribution_of_a_trace():
     assert res["by_kind"] == {"elementwise": [1.5, 0.5], "pixel kernel": [1.0, 0.5],
                               "memcpy / memset": [0.5, 0.5]}
     assert res["busy_ms"] == pytest.approx(2.0)
+
+
+def test_compare_kernels_binds_another_tree():
+    """load_other imports another tree's package under a name of its own:
+    its modules, its launch counts and its kernel build directory (under
+    that tree's build/) are its own, not this package's."""
+    root = Path(__file__).resolve().parents[1]
+    name = "other_test_spacetime_tpu_torch"
+    try:
+        other = compare_kernels.load_other(str(root), name)
+        assert other.__name__ == name
+        okern = importlib.import_module(name + ".kernels")
+        ofc = importlib.import_module(name + ".ops.forces_cuda")
+        assert okern is not kernels and okern.launches is not kernels.launches
+        assert ofc.kernels is okern  # its wrappers count into its own table
+        assert okern.BUILD_DIR == root / "build" / "spacetime_tpu_torch"
+    finally:
+        for mod in [m for m in sys.modules if m == name or m.startswith(name + ".")]:
+            del sys.modules[mod]
+
+
+def test_compare_kernels_collision_inputs():
+    """The collision inputs chip_smoke.py and compare_kernels time: the
+    cell order of the state, stage 0 at its positions with no
+    displacement, stage 3 at pos + vel h with the per-axis displacement of
+    the active particles."""
+    p, _ = _scene(scene)
+    model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),
+                          device="cpu")
+    p, _ = model.step(p)
+    order, stages = compare_kernels.collision_inputs(p, model)
+    act = p.active
+    assert order.cell_start[-1].item() == int(act.sum())
+    pos0, still = stages[0]
+    assert torch.equal(pos0, p.pos) and torch.equal(still, torch.zeros(2))
+    moved, disp = stages[3]
+    torch.testing.assert_close(moved, p.pos + p.vel * model.params.h, rtol=0, atol=0)
+    assert torch.equal(disp, (moved - p.pos)[act].abs().amax(dim=0))
+    assert (disp > 0).all()
+
+
+def test_compare_kernels_checks_catch_a_difference():
+    """collision_error raises past rtol 1e-4, atol 1e-3 on active rows only;
+    band_unequal names every field that is not exactly equal."""
+    p, _ = _scene(scene)
+    ref = torch.from_numpy(np.random.default_rng(0).normal(size=(p.capacity, 2))
+                         .astype(np.float32))
+    off = ref.clone()
+    off[~p.active] += 1.0
+    assert compare_kernels.collision_error(off, ref, p.active) == 0.0
+    off[torch.nonzero(p.active)[0, 0]] += 2e-3
+    with pytest.raises(AssertionError):
+        compare_kernels.collision_error(off, ref, p.active)
+    buf = wl.prefill_inertial(wl.create(64, p.capacity), p.pos, p.vel, p.active, 0.0, H)
+    cam = Camera.create(pos=(0.37, 0.41), zoom=0.15)
+    params = raytrace.RenderParams(**{f.name: getattr(_jparams(), f.name)
+                                      for f in dataclasses.fields(raytrace.RenderParams)})
+    plain = band_cuda.cone_band_window_plain(buf, params, cam)
+    assert compare_kernels.band_unequal(plain, plain) == []
+    bent = plain._replace(wx=plain.wx + 1e-7, ages=plain.ages + 1)
+    assert compare_kernels.band_unequal(bent, plain) == ["wx", "ages"]
+
+
+def test_compare_kernels_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert compare_kernels.main([]) == 1
