@@ -53,7 +53,8 @@ every kernel, plain and library reading uses it.  The band kernel is
 timed with the L2 evicted before each call, as a frame finds its ring.
 The card's launch floor, a trivial kernel timed the same way, is printed
 on a line of its own.  The collision inputs at RK4 stage 3 and the
-kernel-vs-plain comparisons are compare_kernels' own.
+kernel-vs-plain comparisons are spacetime_tpu_torch/checks.py's, which
+compare_kernels uses too.
 
 Output: one line per phase, then a JSON line of per-kernel results (each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -75,8 +76,9 @@ import time
 import numpy as np
 import torch
 
-from spacetime_tpu_torch.compare_kernels import (BAND_FIELDS, band_unequal, collision_error,
-                                                 collision_inputs)
+from spacetime_tpu_torch.checks import (BAND_FIELDS, PIXEL_SHARE, PIXEL_TOL, band_unequal,
+                                        collision_error, collision_inputs, pixel_inputs,
+                                        pixel_share)
 from spacetime_tpu_torch.utils.timing import cuda_ms, launch_floor_ms
 
 FRAMES = 200  # the discs meet at about frame 170
@@ -91,8 +93,6 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s (published)
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, op/s (published)
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
-PIXEL_TOL = 1e-3  # per-pixel difference counted as a mismatch
-PIXEL_SHARE = 1e-3  # largest share of mismatched pixels, kernel vs plain
 
 
 def card_line() -> str:
@@ -230,33 +230,29 @@ def check_collision(device):
 def check_pixel(particles, objects, buf, cam, params, width, height, when):
     """Kernel vs plain on the CSR that `params` builds from `buf` (the
     path's own render params, so its cell size, bin capacity, retarded and
-    camera-frame flags).  Returns (max abs err, ms, plain ms, (bound_ms,
-    bound_by))."""
-    from spacetime_tpu_torch.ops import raytrace, render_cuda
-    from spacetime_tpu_torch.ops import worldline as wl
+    camera-frame flags); two launches must be bit-equal.  Returns (max abs
+    err, ms, plain ms, (bound_ms, bound_by))."""
+    from spacetime_tpu_torch.ops import render_cuda
 
-    inputs, diag = raytrace.prepare_pixel_pass(
-        buf, particles.object_index, objects, cam, width, height, params,
-        boundary=wl.boundary_mask(particles))
+    inputs, diag = pixel_inputs(particles, objects, buf, cam, params, width, height)
     run_kernel = lambda: render_cuda.pixel_pass(inputs, params, width=width, height=height)
     run_plain = lambda: render_cuda.pixel_pass_plain(inputs, params, width=width, height=height)
-    img_k, img_p = run_kernel(), run_plain()
+    img_k, img_again, img_p = run_kernel(), run_kernel(), run_plain()
     torch.cuda.synchronize()
     if img_k.shape != (3, height, width) or not torch.isfinite(img_k).all():
         raise AssertionError("pixel kernel output is not a finite (3, H, W) image")
-    diff = (img_k - img_p).abs().amax(dim=0)
-    err = diff.max().item()
-    share = (diff > PIXEL_TOL).float().mean().item()
+    if not torch.equal(img_k, img_again):
+        raise AssertionError("two pixel launches on one input differ")
+    err = (img_k - img_p).abs().max().item()
+    share = pixel_share(img_k, img_p)
     ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain, reps=5)
     bnd = pixel_bound(inputs, params, width, height)
     print(f"pixel check ({when}; {width}x{height}, cell_px {params.cell_px}, bin_capacity "
           f"{params.bin_capacity}, retarded {params.retarded}, camera_frame "
           f"{params.camera_frame}): {inputs.entries.shape[0]} "
           f"entries, pairs {int(diag.pairs_used)}, max abs err {err:.3e}, share > "
-          f"{PIXEL_TOL:g}: {share:.2e} (limit {PIXEL_SHARE:g}); "
+          f"{PIXEL_TOL:g}: {share:.2e} (limit {PIXEL_SHARE:g}), two launches bit-equal; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
-    if share > PIXEL_SHARE:
-        raise AssertionError(f"pixel kernel disagrees with plain on {share:.2e} of pixels")
     return err, ms, plain_ms, bnd
 
 
@@ -442,8 +438,10 @@ def check_engine_kernels(eng):
 def engine_points(device):
     """The reference demo scene in points mode: POINTS_FRAMES frames through
     the Engine, then its last frame against the plain renderer on the same
-    state (bit-equal).  Also times the plain version's winner pass, one
-    `scatter_reduce_(..., "amin")`, as the library yardstick of that pass.
+    state (bit-equal), a second launch bit-equal too, and the kernel's
+    scratch back at EMPTY and 0 after both.  Also times the plain version's
+    winner pass, one `scatter_reduce_(..., "amin")`, as the library
+    yardstick of that pass.
     Returns (launches, max abs err, ms, plain ms, bound, library ms)."""
     from spacetime_tpu_torch import headline, kernels
     from spacetime_tpu_torch.engine import Engine
@@ -465,7 +463,11 @@ def engine_points(device):
     run_plain = lambda: points_cuda.render_points_plain(p, eng.objects, eng.camera, cfg.width,
                                                         cfg.height)
     img = eng.render().permute(2, 0, 1)
-    plain = run_plain()
+    plain, again = run_plain(), run_kernel()
+    # every render leaves the kernel's scratch as it found it
+    winner, mask = points_cuda.scratch(p.pos.device, torch.cuda.current_stream().cuda_stream,
+                                       cfg.width, cfg.height)
+    clean = bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
     torch.cuda.synchronize()
     err = (img - plain).abs().max().item()
     covered = (plain != 1.0).any(dim=0).sum().item()
@@ -488,13 +490,15 @@ def engine_points(device):
     print(f"engine points (refdemo): {int(p.active.sum())} active of {p.capacity}, setup "
           f"{setup:.2f} s, {POINTS_FRAMES} frames in {wall:.2f} s; points launches {launches}; "
           f"{covered} pixels covered; kernel vs plain max abs err {err:.3e} (bit-equal "
-          f"required); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms "
+          f"required), relaunch bit-equal, scratch clean {clean}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms "
           f"({bnd[1]}); one scatter_reduce_ amin (the winner pass only) {library_ms:.4f} ms")
     print(f"  summary {json.dumps(summary)}")
     if launches != POINTS_FRAMES:
         raise AssertionError(f"{launches} points launches, expected {POINTS_FRAMES}")
-    if not torch.equal(img, plain) or covered == 0:
+    if not torch.equal(img, plain) or not torch.equal(again, plain) or covered == 0:
         raise AssertionError("points kernel image differs from the plain renderer")
+    if not clean:
+        raise AssertionError("a points render left winner slots or mask bits set")
     return launches, err, ms, plain_ms, bnd, library_ms
 
 

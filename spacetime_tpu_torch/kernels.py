@@ -128,7 +128,7 @@ def library() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp,
     ]
     lib.band_window_launch.restype = ci
-    lib.points_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp]
+    lib.points_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
     lib.points_launch.restype = ci
     _lib = lib
     return lib

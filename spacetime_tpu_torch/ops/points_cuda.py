@@ -15,7 +15,11 @@ cap, so the count is 0 by construction.  The field stays so callers that
 read the diagnostics keep their shape.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises.  The kernel works in two scratch buffers
+that the wrapper keeps between calls, one pair per (device, stream) for the
+latest image size: a winner slot per pixel at EMPTY and an occupancy mask
+of one bit a pixel at 0, which every render leaves as it found them.  A
+launch that fails drops them, so the next call starts from fresh ones.
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ import torch
 
 from .. import kernels
 from ..camera import world_to_pixel
+
+EMPTY = 2**31 - 1  # a free winner slot (INT32_MAX, so any capacity fits below it)
+
+# (device index, stream handle) -> (height, width, winner (H * W,) i32,
+# mask (ceil(H * W / 32),) i32)
+_scratch: dict = {}
 
 
 class PointsDiag(NamedTuple):
@@ -57,10 +67,24 @@ def render_points_plain(particles, objects, cam, width: int, height: int) -> tor
     return img.reshape(3, height, width)
 
 
+def scratch(dev, stream: int, width: int, height: int):
+    """The (winner, mask) scratch of `dev` and `stream` for a width x height
+    image: kept from the last call of that size, else made fresh (all
+    EMPTY, all 0), replacing one of another size."""
+    key = (dev.index, stream)
+    held = _scratch.get(key)
+    if held is None or held[:2] != (height, width):
+        hw = width * height
+        held = (height, width, torch.full((hw,), EMPTY, dtype=torch.int32, device=dev),
+                torch.zeros(((hw + 31) // 32,), dtype=torch.int32, device=dev))
+        _scratch[key] = held
+    return held[2], held[3]
+
+
 def render_points(particles, objects, cam, width: int, height: int) -> torch.Tensor:
     """(3, H, W) point view (see render_points_plain).  CPU tensors take the
     plain version; CUDA tensors launch `points_launch` (its two kernels
-    count as one launch)."""
+    count as one launch) on the current stream's scratch."""
     dev = particles.pos.device
     if dev.type == "cpu":
         return render_points_plain(particles, objects, cam, width, height)
@@ -80,14 +104,18 @@ def render_points(particles, objects, cam, width: int, height: int) -> torch.Ten
     need(cam.zoom, "cam.zoom", torch.float32, ())
     if (width * height + 1) * 3 >= 2 ** 31:
         raise ValueError(f"render_points: a {width}x{height} image exceeds int32 pixel indices")
-    winner = torch.full((height, width), n, dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    winner, mask = scratch(dev, stream, width, height)
     out = torch.empty((3, height, width), dtype=torch.float32, device=dev)
-    status = kernels.library().points_launch(
+    status = lib.points_launch(
         particles.pos.data_ptr(), particles.active.data_ptr(), cam.pos.data_ptr(),
         cam.zoom.data_ptr(), particles.object_index.data_ptr(), objects.base_color.data_ptr(),
-        n, width, height, winner.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        n, width, height, winner.data_ptr(), mask.data_ptr(), out.data_ptr(), stream,
     )
+    if status != 0:
+        # pass 1 may have run without pass 2: no slot or bit may outlive it
+        _scratch.pop((dev.index, stream), None)
     kernels.check(status, "points")
     kernels.launches["points"] += 1
     return out

@@ -63,7 +63,7 @@ def _edge_constants(params):
 def pixel_pass_plain(inputs, params, *, width, height):
     """The kernel's maths over chunks of cells: the CSR gathered into a
     padded (cells, bin_capacity, 10) table, the winner taken by argmin
-    (first minimum, the kernel's strict-< tie rule)."""
+    (the first minimum in entry order, the kernel's tie rule)."""
     from . import raytrace as rt  # raytrace imports this module
 
     entries, cell_lo, cell_hi, sfq, scal, wc_img, hc_img, ds = inputs
@@ -146,8 +146,11 @@ def pixel_pass(inputs, params, *, width, height):
     wq = wc_img * k // ds
     if sfq is not None:
         need(sfq, "sfq", torch.float32, (hc_img * k // ds, wq))
-    if cap * 10 * 4 > 48 * 1024:
-        raise ValueError(f"pixel_pass: bin_capacity {cap} exceeds 48 KB of shared memory")
+    # a warp stages (ax, ay, bx - ax, by - ay), a box, ta and an index per
+    # entry and 257 words of age tables (csrc/pixel_pass.cu slice_bytes)
+    if cap * 40 + 4 * 257 > 48 * 1024:
+        raise ValueError(f"pixel_pass: bin_capacity {cap} exceeds a warp's 48 KB of shared "
+                         "memory")
 
     rho2_edge, inv_dt = _edge_constants(params)
     flags = (

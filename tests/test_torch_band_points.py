@@ -183,6 +183,27 @@ def test_points_plain_matches_pallas_kernel(wh):
         np.testing.assert_array_equal(ours[:, y, x], colors[min(cands)])
 
 
+def test_points_plain_all_on_one_pixel_matches_pallas_kernel():
+    """Every particle on one pixel of a 97 x 61 image (5,917 pixels, no
+    multiple of 32): the Pallas kernel's image (interpret mode), one covered
+    pixel in the lowest active index's colour.  Tolerance: atol 1e-6, the
+    kernel's one-hot colour matmul in f32."""
+    jp, jo = _points_scene()
+    jp = dataclasses.replace(jp, pos=jnp.full_like(jp.pos, 0.5))
+    jcam = JCamera.create(pos=(0.5, 0.5), zoom=1.2)
+    p, o, cam = _port(jp, jo, jcam)
+    ours = points_cuda.render_points_plain(p, o, cam, 97, 61).numpy()
+    kimg, kdiag = points_pallas.render_points_pallas(jp, jo, jcam, 97, 61, planar=True,
+                                                     interpret=True)
+    assert ours.shape == (3, 61, 97) and int(kdiag.window_truncated) == 0
+    np.testing.assert_allclose(ours, np.asarray(kimg), rtol=0, atol=1e-6)
+    covered = np.argwhere(np.any(ours != 1.0, axis=0))
+    first = int(np.argmax(np.asarray(jp.active)))
+    assert covered.shape[0] == 1
+    np.testing.assert_array_equal(ours[:, covered[0][0], covered[0][1]],
+                                  np.asarray(jo.base_color)[int(jp.object_index[first])])
+
+
 def test_points_plain_exact_on_unique_pixels():
     jp, jo = _points_scene(1)
     centre = np.asarray(jp.pos)[np.asarray(jp.active)].mean(axis=0)

@@ -218,19 +218,34 @@ def test_retina_lookup_unwarps_like_jax(frame):
         rt._sfirst_lookup(s_first, gx, gy, x0, y0, ps, cam, 512, 0.5, False))
 
 
+@pytest.mark.parametrize("case", ["base", "odd_saturated"])
 @pytest.mark.parametrize("opaque", [True, False])
-def test_camera_frame_render_matches_jax_pallas_interpret(frame, opaque):
+def test_camera_frame_render_matches_jax_pallas_interpret(frame, opaque, case):
+    """The camera-frame render against the JAX package's Pallas pixel
+    kernel in interpret mode: at 96 x 64, and at 97 x 61 (no multiple of 4
+    wide, no multiple of cell_px 16 high) with every crowded cell filled to
+    a bin_capacity of 32.  At most PIXEL_SHARE of pixels off by more than
+    PIXEL_TOL; every diagnostic equal (`bin_dropped` to the JAX XLA path's
+    count once cells overflow: its Pallas path counts the drops of its
+    sorted windows, which differ)."""
     jbuf, jp, jo, jcam = frame["j"]
     buf, tp, to, cam = frame["t"]
-    jparams = _jparams(opaque=opaque)
-    jimg, jdiag = jrt.render_retarded_with_diag(jbuf, jp.object_index, jo, jcam, W, HT,
+    w, h = (97, 61) if case == "odd_saturated" else (W, HT)
+    jparams = _jparams(opaque=opaque, **(dict(bin_capacity=32) if case == "odd_saturated" else {}))
+    jimg, jdiag = jrt.render_retarded_with_diag(jbuf, jp.object_index, jo, jcam, w, h,
                                                 jparams, planar=True,
                                                 boundary=jwl.boundary_mask(jp))
-    img, diag = rt.render_retarded_with_diag(buf, tp.object_index, to, cam, W, HT,
+    img, diag = rt.render_retarded_with_diag(buf, tp.object_index, to, cam, w, h,
                                              _port_params(jparams), planar=True,
                                              boundary=wl.boundary_mask(tp))
     img, jimg = img.numpy(), np.asarray(jimg)
-    assert img.shape == (3, HT, W) and np.isfinite(img).all()
+    assert img.shape == (3, h, w) and np.isfinite(img).all()
+    if case == "odd_saturated":
+        _, xdiag = jrt.render_retarded_with_diag(
+            jbuf, jp.object_index, jo, jcam, w, h, dataclasses.replace(jparams, backend="xla"),
+            planar=True, boundary=jwl.boundary_mask(jp))
+        assert int(diag.bin_dropped) == int(xdiag.bin_dropped) > 0
+        jdiag = jdiag._replace(bin_dropped=xdiag.bin_dropped)
     assert (img < 0.99).mean() > 0.01  # the discs are in view
     assert _mismatch(img, jimg) <= PIXEL_SHARE
     for name in ("pairs_used", "band_truncated", "bin_dropped", "cell_too_small",
@@ -238,7 +253,7 @@ def test_camera_frame_render_matches_jax_pallas_interpret(frame, opaque):
         a, b = getattr(diag, name), getattr(jdiag, name)
         assert (a is None) == (b is None) and (a is None or int(a) == int(b)), name
     # the boosted view differs from the ground view
-    ground = rt.render_retarded(buf, tp.object_index, to, cam, W, HT,
+    ground = rt.render_retarded(buf, tp.object_index, to, cam, w, h,
                                 dataclasses.replace(_port_params(jparams), camera_frame=False),
                                 planar=True, boundary=wl.boundary_mask(tp)).numpy()
     assert _mismatch(img, ground) > 0.01

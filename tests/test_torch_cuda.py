@@ -119,6 +119,25 @@ def test_wrappers_refuse_other_devices():
         points_cuda.render_points(p.to("meta"), objects, cam, 48, 32)
 
 
+def test_points_scratch_is_kept_per_size(monkeypatch):
+    """One (winner, mask) pair per (device, stream): all EMPTY and 0, one
+    mask bit a pixel; the same buffers for the same size, fresh ones that
+    replace them for another size."""
+    monkeypatch.setattr(points_cuda, "_scratch", {})
+    dev = torch.device("cpu")
+    winner, mask = points_cuda.scratch(dev, 7, 97, 61)
+    assert winner.shape == (97 * 61,) and mask.shape == (-(-97 * 61 // 32),)
+    assert bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
+    assert winner.dtype == mask.dtype == torch.int32
+    again = points_cuda.scratch(dev, 7, 97, 61)
+    assert again[0] is winner and again[1] is mask
+    other_stream = points_cuda.scratch(dev, 8, 97, 61)
+    assert other_stream[0] is not winner
+    resized = points_cuda.scratch(dev, 7, 96, 64)
+    assert resized[0].shape == (96 * 64,) and resized[1].shape == (192,)
+    assert len(points_cuda._scratch) == 2
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     if os.path.isfile("/usr/local/cuda/bin/nvcc"):
         pytest.skip("a CUDA toolkit is installed in its default prefix")
@@ -253,6 +272,7 @@ def test_pixel_kernel_camera_frame_matches_plain(cuda_device, opaque):
     plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
     assert (plain < 0.99).float().mean() > 0.02
     assert _mismatch(ours, plain) <= PIXEL_SHARE
+    assert torch.equal(ours, render_cuda.pixel_pass(inputs, params, width=96, height=64))
     ground = render_cuda.pixel_pass(inputs, dataclasses.replace(params, camera_frame=False),
                                     width=96, height=64)
     assert _mismatch(ours, ground) > 0.01  # the branch changes the picture
@@ -269,20 +289,122 @@ def test_pixel_kernel_matches_plain(cuda_device, opaque):
     plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
     assert (plain < 0.99).float().mean() > 0.05
     assert _mismatch(ours, plain) <= PIXEL_SHARE
+    assert torch.equal(ours, render_cuda.pixel_pass(inputs, params, width=96, height=64))
 
 
 @pytest.mark.cuda
-def test_pixel_kernel_wide_cells_match_plain(cuda_device):
+@pytest.mark.parametrize("camera_frame", [False, True], ids=["ground", "camera_frame"])
+def test_pixel_kernel_wide_cells_match_plain(cuda_device, camera_frame):
     """Cells wider than 32 pixels (the Engine's ladder picks 48 and 64 at
-    deep zoom-in) take more pixels than a block's 1024 threads."""
+    deep zoom-in): 12 runs a cell row, so a tile is one or two rows."""
     p, objects, buf, cam = _frame(cuda_device)
-    params = _params(cell_px=48, occlusion_downsample=2)
+    if camera_frame:
+        cam = Camera.create(pos=(0.38, 0.41), zoom=0.15, vel=(0.5, 0.1), device=cuda_device)
+    params = _params(cell_px=48, occlusion_downsample=2, camera_frame=camera_frame)
     inputs, _ = raytrace.prepare_pixel_pass(buf, p.object_index, objects, cam, 96, 64, params,
                                             boundary=wl.boundary_mask(p))
     ours = render_cuda.pixel_pass(inputs, params, width=96, height=64)
     plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
     assert (plain < 0.99).float().mean() > 0.05
     assert _mismatch(ours, plain) <= PIXEL_SHARE
+    assert torch.equal(ours, render_cuda.pixel_pass(inputs, params, width=96, height=64))
+
+
+def _tie_frame(device):
+    """Two coincident discs of two colours on a prefilled ring: every
+    splat entry of the first disc has an entry of the second with the same
+    geometry and time, later in its cell (pair order), so d2 ties exactly
+    and the first entry must win."""
+    sb = scene.SceneBuilder()
+    sb.add(scene.disc_softbody(5, 0, (0.37, 0.40), (0.25, 0.05), lattice_pad=True),
+           base_color=(0.25, 0.35, 1.0))
+    sb.add(scene.disc_softbody(5, 1, (0.37, 0.40), (0.25, 0.05), lattice_pad=True),
+           base_color=(1.0, 0.3, 0.25))
+    p, objects = sb.build(device=device)
+    buf = wl.prefill_inertial(wl.create(64, p.capacity, device=device), p.pos, p.vel, p.active,
+                              0.0, H)
+    return p, objects, buf
+
+
+def _far_frame(device):
+    """Two still discs in one 64-pixel view cell, 0.05 and 0.42 light
+    seconds from the camera: the cell's entries span about 80 ages, seen
+    from a zoomed-out camera through a 128-row ring."""
+    sb = scene.SceneBuilder()
+    for i, dx in enumerate((0.05, 0.42)):
+        sb.add(scene.disc_softbody(7, i, (0.38 + dx, 0.41 - 0.0245), (0.0, 0.0), lattice_pad=True),
+               base_color=((0.25, 0.35, 1.0), (1.0, 0.3, 0.25))[i])
+    p, objects = sb.build(device=device)
+    buf = wl.prefill_inertial(wl.create(128, p.capacity, device=device), p.pos, p.vel, p.active,
+                              0.0, H)
+    return p, objects, buf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera_frame", [False, True], ids=["ground", "camera_frame"])
+@pytest.mark.parametrize("case", ["saturated", "ties", "ragged", "age_span", "uhd"])
+def test_pixel_kernel_cases(cuda_device, camera_frame, case):
+    """Both branches against plain (at most PIXEL_SHARE of pixels off by
+    more than PIXEL_TOL), two launches bit-equal: 32-pixel cells filled
+    to a bin_capacity of 192 (long candidate walks, split over the camera
+    branch's lanes); exact d2 ties between coincident discs of two colours
+    (the first entry wins, also across the lane merge); a 97 x 61 image
+    (no multiple of 4 wide, no multiple of cell_px 16 high: ragged runs, a
+    partial last cell row, scalar stores); a cell whose entries span more
+    than the kernel's 64 age bins (bins two ages wide); a 3840 x 2160
+    image (2,073,600 runs of 4 pixels)."""
+    vel = (0.5, 0.1) if camera_frame else (0, 0)
+    zoom = 0.15
+    width, height = {"ragged": (97, 61), "age_span": (128, 64), "uhd": (3840, 2160)}.get(
+        case, (96, 64))
+    kw = dict(cell_px=16, camera_frame=camera_frame)
+    if case == "saturated":
+        kw.update(cell_px=32, bin_capacity=192, pair_budget=2048)
+    if case == "age_span":
+        vel = (-0.3, 0.0) if camera_frame else vel
+        zoom = 1.0
+        kw.update(cell_px=64, occlusion_downsample=2, bin_capacity=384, pair_budget=4096,
+                  max_age=120, band=2, rho=0.005)
+    if case == "uhd":
+        zoom = 0.8
+        kw.update(cell_px=32, occlusion_downsample=2)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=zoom, vel=vel, device=cuda_device)
+    if case == "ties":
+        p, objects, buf = _tie_frame(cuda_device)
+    elif case == "age_span":
+        p, objects, buf = _far_frame(cuda_device)
+    else:
+        p, objects, buf, _ = _frame(cuda_device)
+    params = _params(**kw)
+    inputs, diag = raytrace.prepare_pixel_pass(buf, p.object_index, objects, cam, width, height,
+                                               params, boundary=wl.boundary_mask(p))
+    count = inputs.cell_hi - inputs.cell_lo
+    if case == "saturated":
+        assert (count == params.bin_capacity).any() and int(diag.bin_dropped) > 0
+    if case == "age_span":
+        ages = torch.round((inputs.scal[0] - inputs.entries[:, 4]) / params.dt)
+        spans = [int(ages[lo:hi].max() - ages[lo:hi].min())
+                 for lo, hi in zip(inputs.cell_lo.tolist(), inputs.cell_hi.tolist()) if hi > lo]
+        assert max(spans) > 64 and int(diag.bin_dropped) == 0
+    if case == "ties":  # one particle's entry is in a cell once: a repeat is a tie
+        ties = 0
+        for c in torch.nonzero(count).flatten().tolist():
+            cell = inputs.entries[inputs.cell_lo[c]:inputs.cell_hi[c], :5]
+            ties += int((torch.unique(cell, dim=0, return_counts=True)[1] >= 2).sum())
+        assert ties > 100
+    ours = render_cuda.pixel_pass(inputs, params, width=width, height=height)
+    again = render_cuda.pixel_pass(inputs, params, width=width, height=height)
+    plain = render_cuda.pixel_pass_plain(inputs, params, width=width, height=height)
+    assert ours.shape == (3, height, width)
+    if case == "uhd":
+        assert int((plain < 0.99).any(dim=0).sum()) > 10_000
+    else:
+        assert (plain < 0.99).float().mean() > 0.02
+    if case == "age_span":  # both discs, the near and the far, are seen (in colour)
+        hue = plain.amax(dim=0) - plain.amin(dim=0)
+        assert (hue[:, :96] > 0.05).any() and (hue[:, 96:] > 0.05).any()
+    assert _mismatch(ours, plain) <= PIXEL_SHARE
+    assert torch.equal(ours, again)
 
 
 @pytest.mark.cuda
@@ -354,10 +476,17 @@ def test_band_kernel_cases(cuda_device, case):
         assert int(plain.truncated) > 0
 
 
+def _scratch_clean(device, width, height) -> bool:
+    winner, mask = points_cuda.scratch(torch.device(device), torch.cuda.current_stream().cuda_stream,
+                                       width, height)
+    return bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("zoom", [0.15, 2.0])
 def test_points_kernel_matches_plain(cuda_device, zoom):
-    """Bit-equal, with shared pixels (zoom 2.0) and without."""
+    """Bit-equal, with shared pixels (zoom 2.0) and without; the scratch is
+    back at EMPTY and 0 after the render."""
     p, objects, _, _ = _frame(cuda_device, frames=1)
     cam = Camera.create(pos=(0.38, 0.41), zoom=zoom, device=cuda_device)
     kernels.reset_launch_counts()
@@ -366,3 +495,92 @@ def test_points_kernel_matches_plain(cuda_device, zoom):
     assert kernels.launches["points"] == 1
     assert torch.equal(ours, plain)
     assert (plain != 1.0).any()
+    assert _scratch_clean(cuda_device, 96, 64)
+
+
+@pytest.mark.cuda
+def test_points_kernel_leaves_no_stale_scratch(cuda_device):
+    """Repeated renders with a moving camera, then at another resolution,
+    then of a scene of another capacity: each bit-equal to plain, the
+    scratch clean after each (a winner or a bit left over would colour a
+    pixel of the next render)."""
+    p, objects, _, _ = _frame(cuda_device, frames=1)
+    for i in range(6):
+        cam = Camera.create(pos=(0.36 + 0.01 * i, 0.41 - 0.005 * i), zoom=0.3 + 0.2 * i,
+                            device=cuda_device)
+        assert torch.equal(points_cuda.render_points(p, objects, cam, 96, 64),
+                           points_cuda.render_points_plain(p, objects, cam, 96, 64))
+        assert _scratch_clean(cuda_device, 96, 64)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=0.5, device=cuda_device)
+    for w, h in ((97, 61), (64, 96)):
+        assert torch.equal(points_cuda.render_points(p, objects, cam, w, h),
+                           points_cuda.render_points_plain(p, objects, cam, w, h))
+        assert _scratch_clean(cuda_device, w, h)
+    sb = scene.SceneBuilder()
+    sb.add(scene.disc_softbody(7, 0, (0.38, 0.41), (0.0, 0.0), lattice_pad=True),
+           base_color=(0.2, 0.9, 0.4))
+    big, big_objects = sb.build(capacity=1000, device=cuda_device)
+    assert big.capacity != p.capacity
+    ours = points_cuda.render_points(big, big_objects, cam, 64, 96)
+    assert torch.equal(ours, points_cuda.render_points_plain(big, big_objects, cam, 64, 96))
+    assert (ours != 1.0).any() and _scratch_clean(cuda_device, 64, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inactive", "one_pixel", "ragged"])
+def test_points_kernel_cases(cuda_device, case):
+    """Bit-equal to plain with every particle inactive (all white), with
+    every particle on one pixel (the lowest active index's colour), and at
+    97 x 61 (5,917 pixels: no multiple of 32 or of 4, so a partial mask
+    word and scalar stores)."""
+    p, objects, _, _ = _frame(cuda_device, frames=1)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=0.5, device=cuda_device)
+    width, height = (97, 61) if case == "ragged" else (96, 64)
+    if case == "inactive":
+        p = dataclasses.replace(p, active=torch.zeros_like(p.active))
+    if case == "one_pixel":
+        p = dataclasses.replace(p, pos=torch.full_like(p.pos, 0.38))
+    ours = points_cuda.render_points(p, objects, cam, width, height)
+    plain = points_cuda.render_points_plain(p, objects, cam, width, height)
+    assert torch.equal(ours, plain)
+    covered = torch.nonzero((plain != 1.0).any(dim=0))
+    if case == "inactive":
+        assert covered.shape[0] == 0
+    elif case == "one_pixel":
+        first = int(torch.nonzero(p.active)[0, 0])
+        y, x = covered[0].tolist()
+        assert covered.shape[0] == 1
+        assert torch.equal(ours[:, y, x], objects.base_color[p.object_index[first]])
+    else:
+        assert covered.shape[0] > 0
+    assert _scratch_clean(cuda_device, width, height)
+
+
+@pytest.mark.cuda
+def test_points_failed_launch_drops_scratch(cuda_device, monkeypatch):
+    """A launch that reports an error raises and drops the scratch it may
+    have left half-written; the next render starts from fresh buffers and
+    is bit-equal to plain."""
+    p, objects, _, _ = _frame(cuda_device, frames=1)
+    cam = Camera.create(pos=(0.38, 0.41), zoom=2.0, device=cuda_device)
+    points_cuda.render_points(p, objects, cam, 96, 64)
+    key = (cuda_device.index, torch.cuda.current_stream().cuda_stream)
+    assert key in points_cuda._scratch
+
+    class HalfDone:
+        """Marks winner slots and mask bits as pass 1 would, then fails."""
+
+        def points_launch(self, *args):
+            _, _, winner, mask = points_cuda._scratch[key]
+            winner[:50] = 0
+            mask[:2] = -1
+            return 1  # cudaErrorInvalidValue
+
+    monkeypatch.setattr(kernels, "library", lambda: HalfDone())
+    with pytest.raises(RuntimeError, match="points failed to launch"):
+        points_cuda.render_points(p, objects, cam, 96, 64)
+    assert key not in points_cuda._scratch
+    monkeypatch.undo()
+    ours = points_cuda.render_points(p, objects, cam, 96, 64)
+    assert torch.equal(ours, points_cuda.render_points_plain(p, objects, cam, 96, 64))
+    assert _scratch_clean(cuda_device, 96, 64)

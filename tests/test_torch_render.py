@@ -217,11 +217,26 @@ def test_render_matches_jax(frame, opaque, cell_px):
         assert (a is None) == (b is None) and (a is None or int(a) == int(b)), name
 
 
-def test_render_odd_size_and_pixel_quads_match_jax(frame):
-    """A width/height not divisible by the cell size (partial last cells)
-    and per-pixel (d = 1) occlusion lookups."""
-    img, jimg, _, _ = _images(frame, _jparams(cell_px=9, occlusion_downsample=1), 90, 60)
+@pytest.mark.parametrize("case", ["xla", "pallas_interpret", "pallas_interpret_saturated"])
+def test_render_odd_size_and_pixel_quads_match_jax(frame, case):
+    """A width/height not divisible by the cell size (partial last cells):
+    against the JAX package's XLA path at 90 x 60 with per-pixel (d = 1)
+    occlusion lookups; against its Pallas pixel kernel (interpret mode) at
+    97 x 61 (no multiple of 4 wide, no multiple of cell_px 16 high), also
+    with every crowded cell filled to a bin_capacity of 32 (both keep the
+    same nearest-first entries).  At most PIXEL_SHARE of pixels off by more
+    than PIXEL_TOL."""
+    if case == "xla":
+        jparams, size = _jparams(cell_px=9, occlusion_downsample=1), (90, 60)
+    else:
+        cap = dict(bin_capacity=32) if case.endswith("saturated") else {}
+        jparams, size = _jparams(backend="pallas_interpret", **cap), (97, 61)
+    img, jimg, diag, _ = _images(frame, jparams, *size)
+    assert img.shape == (3, size[1], size[0])
     assert _mismatch(img, jimg) <= PIXEL_SHARE
+    assert (img < 0.99).mean() > 0.05  # the discs are in view
+    if case.endswith("saturated"):
+        assert int(diag.bin_dropped) > 0
 
 
 def test_brute_oracle_matches_jax_and_fast_path(frame):

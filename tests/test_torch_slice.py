@@ -23,7 +23,7 @@ from spacetime_tpu.models.softbody import SoftbodyModel as JModel
 from spacetime_tpu.ops import forces as jforces
 from spacetime_tpu.ops import raytrace as jrt
 from spacetime_tpu.ops import worldline as jwl
-from spacetime_tpu_torch import compare_kernels, kernels, profile_frame, scene
+from spacetime_tpu_torch import checks, compare_kernels, kernels, profile_frame, scene
 from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.models.softbody import SoftbodyModel
 from spacetime_tpu_torch.ops import band_cuda, forces, raytrace
@@ -209,7 +209,7 @@ def test_compare_kernels_collision_inputs():
     model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),
                           device="cpu")
     p, _ = model.step(p)
-    order, stages = compare_kernels.collision_inputs(p, model)
+    order, stages = checks.collision_inputs(p, model)
     act = p.active
     assert order.cell_start[-1].item() == int(act.sum())
     pos0, still = stages[0]
@@ -228,18 +228,32 @@ def test_compare_kernels_checks_catch_a_difference():
                          .astype(np.float32))
     off = ref.clone()
     off[~p.active] += 1.0
-    assert compare_kernels.collision_error(off, ref, p.active) == 0.0
+    assert checks.collision_error(off, ref, p.active) == 0.0
     off[torch.nonzero(p.active)[0, 0]] += 2e-3
     with pytest.raises(AssertionError):
-        compare_kernels.collision_error(off, ref, p.active)
+        checks.collision_error(off, ref, p.active)
     buf = wl.prefill_inertial(wl.create(64, p.capacity), p.pos, p.vel, p.active, 0.0, H)
     cam = Camera.create(pos=(0.37, 0.41), zoom=0.15)
     params = raytrace.RenderParams(**{f.name: getattr(_jparams(), f.name)
                                       for f in dataclasses.fields(raytrace.RenderParams)})
     plain = band_cuda.cone_band_window_plain(buf, params, cam)
-    assert compare_kernels.band_unequal(plain, plain) == []
+    assert checks.band_unequal(plain, plain) == []
     bent = plain._replace(wx=plain.wx + 1e-7, ages=plain.ages + 1)
-    assert compare_kernels.band_unequal(bent, plain) == ["wx", "ages"]
+    assert checks.band_unequal(bent, plain) == ["wx", "ages"]
+
+
+def test_pixel_share_counts_mismatched_pixels():
+    """pixel_share counts a pixel once, by its largest channel difference
+    past PIXEL_TOL, and raises past PIXEL_SHARE of the image."""
+    plain = torch.ones((3, 50, 80))
+    ours = plain.clone()
+    ours[0, 0, 0] += 2e-3  # one pixel off, in one channel
+    ours[:, 1, 0] += 2e-3  # one pixel off, in every channel
+    ours[2, 2, 0] += 5e-4  # within the tolerance
+    assert checks.pixel_share(ours, plain) == pytest.approx(2 / 4000)
+    ours[1, 3:6, 0] += 1.0  # five pixels off of 4,000: past the limit
+    with pytest.raises(AssertionError, match="disagrees with plain"):
+        checks.pixel_share(ours, plain)
 
 
 def test_compare_kernels_needs_cuda():
