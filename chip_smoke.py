@@ -15,13 +15,28 @@ just after:
     through their impact (contact at about frame 170): every collision,
     band and pixel-pass launch goes through the kernels, every
     render/step diagnostic counter stays 0, the image is finite and lit;
+  * the same headline frame as the fused frame (spacetime_tpu_torch/
+    fused.py: its stages captured as CUDA graphs at the first frame and
+    replayed), FRAMES frames from a copy of the start state of two eager
+    runs of the same stages: the two eager runs must be bit-equal, and
+    then the graph run bit-equal to them (positions, ring, clock, image,
+    counters), with 4 collision, 1 band and 1 pixel launch a frame counted
+    from the replays, one capture and FRAMES - 1 replays, and every drop
+    counter, summed over its frames by name, 0;
   * the Engine through its CLI (`cli.run`, the code of
-    `python -m spacetime_tpu_torch`): `flagship_1080p` in retarded mode
-    for ENGINE_FRAMES frames (the discs meet near frame 120 at a 0.9c
-    closing speed), and in instant mode for INSTANT_FRAMES frames; after
-    each run the band (retarded only) and pixel kernels are held against
-    plain on the Engine's final state at the render params it chose (its
-    adapted band and bin capacity, its max_age and cell size);
+    `python -m spacetime_tpu_torch`), fused (CUDA graphs) unless told
+    otherwise: `flagship_1080p` in retarded mode for ENGINE_FRAMES frames
+    (the discs meet near frame 120 at a 0.9c closing speed), then
+    `profile_stages` (per-stage device times must be > 0), and again with
+    `--stage-timing` (eager frames, CUDA-event stage times > 0), the two
+    frame times printed side by side; in instant mode for INSTANT_FRAMES
+    frames; after each run the band (retarded only) and pixel kernels are
+    held against plain on the Engine's final state at the render params it
+    chose (its adapted band and bin capacity, its max_age and cell size);
+  * the fused Engine's graph cache on `flagship_1080p`: zooms on four rungs
+    of the cell ladder capture four keys, a revisit replays, a fifth zoom
+    evicts the oldest; device memory peaks with one and with four;
+  * the bench (spacetime_tpu_torch/bench.py), once, its JSON line printed;
   * the Engine in points mode on the reference demo scene
     (headline.refdemo_config: 116,178 particles at capacity 149,248,
     1920x1080) for POINTS_FRAMES frames, its last frame bit-equal to the
@@ -29,9 +44,12 @@ just after:
   * `boosted_observer` through the CLI's code path (two 3,000-particle
     discs, 512x512, the camera-frame view of a 0.5c camera) for
     BOOSTED_FRAMES frames: every frame 1 camera-frame pixel launch, 1 band
-    launch and 4 collision launches, every render drop counter 0 over the
-    run; then the band and camera-frame pixel kernels against plain on its
-    final state at its own render params;
+    launch and 4 collision launches, every drop counter summed over the
+    run (the CLI summary's `drops`) 0; then the band and camera-frame
+    pixel kernels against plain on its final state at its own render
+    params, and the pixel kernel at a
+    bin_capacity of 1536 (above what a 48 KB slice holds) in both
+    branches;
   * `plastic_collision` through the CLI's code path (two 3,000-particle
     discs of a creeping and a damped material closing at 0.24c) for
     PLASTIC_FRAMES frames, through the impact: the blue body's rest
@@ -58,18 +76,17 @@ compare_kernels uses too.
 
 Output: one line per phase, then a JSON line of per-kernel results (each
 with its bound: the larger of the bytes it must move over 3.35 TB/s and
-its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks, from
-this run's inputs), the card's name and power limit from nvidia-smi, and
-as the last line {"ok": true, "device": {...}}.  Any failure raises
-(non-zero exit, no result line).  Needs CUDA: without it the script exits
-1.
+its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks of
+spacetime_tpu_torch/utils/roofline.py, from this run's inputs), the card's
+name and power limit from nvidia-smi, and as the last line
+{"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
+result line).  Needs CUDA: without it the script exits 1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -79,6 +96,7 @@ import torch
 from spacetime_tpu_torch.checks import (BAND_FIELDS, PIXEL_SHARE, PIXEL_TOL, band_unequal,
                                         collision_error, collision_inputs, pixel_inputs,
                                         pixel_share)
+from spacetime_tpu_torch.device import card_line
 from spacetime_tpu_torch.utils.timing import cuda_ms, launch_floor_ms
 
 FRAMES = 200  # the discs meet at about frame 170
@@ -89,24 +107,21 @@ BOOSTED_FRAMES = 300
 PLASTIC_FRAMES = 220  # the discs, 0.184 ls apart closing at 0.24c, meet near frame 153
 ROWS_FRAMES = 200  # flagship_1080p unpadded: the discs meet near frame 120
 SMALL_NEW_FRAMES = 8  # tiny new-config Engines, GPU vs CPU, through contact
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s (published)
-PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, op/s (published)
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+BIG_BIN_CAPACITY = 1536  # a staged slice past 48 KB of shared memory
+# flagship_1080p zooms on the cell ladder's rungs 16 (its own), 8, 24, 32, 48
+LADDER_ZOOMS = (1.2, 2.4, 0.6, 0.4, 0.25)
 
 
 def bound(nbytes: float, nops: float):
     """(bound_ms, bound_by): the least time the card could take for work
-    that must move `nbytes` and do `nops` f32 operations."""
-    t_b, t_o = nbytes / PEAK_BYTES, nops / PEAK_F32
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    that must move `nbytes` and do `nops` f32 operations, at the H100 SXM's
+    published peaks (utils/roofline.py)."""
+    from spacetime_tpu_torch.utils.roofline import Roofline
+
+    r = Roofline(flops=nops, bytes_accessed=nbytes)
+    return r.bound_s * 1e3, r.bound_by
 
 
 def collision_bound(pos, active, order, cd, max_disp: float, neighbors=None):
@@ -175,7 +190,7 @@ def band_bound(buf, params):
     operations per (particle, swept age)."""
     from spacetime_tpu_torch.ops.band_cuda import _sweep_bounds
 
-    _, _, _, hi0 = _sweep_bounds(buf, params)
+    hi0 = int(_sweep_bounds(buf, params)[3])
     n, w = buf.num_particles, params.band + 1
     nbytes = hi0 * n * 8 + w * n * 16 + 8 * n + 20 * w * n + 8
     return bound(nbytes, 10 * hi0 * n)
@@ -344,76 +359,203 @@ def _lit(img, params) -> float:
     return ((img != 1.0) & (img != np.float32(params.shadow))).any(dim=-1).float().mean().item()
 
 
-class DropSums:
-    """Sums every frame's render drop counters on the device while the
-    Engine runs, by wrapping the render entry point it calls
-    (raytrace.render_retarded_with_diag); read once at the end.  The
-    wrapped run's frame and render times include these sums (a stack of
-    five counters and an add, about 7 small device ops a frame)."""
-
-    NAMES = ("band_truncated", "bin_dropped", "cell_too_small", "retina_dropped",
-             "entry_dropped")
-
-    def __enter__(self):
-        from spacetime_tpu_torch.ops import raytrace
-
-        self.sums, self._orig = None, raytrace.render_retarded_with_diag
-
-        def wrapped(*args, **kwargs):
-            img, diag = self._orig(*args, **kwargs)
-            vals = torch.stack([torch.as_tensor(getattr(diag, n) if getattr(diag, n) is not None
-                                                else 0, device=img.device).long()
-                                for n in self.NAMES])
-            self.sums = vals if self.sums is None else self.sums + vals
-            return img, diag
-
-        raytrace.render_retarded_with_diag = wrapped
-        return self
-
-    def __exit__(self, *exc):
-        from spacetime_tpu_torch.ops import raytrace
-
-        raytrace.render_retarded_with_diag = self._orig
-
-    def read(self):
-        return dict(zip(self.NAMES, self.sums.tolist()))
+def _slowest(eng):
+    """The three slowest frames of an Engine's stats window, as (frame, ms)."""
+    ms = [s * 1e3 for s in eng.stats.samples]
+    return [(i, round(ms[i], 3)) for i in sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]]
 
 
-def engine_via_cli(argv, frames, expect, drops=None):
+def engine_via_cli(argv, frames, expect, gate_drops=False):
     """The Engine through the CLI's code path; `expect` maps a kernel name to
-    its launches per frame (the names not in it must stay 0).  With `drops`
-    (a DropSums) every render drop counter must be 0 over the run."""
+    its launches per frame (the names not in it must stay 0).  With
+    `gate_drops` every drop counter summed over the run (the summary's
+    `drops`) must be 0.  A fused run (no --stage-timing) must have replayed
+    a captured graph in every frame but each key's first; an eager one must
+    report stage times > 0."""
     from spacetime_tpu_torch import cli, kernels
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    if drops is None:
-        eng, img, summary = cli.run(argv)
-    else:
-        with drops:
-            eng, img, summary = cli.run(argv)
+    eng, img, summary = cli.run(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     lit = _lit(img, eng._render_params())
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS}
     print(f"engine {' '.join(argv)}: {wall:.2f} s wall incl. setup; launches {counts}; "
-          f"lit share {lit:.4f}; boosts {boosts}")
+          f"lit share {lit:.4f}; boosts {boosts}; graphs {eng.graph_stats}; slowest frames "
+          f"(index, ms) {_slowest(eng)}")
     print(f"  summary {json.dumps(summary)}")
     want = {k: expect.get(k, 0) * frames for k in counts}
     if counts != want:
         raise AssertionError(f"engine launches {counts}, expected {want}")
-    if drops is not None:
-        sums = drops.read()
-        print(f"  render drop counters summed over the run: {sums}")
-        if any(sums.values()):
-            raise AssertionError(f"nonzero render drop counters over the run: {sums}")
+    if gate_drops and any(summary["drops"].values()):
+        raise AssertionError(f"nonzero drop counters over the run: {summary['drops']}")
     if img.shape != (eng.config.height, eng.config.width, 3) or not torch.isfinite(img).all() \
             or lit <= 0.0:
         raise AssertionError("engine image is not finite or shows no matter")
-    if not all(summary[k] > 0 for k in ("step_avg_ms", "worldline_avg_ms", "render_avg_ms")):
-        raise AssertionError(f"engine stage times are not all > 0: {summary}")
-    return eng, counts
+    g = eng.graph_stats
+    if eng.config.stage_timing:
+        if g["captures"] or not all(summary[k] > 0 for k in ("step_avg_ms", "worldline_avg_ms",
+                                                              "render_avg_ms")):
+            raise AssertionError(f"stage-timed engine: graphs {g} or a stage time not > 0: "
+                                 f"{summary}")
+    elif not 1 <= g["captures"] <= 8 or g["captures"] + g["replays"] != frames:
+        # a capture a render-params key: the adaptation moves to a few keys
+        raise AssertionError(f"fused engine graphs {g} over {frames} frames")
+    return eng, counts, summary
+
+
+def check_profile_stages(eng):
+    """Engine.profile_stages on a fused CUDA Engine: per-stage device times
+    of the replayed graphs, each > 0, reported by the stats summary."""
+    stages = eng.profile_stages(5)
+    summary = eng.stats.summary()
+    keys = [f"{k}_dev_ms" for k in ("step", "worldline", "render", "total")]
+    print(f"  profile_stages (5 fused frames, CUDA events between the stage graphs): "
+          f"{ {k: summary.get(k) for k in keys} }")
+    if not all(summary.get(k, 0) > 0 for k in keys):
+        raise AssertionError(f"profile_stages left a stage time at 0: {stages}")
+
+
+def _state_diff(a, b):
+    """Names of the state tensors that differ between two FrameStates."""
+    out = []
+    for part, x, y in (("particles", a.particles, b.particles), ("ring", a.buf, b.buf)):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if u is not None and not torch.equal(u, v):
+                out.append(f"{part}.{f.name}")
+    for name in ("frame_in", "aux"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            out.append(name)
+    return out
+
+
+def check_graph_vs_eager(device):
+    """The headline frame's stages for FRAMES frames three times from
+    copies of one start state: eagerly twice (which must be bit-equal, as
+    every kernel is deterministic) and as CUDA graph replays, which must be
+    bit-equal to them; where the eager runs differ, the differing tensors
+    are named and the graph run is held to check_small_vs_cpu's tolerances
+    instead.  Returns (graph ms a frame, eager ms a frame) of the host wall
+    clock over frames 2..FRAMES (the first, the graph's capture, apart)."""
+    from spacetime_tpu_torch import fused, headline, kernels
+
+    model, particles, objects, buf, cam, params = headline.build(device)
+    base = fused.new_state(particles, buf, cam, 0.0)
+    runs = {}
+    for name in ("eager", "eager again", "graph"):
+        state = base if name == "graph" else fused.copy_state(base)
+        stages = fused.frame_stages(model, None, state, objects, headline.WIDTH,
+                                    headline.HEIGHT, params, "retarded", model.params.h)
+        order = fused.schedule(1)
+        frame = fused.FusedFrame(stages, order, device) if name == "graph" else \
+            (lambda stages=stages: fused.run_stages(stages, order))
+        kernels.reset_launch_counts()
+        out = frame()  # the graph's capture frame: timed apart
+        sums = out[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FRAMES - 1):
+            out = frame()
+            sums = sums + out[1]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (FRAMES - 1) * 1e3
+        runs[name] = (state, out, ms, dict(kernels.launches),
+                      getattr(frame, "stats", None), fused.drops_of(sums, stages["render"]))
+    (ea, (img_a, ctr_a), ms_a, _, _, _), (eb, (img_b, ctr_b), _, _, _, _) = \
+        runs["eager"], runs["eager again"]
+    gs, (img_g, ctr_g), ms_g, counts, stats, drops = runs["graph"]
+    eager_diff = _state_diff(ea, eb) + [n for n, x, y in (("image", img_a, img_b),
+                                                          ("counters", ctr_a, ctr_b))
+                                        if not torch.equal(x, y)]
+    graph_diff = _state_diff(gs, ea) + [n for n, x, y in (("image", img_g, img_a),
+                                                          ("counters", ctr_g, ctr_a))
+                                        if not torch.equal(x, y)]
+    print(f"graph vs eager (headline, {FRAMES} frames each from one start state): eager runs "
+          f"differ in {eager_diff or 'nothing'}; graph differs from eager in "
+          f"{graph_diff or 'nothing'}; graph launches {counts}, {stats}; wall per frame "
+          f"(frames 2-{FRAMES}): "
+          f"graph {ms_g:.4f} ms, eager {ms_a:.4f} ms; graph drop counters summed over the "
+          f"run {drops}")
+    if counts["collision"] != 4 * FRAMES or counts["band"] != FRAMES \
+            or counts["pixel_pass"] != FRAMES:
+        raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x {FRAMES}")
+    if (stats["captures"], stats["replays"]) != (1, FRAMES - 1):
+        raise AssertionError(f"graph run {stats}: expected one capture and {FRAMES - 1} replays")
+    if not eager_diff:
+        if graph_diff:
+            raise AssertionError(f"the graph run differs from bit-equal eager runs in "
+                                 f"{graph_diff}")
+    else:
+        act = ea.particles.active
+        pos_err = (gs.particles.pos - ea.particles.pos)[act].abs().max().item()
+        share = ((img_g - img_a).abs().amax(dim=0) > PIXEL_TOL).float().mean().item()
+        print(f"  eager runs are not bit-equal: graph vs eager max position err "
+              f"{pos_err:.3e}, pixel share > {PIXEL_TOL:g}: {share:.2e}")
+        if pos_err > 1e-4 or share > PIXEL_SHARE:
+            raise AssertionError("the graph run disagrees with the eager run")
+    if not torch.isfinite(img_g).all() or any(drops.values()):
+        raise AssertionError(f"graph run image not finite or drop counters {drops} not 0")
+    return ms_g, ms_a
+
+
+def check_graph_cache(device):
+    """flagship_1080p fused on the card: one key, then zooms on three more
+    rungs of the cell ladder (a capture each), a revisit (a replay), and a
+    fifth rung (a capture that evicts the oldest key); the device memory
+    peak after one key and after four."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.camera import Camera
+    from spacetime_tpu_torch.utils.config import get_config
+
+    from spacetime_tpu_torch.utils.profiling import device_memory_stats
+
+    peak = lambda: device_memory_stats(device)["peak_bytes_in_use"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(get_config("flagship_1080p"), device=device)
+    eng.run(3)
+    torch.cuda.synchronize()
+    one = peak()
+    peaks, cells = [one], []
+    for zoom in LADDER_ZOOMS[1:4]:
+        eng.camera = Camera.create(pos=(0.7, 0.5), zoom=zoom, device=device)
+        eng.run(2)
+        torch.cuda.synchronize()
+        peaks.append(peak())
+        cells.append(eng._render_params().cell_px)
+    four = dict(eng.graph_stats)
+    eng.camera = Camera.create(pos=(0.7, 0.5), zoom=LADDER_ZOOMS[0], device=device)
+    eng.run(2)
+    revisit = dict(eng.graph_stats)
+    eng.camera = Camera.create(pos=(0.7, 0.5), zoom=LADDER_ZOOMS[4], device=device)
+    eng.run(2)
+    fifth = dict(eng.graph_stats)
+    kept = [k[0].cell_px for k in eng._fused_cache]
+    print(f"graph cache (flagship_1080p): cell sizes {cells} after the first; graphs after four "
+          f"keys {four}, after a revisit {revisit}, after a fifth {fifth}; kept cells {kept}; "
+          f"max_memory_allocated {one / 2**20:.1f} MiB with one key's graphs, "
+          f"{peaks[-1] / 2**20:.1f} MiB with four (per key: "
+          f"{[round(p / 2**20, 1) for p in peaks]})")
+    if four["captures"] != 4 or revisit["captures"] != 4 or fifth["captures"] != 5 \
+            or len(kept) != 4 or revisit["replays"] != four["replays"] + 2:
+        raise AssertionError("the fused frame cache did not capture once per key")
+    return one, peaks[-1]
+
+
+def run_bench():
+    """The bench's headline row (spacetime_tpu_torch/bench.py), printed as
+    its JSON line; every drop counter must be 0."""
+    from spacetime_tpu_torch import bench
+
+    row = bench.run_headline()
+    print(json.dumps(row))
+    if any(row["drops"].values()) or not row["value"] > 0:
+        raise AssertionError(f"bench drops {row['drops']} or fps {row['value']}")
+    return row
 
 
 def check_engine_kernels(eng):
@@ -439,7 +581,8 @@ def engine_points(device):
     """The reference demo scene in points mode: POINTS_FRAMES frames through
     the Engine, then its last frame against the plain renderer on the same
     state (bit-equal), a second launch bit-equal too, and the kernel's
-    scratch back at EMPTY and 0 after both.  Also times the plain version's
+    scratch back at EMPTY and 0 after both, and so is the scratch of the
+    Engine's graphs.  Also times the plain version's
     winner pass, one `scatter_reduce_(..., "amin")`, as the library
     yardstick of that pass.
     Returns (launches, max abs err, ms, plain ms, bound, library ms)."""
@@ -468,6 +611,9 @@ def engine_points(device):
     winner, mask = points_cuda.scratch(p.pos.device, torch.cuda.current_stream().cuda_stream,
                                        cfg.width, cfg.height)
     clean = bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
+    # and the scratch the Engine's graphs replay on
+    winner, mask = points_cuda.held(p.pos.device, eng._graph_stream.cuda_stream)
+    clean = clean and bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
     torch.cuda.synchronize()
     err = (img - plain).abs().max().item()
     covered = (plain != 1.0).any(dim=0).sum().item()
@@ -728,37 +874,61 @@ def main() -> int:
     particles, buf, counts = main_path(model, particles, objects, buf, cam, params)
     band_err, band_ms, band_plain_ms, band_bnd = check_band(buf, cam, params,
                                                             "headline, after the main path")
+    big_err = check_pixel(particles, objects, buf, cam,
+                          dataclasses.replace(params, bin_capacity=BIG_BIN_CAPACITY),
+                          headline.WIDTH, headline.HEIGHT, "headline, after the main path")[0]
     coll_err2, coll_ms, coll_plain_ms, coll_bnd = time_collision(particles, model)
     coll_err = max(coll_err, coll_err2)
     del model, particles, objects, buf
-    eng, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES),
-                             "--stats"], ENGINE_FRAMES,
-                            {"collision": 4, "pixel_pass": 1, "band": 1})
+    graph_ms, eager_ms = check_graph_vs_eager(device)
+
+    # the Engine, fused by default (each path with its launch counts reset
+    # just before it)
+    eng, _, fused_summary = engine_via_cli(
+        ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats"],
+        ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1})
     retarded_errs = check_engine_kernels(eng)
+    check_profile_stages(eng)
     del eng
-    eng, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(INSTANT_FRAMES),
-                             "--mode", "instant"], INSTANT_FRAMES,
-                            {"collision": 4, "pixel_pass": 1, "band": 0})
+    eng, _, timed_summary = engine_via_cli(
+        ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats",
+         "--stage-timing"], ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1})
+    del eng
+    print(f"flagship_1080p, {ENGINE_FRAMES} frames: frame_avg_ms fused (CUDA graphs) "
+          f"{fused_summary['frame_avg_ms']:.4f} (median {fused_summary['frame_median_ms']:.4f}), "
+          f"eager with --stage-timing {timed_summary['frame_avg_ms']:.4f} (median "
+          f"{timed_summary['frame_median_ms']:.4f}); "
+          f"headline frame wall: graph {graph_ms:.4f} ms, eager {eager_ms:.4f} ms")
+    eng, _, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(INSTANT_FRAMES),
+                                "--mode", "instant"], INSTANT_FRAMES,
+                               {"collision": 4, "pixel_pass": 1, "band": 0})
     instant_errs = check_engine_kernels(eng)
     del eng
-    pix_err = max(pix_err, retarded_errs["pixel_pass"][0], instant_errs["pixel_pass"][0])
+    check_graph_cache(device)
+    run_bench()
+    pix_err = max(pix_err, retarded_errs["pixel_pass"][0], instant_errs["pixel_pass"][0], big_err)
     band_err = max(band_err0, band_err, retarded_errs["band"][0])
     pts_launches, pts_err, pts_ms, pts_plain_ms, pts_bnd, pts_lib_ms = engine_points(device)
 
     # the paths of this slice, each with its launch counts reset just before
-    eng, boosted_counts = engine_via_cli(
+    eng, boosted_counts, _ = engine_via_cli(
         ["--config", "boosted_observer", "--frames", str(BOOSTED_FRAMES), "--stats"],
         BOOSTED_FRAMES, {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1},
-        drops=DropSums())
+        gate_drops=True)
     boosted_errs = check_engine_kernels(eng)
     cf_err, cf_ms, cf_plain_ms, cf_bnd = boosted_errs["pixel_pass"]
     band_err = max(band_err, boosted_errs["band"][0])
+    big_cf_err = check_pixel(
+        eng.particles, eng.objects, eng.worldline, eng.camera,
+        dataclasses.replace(eng._render_params(), bin_capacity=BIG_BIN_CAPACITY),
+        eng.config.width, eng.config.height, "engine boosted_observer, final state")[0]
     del eng
-    eng, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
+    eng, _, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
                              "--stats"], PLASTIC_FRAMES,
                             {"collision": 4, "pixel_pass": 1, "band": 1})
     check_plastic(eng)
     del eng
+    cf_err = max(cf_err, big_cf_err)
     ex_launches, ex_err, ex_ms, ex_plain_ms, ex_bnd = engine_rows(device)
     check_small_vs_cpu()
     check_small_engine_vs_cpu()

@@ -6,9 +6,11 @@
 Counterpart of `spacetime_tpu/cli.py`, with its flag names.  It runs on
 CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
 (the plain-torch versions of the kernels).  With --stats it prints the
-stats summary as JSON, else one line.  Not accepted yet: --out, --every, --serve, --serve-bind, --overlay
-and --realtime (they wait for the frame and stream sinks); --stage-timing
-is not needed, because stage times are always measured.
+stats summary as JSON (with the drop counters summed over the run and
+the CUDA graphs' counts), else one line.  Frames run fused (CUDA graphs on
+the card) unless --stage-timing asks for eager frames with per-stage
+times.  Not accepted yet: --out, --every, --serve, --serve-bind, --overlay
+and --realtime (they wait for the frame and stream sinks).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--stats", action="store_true", help="print the stats summary JSON")
+    ap.add_argument("--stage-timing", action="store_true",
+                    help="per-stage timing (eager frames, CUDA-event stage times)")
     ap.add_argument("--save", default=None, help="checkpoint path to write")
     ap.add_argument("--load", default=None, help="checkpoint path to resume")
     ap.add_argument("--cpu", action="store_true", help="run on the CPU")
@@ -46,7 +50,8 @@ def run(argv=None):
 
     cfg = get_config(args.config)
     overrides = {k: v for k, v in (("render_mode", args.mode), ("width", args.width),
-                                   ("height", args.height)) if v}
+                                   ("height", args.height),
+                                   ("stage_timing", args.stage_timing)) if v}
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     eng = Engine(cfg, device=device)
@@ -62,7 +67,7 @@ def run(argv=None):
 def main(argv=None) -> int:
     eng, _, summary = run(argv)
     if _parser().parse_args(argv).stats:
-        print(json.dumps(summary, indent=2))
+        print(json.dumps({**summary, "graphs": eng.graph_stats}, indent=2))
     else:
         print(f"{eng.frame} frames of {eng.config.render_mode} on {eng.device}: "
               f"{summary['fps_avg']:.2f} fps (--stats for the summary JSON)")

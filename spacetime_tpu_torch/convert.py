@@ -52,8 +52,8 @@ def worldline_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> Worl
         vel_x=_t(fields["vel_x"], device, np.float32),
         vel_y=_t(fields["vel_y"], device, np.float32),
         times=_t(fields["times"], device, np.float32),
-        cursor=int(fields["cursor"]),
-        frames_in_use=int(fields["frames_in_use"]),
+        cursor=_t(fields["cursor"], device, np.int32),
+        frames_in_use=_t(fields["frames_in_use"], device, np.int32),
     )
 
 

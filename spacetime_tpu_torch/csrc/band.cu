@@ -55,11 +55,13 @@ __global__ void band_kernel(const float* __restrict__ pos_x,
                             const float* __restrict__ pos_y,
                             const float* __restrict__ vel_x,
                             const float* __restrict__ vel_y,
-                            const float* __restrict__ cam_pos, int n, int t2,
-                            int col0, int a_sw, int hi0, int base_col,
-                            int band, float dt, float thresh,
+                            const float* __restrict__ cam_pos,
+                            const int* __restrict__ cursor,
+                            const int* __restrict__ in_use, int n, int t2,
+                            int a_sw, int band, float dt, float thresh,
                             int* __restrict__ a0_out,
                             int* __restrict__ alast_out,
+                            int* __restrict__ hi0_out,
                             float* __restrict__ wx, float* __restrict__ wy,
                             float* __restrict__ wvx, float* __restrict__ wvy,
                             int* __restrict__ ages,
@@ -71,6 +73,15 @@ __global__ void band_kernel(const float* __restrict__ pos_x,
   const int slice = threadIdx.x >> 5;
   const int i0 = blockIdx.x * 32;
   const int i = i0 + lane;
+  // the sweep bounds of ops/band_cuda.py _sweep_bounds, from the ring's
+  // cursor and in-use count in device memory (the TPU kernel's SMEM
+  // scalars): the mirrored row of age 0, the first swept row (rows col0..
+  // hold ages a_sw - 1 .. 0) and the oldest usable age
+  const int t_cap = t2 / 2;
+  const int base_col = *cursor + t_cap;
+  const int col0 = *cursor + 1 + (t_cap - a_sw);
+  const int hi0 = min(min(*in_use - 1, t_cap - 1), a_sw - 1);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *hi0_out = hi0;
   int a0 = hi0 + 1;
   int alast = -1;
   if (i < n) {
@@ -142,22 +153,24 @@ __global__ void band_kernel(const float* __restrict__ pos_x,
 
 extern "C" int band_window_launch(const void* pos_x, const void* pos_y,
                                   const void* vel_x, const void* vel_y,
-                                  const void* cam_pos, int n, int t2,
-                                  int col0, int a_sw, int hi0, int base_col,
+                                  const void* cam_pos, const void* cursor,
+                                  const void* in_use, int n, int t2, int a_sw,
                                   int band, float dt, float thresh, void* a0,
-                                  void* alast, void* wx, void* wy, void* wvx,
-                                  void* wvy, void* ages, void* truncated,
-                                  void* stream) {
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + 31) / 32;
-  if (blocks > 0) {
-    band_kernel<<<blocks, kSlices * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(pos_x), static_cast<const float*>(pos_y),
-        static_cast<const float*>(vel_x), static_cast<const float*>(vel_y),
-        static_cast<const float*>(cam_pos), n, t2, col0, a_sw, hi0, base_col, band, dt,
-        thresh, static_cast<int*>(a0), static_cast<int*>(alast), static_cast<float*>(wx),
-        static_cast<float*>(wy), static_cast<float*>(wvx), static_cast<float*>(wvy),
-        static_cast<int*>(ages), static_cast<unsigned long long*>(truncated));
+                                  void* alast, void* hi0, void* wx, void* wy,
+                                  void* wvx, void* wvy, void* ages,
+                                  void* truncated, void* stream) {
+  if (n < 0 || t2 < 2 || t2 % 2 != 0 || a_sw < 1 || a_sw > t2 / 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  // one block at least: block 0 writes hi0
+  const int blocks = n > 0 ? (n + 31) / 32 : 1;
+  band_kernel<<<blocks, kSlices * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(pos_x), static_cast<const float*>(pos_y),
+      static_cast<const float*>(vel_x), static_cast<const float*>(vel_y),
+      static_cast<const float*>(cam_pos), static_cast<const int*>(cursor),
+      static_cast<const int*>(in_use), n, t2, a_sw, band, dt, thresh, static_cast<int*>(a0),
+      static_cast<int*>(alast), static_cast<int*>(hi0), static_cast<float*>(wx),
+      static_cast<float*>(wy), static_cast<float*>(wvx), static_cast<float*>(wvy),
+      static_cast<int*>(ages), static_cast<unsigned long long*>(truncated));
   return static_cast<int>(cudaGetLastError());
 }

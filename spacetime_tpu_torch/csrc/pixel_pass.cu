@@ -113,8 +113,10 @@ constexpr int kWarps = 4;
 // bins a tile sorts its entries into by age
 constexpr int kMaxBins = 64;
 constexpr unsigned kFull = 0xffffffffu;
-// shared memory a block may use without opting in
+// shared memory a block may use without opting in, and the most an H100
+// block may opt into (cudaFuncAttributeMaxDynamicSharedMemorySize)
 constexpr size_t kSmemDefault = 48 * 1024;
+constexpr size_t kSmemOptIn = 232448;
 
 // Mirrors render_cuda.PixelParams (ctypes) field for field.
 struct PixelParams {
@@ -717,7 +719,7 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
   const size_t per_warp = slice_bytes(p.cap);
   // tile and run indices, and the threads' (block, thread) index, stay ints
   const long long lim = INT_MAX - 1024;
-  if (n_tiles > lim || bg_runs > lim || per_warp > kSmemDefault) {
+  if (n_tiles > lim || bg_runs > lim || per_warp > kSmemOptIn) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   sh.n_tiles = static_cast<int>(n_tiles);
@@ -730,6 +732,20 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
   sh.ds_d = divisor_of(p.ds);
   int warps = kWarps;
   while (warps > 1 && warps * per_warp > kSmemDefault) --warps;
+  const size_t smem = warps * per_warp;
+  if (smem > kSmemDefault) {
+    // a slice past 48 KB (bin_capacity above 1203): one warp a block, opted
+    // into the larger dynamic shared memory once for the largest seen; a
+    // launch within 48 KB keeps its size and so its occupancy
+    static size_t opted = kSmemDefault;
+    if (smem > opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          pixel_kernel<CF, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      opted = smem;
+    }
+  }
   const size_t plane = static_cast<size_t>(p.width) * p.height;
   sh.vec4 = plane % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int threads = warps * 32;
@@ -738,7 +754,7 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
   sh.bg_blocks = (sh.bg_runs + threads - 1) / threads;
   const int blocks = sh.cell_blocks + sh.bg_blocks;
   if (blocks > 0) {
-    pixel_kernel<CF, L><<<blocks, threads, warps * per_warp, stream>>>(
+    pixel_kernel<CF, L><<<blocks, threads, smem, stream>>>(
         entries, cell_lo, cell_hi, sfq, scal, p, sh, out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -5,6 +5,8 @@ plain-torch versions of the kernels."""
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 NO_CUDA = ("no CUDA device: spacetime_tpu_torch runs on an NVIDIA GPU "
@@ -19,3 +21,13 @@ def resolve(device=None) -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError(NO_CUDA)
     return torch.device("cuda", 0)
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader` prints them (a card may be set
+    below its full power, and then runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]

@@ -5,18 +5,32 @@ Counterpart of `spacetime_tpu/engine.py` for one device.  Per frame it
 worldline ring, (3) renders in the config's mode — `retarded`, `instant`
 or `points` — and (4) records stage times and consumes the diagnostics.
 
+The normal frame is the fused frame (fused.py), as in the JAX package:
+`_can_fuse` takes it unless the Engine is paused or `config.stage_timing`
+is set, and `_fused_frame_fn` keeps one per render-params key (at most
+`_FUSED_CACHE_MAX`, evicted first in, first out).  On a CUDA device its
+stages are captured as CUDA graphs at the key's first frame and replayed
+at every later one (`graph_stats` counts captures and replays); on the CPU
+the same closures run uncaptured.  Its stats carry the frame time and zero
+stage times, as the JAX fused frame's do, until `profile_stages` fills in
+per-stage device times.  With `stage_timing` (or while paused) the frame
+runs eagerly, with CUDA-event stage times read one frame late, and pushes
+the host clock (f32 of `time` after each tick's `+= h`), as the JAX eager
+path does.  Either way the device work of frame i is queued while the host
+moves on, and the one per-frame sync is the wait on frame i-1's end (as
+the JAX fused path blocks on the previous image), so `frame_time` is the
+pipelined frame time.  Every frame adds its drop counters (fused.
+DROP_FIELDS) into a device sum, which `run`'s summary reports as `drops`.
+
 Differences by design:
-  * The frame is eager torch: no jit, no compiled-program cache.  The
-    device work of frame i is queued while the host moves on; the one
-    per-frame sync is the wait on frame i-1's end (as the JAX fused path
-    blocks on the previous image), so `frame_time` is the pipelined frame
-    time.
+  * The state lives in fixed tensors that every frame updates in place
+    (fused.FrameState): assigning `particles` or `worldline`, loading a
+    checkpoint or setting `camera` copies into them, so the next replay
+    reads what was set.  Particles passed in are copied, not shared.
   * Camera kinematics run on the host in f32 (np.float32, the JAX
-    package's rounding) and are mirrored into a device `Camera` only when
-    they change, by one non-blocking copy.
-  * Stage times (step, worldline, render) come from CUDA events on every
-    frame, read one frame late (utils/stats.py); the JAX fused frame
-    reports zeros there.
+    package's rounding).  Once a frame, the camera and the frame clock
+    (`time` in f32, JAX's `t_prev`) go to the device in one non-blocking
+    copy, from one of two pinned slots used in turn.
   * The checkpoint keeps every adaptation field, `_seg_boost` included
     (the JAX package's `_ADAPT_FIELDS` leaves it out).
   * The collision and point kernels have no window cap, so the JAX
@@ -44,13 +58,13 @@ import numpy as np
 import torch
 
 from . import device as device_mod
+from . import fused
 from . import scene as scene_mod
 from .camera import Camera, CameraController
 from .models.softbody import SoftbodyModel
-from .ops import forces, materials as materials_ops, rasterize, raytrace
+from .ops import forces, materials as materials_ops, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
-from .ops.rk4 import StepAux
 from .state import Objects, Particles, with_rest_len
 from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
@@ -112,33 +126,31 @@ class Engine:
         self.config = config
         if particles is None:
             particles, objects = build_scene(config.scene, self.device)
-        self.particles = particles.to(self.device)
+        particles = fused.owned(particles.to(self.device))  # updated in place
         self.objects = objects.to(self.device)
         # None for an irregular bond graph: the row-gather physics
-        offsets = forces.derive_spring_offsets(self.particles.neighbors.cpu().numpy())
-        self.model = SoftbodyModel(self.particles.capacity, offsets, config.physics,
+        offsets = forces.derive_spring_offsets(particles.neighbors.cpu().numpy())
+        self.model = SoftbodyModel(particles.capacity, offsets, config.physics,
                                    device=self.device)
         # per-particle material planes (None when everything is default)
         self.materials = None
         if config.materials is not None:
             self.materials = materials_ops.particle_materials(
-                config.materials, self.objects.material_index, self.particles.object_index)
+                config.materials, self.objects.material_index, particles.object_index)
         if (self.materials is not None and self.materials.creep_rate is not None
-                and self.particles.rest_len is None):
+                and particles.rest_len is None):
             # plastic creep needs the per-bond rest-length state; an evolved
             # one passed in (or loaded from a checkpoint) is kept as it is
-            self.particles = with_rest_len(self.particles, config.physics.rest_lengths())
-        # host camera state (f32), mirrored into the device Camera
-        self._cam_pos = np.asarray(config.cam_pos, np.float32)
-        self._cam_zoom = np.float32(config.cam_zoom)
-        self._cam_vel = np.asarray(config.cam_vel, np.float32)
-        self._upload_camera()
+            particles = with_rest_len(particles, config.physics.rest_lengths())
         self.controller = CameraController()
         self.time = 0.0
         self.frame = 0
         self.paused = False
         self._stats = StatsWindow()
-        self._pending = None  # (StageClock, frame seconds) of the frame not yet in _stats
+        self._pending = None  # (StageClock or None, frame seconds) not yet in _stats
+        self._prev_end = None  # CUDA event at the end of the previous frame
+        self._profile_clocks = None  # StageClocks of the frames profile_stages runs
+        self._drops = torch.zeros(len(fused.DROP_FIELDS), dtype=torch.int64, device=self.device)
         self.last_aux = None
         self.last_diag = None
         self._band_boost = 0  # diagnostics-driven adaptation (see _check_diag)
@@ -147,50 +159,106 @@ class Engine:
         self._retina_boost = 0  # retina_budget doublings
         self._entry_boost = 0  # entry_budget doublings
         self._seg_boost = 0  # segments widenings
-        self._no_drop = PointsDiag(window_truncated=torch.zeros(
-            (), dtype=torch.int64, device=self.device))
+        # fused frames by render-params key; their CUDA graphs' stream and
+        # memory pool (made at the first capture); captures and replays
+        self._fused_cache: Dict[tuple, tuple] = {}
+        self._graph_stream = None
+        self._graph_pool = None
+        self.graph_stats = fused.new_stats()
         # the FULL history primed with inertially extrapolated past states,
         # so retarded visibility does not ramp in over `history` frames
-        buf = wl.create(config.history, self.particles.capacity, device=self.device)
-        self.worldline = wl.prefill_inertial(buf, self.particles.pos, self.particles.vel,
-                                             self.particles.active, self.time, config.physics.h)
+        buf = wl.create(config.history, particles.capacity, device=self.device)
+        buf = wl.prefill_inertial(buf, particles.pos, particles.vel, particles.active,
+                                  self.time, config.physics.h)
+        self._state = fused.FrameState(
+            particles, buf, torch.zeros(6, dtype=torch.float32, device=self.device),
+            torch.zeros(3, dtype=torch.int64, device=self.device))
+        # host camera state (f32), uploaded with the clock once a frame from
+        # one of two pinned slots used in turn (a slot is rewritten only once
+        # its last copy has run)
+        self._cam_pos = np.asarray(config.cam_pos, np.float32)
+        self._cam_zoom = np.float32(config.cam_zoom)
+        self._cam_vel = np.asarray(config.cam_vel, np.float32)
+        cuda = self.device.type == "cuda"
+        self._staging = torch.empty((2, 6), dtype=torch.float32, pin_memory=cuda)
+        self._staged = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        self._slot = 0
+        self._upload()
         self.log.debug("engine created on %s: %d particles, history %d, %dx%d %s",
-                       self.device, int(self.particles.active.sum()), config.history,
+                       self.device, int(particles.active.sum()), config.history,
                        config.width, config.height, config.render_mode)
+
+    # -- state --------------------------------------------------------------
+
+    @property
+    def particles(self) -> Particles:
+        """The particles' tensors that the next frame reads."""
+        return self._state.particles
+
+    @particles.setter
+    def particles(self, particles: Particles) -> None:
+        self._adopt("particles", particles)
+
+    @property
+    def worldline(self) -> wl.WorldlineBuffer:
+        """The worldline ring that the next frame reads."""
+        return self._state.buf
+
+    @worldline.setter
+    def worldline(self, buf: wl.WorldlineBuffer) -> None:
+        self._adopt("buf", buf)
+
+    def _adopt(self, field: str, value) -> None:
+        """Copy `value` into the state's tensors of `field`; one of another
+        layout replaces them, and every fused frame (which holds the old
+        tensors) is dropped."""
+        held = getattr(self._state, field)
+        value = value.to(self.device)
+        if fused.same_layout(held, value):
+            fused.commit(held, value)
+        else:
+            if field == "particles":
+                value = fused.owned(value)
+            self._state = self._state._replace(**{field: value})
+            self._fused_cache.clear()
 
     # -- camera -------------------------------------------------------------
 
     @property
     def camera(self) -> Camera:
-        return self._camera
+        """The device camera: views of the frame input the next frame reads."""
+        return fused.camera_of(self._state.frame_in)
 
     @camera.setter
     def camera(self, cam: Camera) -> None:
         self._cam_pos = cam.pos.detach().cpu().numpy().astype(np.float32)
         self._cam_zoom = np.float32(cam.zoom.item())
         self._cam_vel = cam.vel.detach().cpu().numpy().astype(np.float32)
-        self._upload_camera()
+        self._upload()
 
-    def _upload_camera(self) -> None:
-        """Mirror the host camera into the device Camera: one non-blocking
-        copy from pinned memory on CUDA (a pageable copy would sync)."""
-        host = torch.from_numpy(np.concatenate(
-            [self._cam_pos, [self._cam_zoom], self._cam_vel]).astype(np.float32))
-        if self.device.type == "cuda":
-            vals = host.pin_memory().to(self.device, non_blocking=True)
-        else:
-            vals = host.to(self.device)
-        self._camera = Camera(pos=vals[0:2], zoom=vals[2], vel=vals[3:5])
+    def _upload(self) -> None:
+        """The host camera and the clock (f32) into the device frame input:
+        one non-blocking copy from a pinned slot on CUDA (a pageable copy
+        would sync)."""
+        host = self._staging[self._slot]
+        if self._staged is not None:
+            self._staged[self._slot].synchronize()  # this slot's last copy has run
+        host.numpy()[:] = np.concatenate(
+            [self._cam_pos, [self._cam_zoom], self._cam_vel, [np.float32(self.time)]])
+        self._state.frame_in.copy_(host, non_blocking=self._staged is not None)
+        if self._staged is not None:
+            self._staged[self._slot].record()
+        self._slot ^= 1
 
-    def update_camera_kinematics(self, dt: float) -> None:
-        """Relativistic camera motion: inertial, or under the config's proper
-        acceleration with the velocity clamped below c (f32, as JAX)."""
+    def _move_camera(self, dt: float) -> None:
+        """Relativistic camera motion on the host: inertial, or under the
+        config's proper acceleration with the velocity clamped below c (f32,
+        as JAX)."""
         ax, ay = self.config.cam_accel
         dt32 = np.float32(dt)
         if ax == 0.0 and ay == 0.0:
             if self._cam_vel.any():
                 self._cam_pos = self._cam_pos + self._cam_vel * dt32
-                self._upload_camera()
             return
         one = np.float32(1.0)
         v = self._cam_vel
@@ -202,27 +270,26 @@ class Engine:
             new_v = new_v / speed * np.float32(0.999)
         self._cam_vel = new_v.astype(np.float32)
         self._cam_pos = self._cam_pos + self._cam_vel * dt32
-        self._upload_camera()
+
+    def update_camera_kinematics(self, dt: float) -> None:
+        """Move the camera by `dt` (see _move_camera) and upload it."""
+        self._move_camera(dt)
+        self._upload()
 
     # -- frame --------------------------------------------------------------
 
-    def step_physics(self, clock: Optional[StageClock] = None) -> None:
-        """`steps_per_frame` physics ticks, each pushed into the ring so the
-        retarded render sees a gap-free history.  `last_aux` sums the
-        ticks' StepAux counters, so an event in any tick reaches
-        _check_diag."""
-        clock = clock or StageClock(self.device)
-        total = None
-        for _ in range(self.config.steps_per_frame):
-            a = clock.mark()
-            self.particles, aux = self.model.step(self.particles, self.materials)
-            b = clock.mark()
-            self.time += self.config.physics.h
-            wl.push_frame(self.worldline, self.particles, self.time)
-            clock.span("step_time", a, b)
-            clock.span("worldline_time", b, clock.mark())
-            total = aux if total is None else StepAux(*(x + y for x, y in zip(total, aux)))
-        self.last_aux = total
+    def _stages(self, rparams, tick_time=None):
+        """The frame's stage closures (fused.frame_stages) at `rparams`."""
+        cfg = self.config
+        return fused.frame_stages(self.model, self.materials, self._state, self.objects,
+                                  cfg.width, cfg.height, rparams, cfg.render_mode,
+                                  cfg.physics.h, tick_time)
+
+    def _tick(self) -> float:
+        """An eager tick's host clock: `time` advanced by h (the JAX eager
+        path's `self.time += h`)."""
+        self.time += self.config.physics.h
+        return self.time
 
     # coarse static ladder of view-cell sizes (the JAX package's): a zoom
     # sweep lands on few distinct cell sizes
@@ -271,52 +338,97 @@ class Engine:
         return out
 
     def render(self) -> torch.Tensor:
-        """The current frame, (H, W, 3) f32; sets `last_diag`."""
+        """The current frame, (H, W, 3) f32, rendered eagerly; sets
+        `last_diag`."""
+        stages = self._stages(self._render_params())
+        img, counters = stages["render"]()
+        self.last_diag = fused.unpack(counters, stages["render"])[1]
+        return img.permute(1, 2, 0)
+
+    # -- fused frame --------------------------------------------------------
+
+    _FUSED_CACHE_MAX = 4  # fused frames kept (see _render_params)
+
+    def _fused_frame_fn(self, rparams) -> fused.FusedFrame:
+        """The fused frame for `rparams`: steps, pushes and render, captured
+        as CUDA graphs at its first call on a CUDA device.  Kept by a key of
+        what its closures bake in (the JAX key's fields that the port has,
+        with the view size and physics); at most _FUSED_CACHE_MAX, evicted
+        first in, first out.  Each entry pins the materials, so a recycled
+        id cannot alias a stale frame."""
         cfg = self.config
-        if cfg.render_mode == "points":
-            self.last_diag = self._no_drop
-            return rasterize.render_points(self.particles, self.objects, self.camera,
-                                           cfg.width, cfg.height)
-        rparams = self._render_params()
-        if cfg.render_mode == "instant":
-            rparams = dataclasses.replace(rparams, opaque=False, retarded=False)
-        img, self.last_diag = raytrace.render_retarded_with_diag(
-            self.worldline, self.particles.object_index, self.objects, self.camera,
-            cfg.width, cfg.height, rparams, boundary=wl.boundary_mask(self.particles))
-        return img
+        key = (rparams, cfg.render_mode, cfg.steps_per_frame, self.model, id(self.materials),
+               cfg.width, cfg.height, cfg.physics)
+        cache = self._fused_cache
+        if key in cache:
+            return cache[key][0]
+        if self.device.type == "cuda" and self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        frame = fused.FusedFrame(self._stages(rparams), fused.schedule(cfg.steps_per_frame),
+                                 self.device, pool=self._graph_pool,
+                                 stream=self._graph_stream, stats=self.graph_stats)
+        if len(cache) >= self._FUSED_CACHE_MAX:
+            cache.pop(next(iter(cache)))  # FIFO evict
+        cache[key] = (frame, self.materials)
+        return frame
+
+    def _can_fuse(self) -> bool:
+        return (not self.paused and not self.config.stage_timing
+                and self.config.render_mode in MODES)
 
     def run_frame(self, keys: Optional[Dict] = None) -> torch.Tensor:
         """One full frame: camera -> physics -> worldline -> render -> stats
-        and diagnostics.  Returns the image (its device work may still be
-        queued; the call waits only for the previous frame)."""
+        and diagnostics.  Returns the image, (H, W, 3) f32, a tensor of its
+        own (its device work may still be queued; the call waits only for
+        the previous frame)."""
         t0 = time.perf_counter()
         cfg = self.config
         frame_dt = cfg.physics.h * cfg.steps_per_frame
         if keys:
             pos, zoom = self.controller.update(self._cam_pos, self._cam_zoom, keys, frame_dt)
-            if not (np.array_equal(pos, self._cam_pos) and zoom == self._cam_zoom):
-                self._cam_pos, self._cam_zoom = pos, zoom
-                self._upload_camera()
+            self._cam_pos, self._cam_zoom = pos, zoom
             if keys.get("p"):
                 self.paused = not self.paused
-        self.update_camera_kinematics(frame_dt)
-        clock = StageClock(self.device)
-        if not self.paused:
-            self.step_physics(clock)
-        r0 = clock.mark()
-        img = self.render()
-        clock.span("render_time", r0, clock.mark())
+        self._move_camera(frame_dt)
+        self._upload()
+        rparams = self._render_params()
+        clock = None
+        if self._can_fuse():
+            frame = self._fused_frame_fn(rparams)
+            timed = StageClock(self.device) if self._profile_clocks is not None else None
+            img, counters = frame(timed)
+            if timed is not None:
+                self._profile_clocks.append(timed)
+            self.time += frame_dt
+            render = frame.stages["render"]
+        else:
+            clock = StageClock(self.device)
+            stages = self._stages(rparams, tick_time=self._tick)
+            img, counters = fused.run_stages(
+                stages, fused.schedule(cfg.steps_per_frame, ticks=not self.paused), clock)
+            render = stages["render"]
+        self.last_aux, self.last_diag = fused.unpack(counters, render)
+        self._drops += fused.drop_counts(counters, render)
+        if self.device.type == "cuda":
+            end = torch.cuda.Event()
+            end.record()
+            if self._prev_end is not None:
+                self._prev_end.synchronize()
+            self._prev_end = end
         self.frame += 1
-        self._flush_stats()  # waits for the previous frame
+        self._flush_stats()
         self._pending = (clock, time.perf_counter() - t0)
         self._check_diag()
-        return img
+        return img.permute(1, 2, 0)
 
     def _flush_stats(self) -> None:
-        """Add the pending frame to the stats window (waits for its end)."""
+        """Add the pending frame to the stats window; an eager frame's stage
+        times wait for its end."""
         if self._pending is not None:
             clock, frame_time = self._pending
-            self._stats.add(FramePerfStats(**clock.seconds(), frame_time=frame_time))
+            stages = clock.seconds() if clock is not None else {}
+            self._stats.add(FramePerfStats(**stages, frame_time=frame_time))
             self._pending = None
 
     @property
@@ -324,6 +436,33 @@ class Engine:
         """The stats window, with every frame run so far."""
         self._flush_stats()
         return self._stats
+
+    def profile_stages(self, n_frames: int = 3) -> Dict[str, float]:
+        """Per-stage time of the fused frame: `n_frames` real frames, each
+        stage's graph replays bracketed by CUDA events outside the graphs
+        (the host clock on the CPU), averaged per frame.  The counterpart
+        of the JAX Engine's profiler capture of its compiled frame.  The
+        result, seconds per frame by stage and their total, is kept so the
+        stats summary reports it (`*_dev_ms`; `*_host_ms` on the CPU) beside
+        the fused frame's zero stage times."""
+        self._profile_clocks = []
+        try:
+            for _ in range(n_frames):
+                self.run_frame()
+            clocks = self._profile_clocks
+        finally:
+            self._profile_clocks = None
+        sums: Dict[str, float] = {}
+        for clock in clocks:
+            for name, sec in clock.seconds().items():
+                key = name.removesuffix("_time")
+                sums[key] = sums.get(key, 0.0) + sec
+        stages = {k: v / max(len(clocks), 1) for k, v in sums.items()}
+        if stages:
+            stages["total"] = sum(stages.values())
+            self._stats.profiled_stages = stages
+            self._stats.profiled_on = "device" if self.device.type == "cuda" else "host"
+        return stages
 
     def _check_diag(self) -> None:
         """Consume RenderDiag every `diag_every` frames: warn on silent-
@@ -399,12 +538,14 @@ class Engine:
 
     def run(self, n_frames: int,
             on_frame: Optional[Callable[[int, torch.Tensor], None]] = None) -> Dict[str, float]:
-        """Headless loop of `n_frames`; returns the stats summary."""
+        """Headless loop of `n_frames`; returns the stats summary, with
+        `drops`: each drop counter summed over every frame this Engine ran."""
         for i in range(n_frames):
             img = self.run_frame()
             if on_frame is not None:
                 on_frame(i, img)
-        return self.stats.summary()
+        return {**self.stats.summary(),
+                "drops": dict(zip(fused.DROP_FIELDS, self._drops.tolist()))}
 
     def conserved_quantities(self):
         """Relativistic totals (momentum/energy/KE/bonds) — see
@@ -421,11 +562,12 @@ class Engine:
     def _config_fingerprint(self) -> str:
         """Digest of the frozen config + scene shape, so a resumed engine can
         refuse a checkpoint from another scene/config."""
-        desc = repr((dataclasses.asdict(self.config), int(self.particles.capacity),
-                     int(self.worldline.capacity)))
+        cfg = dataclasses.asdict(self.config)
+        cfg.pop("stage_timing")  # how frames are timed, not what they compute
+        desc = repr((cfg, int(self.particles.capacity), int(self.worldline.capacity)))
         return hashlib.sha256(desc.encode()).hexdigest()[:16]
 
-    def _state(self) -> dict:
+    def _checkpoint_parts(self) -> dict:
         return {"particles": self.particles, "worldline": self.worldline,
                 "camera": self.camera}
 
@@ -437,7 +579,7 @@ class Engine:
                 "paused": bool(self.paused)}
         for f in self._ADAPT_FIELDS:
             meta[f] = int(getattr(self, f))
-        checkpoint.save(path, self._state(), meta)
+        checkpoint.save(path, self._checkpoint_parts(), meta)
 
     def load_checkpoint(self, path: str, strict: bool = True) -> None:
         """Restore state + learned adaptation budgets.  `strict` validates
@@ -445,7 +587,7 @@ class Engine:
         before any field of the engine changes."""
         from .utils import checkpoint
 
-        state, meta = checkpoint.load(path, self._state())
+        state, meta = checkpoint.load(path, self._checkpoint_parts())
         fp = meta.get("config_fingerprint")
         if strict and fp is not None and fp != self._config_fingerprint():
             raise ValueError(
@@ -453,8 +595,8 @@ class Engine:
                 "(fingerprint mismatch) — construct the engine with the saved run's "
                 "config, or pass strict=False")
         self.particles, self.worldline = state["particles"], state["worldline"]
-        self.camera = state["camera"]
         self.time = float(meta["time"])
+        self.camera = state["camera"]  # uploads the camera and the clock
         self.frame = int(meta["frame"])
         for f in self._ADAPT_FIELDS:
             if f in meta:

@@ -14,11 +14,15 @@ so kernel-vs-plain checks on the card compare like with like.
 `launches` counts kernel launches by name.  Each wrapper adds one where it
 launches its kernel and nowhere else; `reset_launch_counts` zeroes them.
 A kernel's variants count apart: `collision` (bonded pairs included) and
-`collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`.
+`collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`.  A CUDA
+graph capture (fused.py) runs the wrappers but launches nothing: the counts
+it makes are taken back out (`held_apart`) and added once per replay of the
+graph (`add_launches`), so the counts stay those of kernels that ran.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -46,6 +50,26 @@ build_seconds = None  # wall time of this process's build, None if cached
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+
+
+@contextlib.contextmanager
+def held_apart():
+    """The launch counts made inside the block are taken back out of
+    `launches` at its end and left in the dict it yields."""
+    before = dict(launches)
+    held = {}
+    try:
+        yield held
+    finally:
+        for name in launches:
+            held[name] = launches[name] - before[name]
+            launches[name] = before[name]
+
+
+def add_launches(counts) -> None:
+    """Add `counts` (name -> launches) to `launches`."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def find_nvcc() -> str:
@@ -125,7 +149,7 @@ def library() -> ctypes.CDLL:
     lib.pixel_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
     lib.pixel_pass_launch.restype = ci
     lib.band_window_launch.argtypes = [
-        vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
     ]
     lib.band_window_launch.restype = ci
     lib.points_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]

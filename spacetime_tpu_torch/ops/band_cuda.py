@@ -30,7 +30,7 @@ from .. import kernels
 class BandWindow(NamedTuple):
     a0: torch.Tensor  # (N,) i32 youngest entering age (hi0 + 1 = none)
     alast: torch.Tensor  # (N,) i32 oldest crossing age (-1 = none)
-    hi0: int  # oldest usable age
+    hi0: torch.Tensor  # () i32 oldest usable age
     truncated: torch.Tensor  # () i64 particles with alast >= a0 + band
     wx: torch.Tensor  # (N, band + 1) f32 window rows, ascending
     wy: torch.Tensor
@@ -39,16 +39,25 @@ class BandWindow(NamedTuple):
     ages: torch.Tensor  # (N, band + 1) i32 age of each window row
 
 
+def _swept_ages(buf, params) -> int:
+    """The number of ages the sweep scans: max_age, capped by the ring."""
+    t_cap = buf.capacity
+    return t_cap if params.max_age <= 0 else min(params.max_age, t_cap)
+
+
 def _sweep_bounds(buf, params):
-    """(base_col, a_sw, col0, hi0) as host ints: the mirrored row of age 0,
-    the swept age count, the first swept row (rows col0.. hold ages
-    a_sw - 1 .. 0) and the oldest usable age, clamped so that no window
-    column (or its younger endpoint) reaches an unswept tick."""
+    """(base_col, a_sw, col0, hi0): the mirrored row of age 0, the swept age
+    count, the first swept row (rows col0.. hold ages a_sw - 1 .. 0) and
+    the oldest usable age, clamped so that no window column (or its younger
+    endpoint) reaches an unswept tick.  `a_sw` depends on the params and the
+    capacity alone and is a host int; the others follow the ring's cursor
+    and in-use count and are () i32 tensors on its device (csrc/band.cu
+    computes the same three from them on the device)."""
     t_cap = buf.capacity
     base_col = buf.cursor + t_cap
-    a_sw = t_cap if params.max_age <= 0 else min(params.max_age, t_cap)
-    col0 = buf.cursor + 1 + (t_cap - a_sw)
-    hi0 = min(buf.frames_in_use - 1, t_cap - 1, a_sw - 1)
+    a_sw = _swept_ages(buf, params)
+    col0 = buf.cursor + (1 + t_cap - a_sw)
+    hi0 = torch.clamp(buf.frames_in_use - 1, max=min(t_cap - 1, a_sw - 1))
     return base_col, a_sw, col0, hi0
 
 
@@ -74,8 +83,10 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
     base_col, a_sw, col0, hi0 = _sweep_bounds(buf, params)
     route = _euclid_route(cam.pos[0], cam.pos[1])
 
-    sx = buf.pos_x[col0:col0 + a_sw]
-    sy = buf.pos_y[col0:col0 + a_sw]
+    # the swept rows col0 .. col0 + a_sw - 1, gathered by a device index
+    rows = col0 + torch.arange(a_sw, dtype=torch.int32, device=dev)
+    sx = buf.pos_x.index_select(0, rows)
+    sy = buf.pos_y.index_select(0, rows)
     age_row = torch.arange(a_sw - 1, -1, -1, dtype=torch.int32, device=dev)[:, None]
     f = route(sx, sy) - age_row.to(torch.float32) * dt
     in_range = (age_row >= 1) & (age_row <= hi0)
@@ -99,7 +110,9 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
 def cone_band_window(buf, params, cam) -> BandWindow:
     """The band window of `buf` seen from `cam` (see cone_band_window_plain).
     CPU tensors take the plain version; CUDA tensors launch
-    `band_window_launch` (cam.pos stays on the device: no sync)."""
+    `band_window_launch`, which reads cam.pos and the ring's cursor and
+    in-use count on the device: no host sync, and a captured graph replays
+    it at whatever cursor the ring has."""
     dev = buf.pos_x.device
     if dev.type == "cpu":
         return cone_band_window_plain(buf, params, cam)
@@ -118,19 +131,24 @@ def cone_band_window(buf, params, cam) -> BandWindow:
     w = band + 1
     if w > t2:
         raise ValueError(f"cone_band_window: band {band} exceeds the ring's {t2} rows")
-    base_col, a_sw, col0, hi0 = _sweep_bounds(buf, params)
-    # one buffer for a0 and alast and one for the four windows (fewer host
-    # allocations a call); each output is a contiguous slice of its buffer
-    a0, alast = torch.empty((2, n), dtype=torch.int32, device=dev)
+    for name in ("cursor", "frames_in_use"):
+        t = getattr(buf, name)
+        if t.dtype != torch.int32 or t.shape != () or t.device != dev:
+            raise ValueError(f"cone_band_window: {name} must be an int32 () tensor on {dev}")
+    a_sw = _swept_ages(buf, params)
+    # one buffer for a0, alast and hi0 and one for the four windows (fewer
+    # host allocations a call); each output is a contiguous part of its buffer
+    ints = torch.empty((2 * n + 1,), dtype=torch.int32, device=dev)
+    a0, alast, hi0 = ints[:n], ints[n:2 * n], ints[2 * n]
     wins = torch.empty((4, n, w), dtype=torch.float32, device=dev)
     ages = torch.empty((n, w), dtype=torch.int32, device=dev)
     truncated = torch.zeros((), dtype=torch.int64, device=dev)
     status = kernels.library().band_window_launch(
         buf.pos_x.data_ptr(), buf.pos_y.data_ptr(), buf.vel_x.data_ptr(), buf.vel_y.data_ptr(),
-        pos.data_ptr(), n, t2, col0, a_sw, hi0, base_col, band,
-        float(np.float32(params.dt)), float(np.float32(params.rho + params.dt)),
-        a0.data_ptr(), alast.data_ptr(), *(t.data_ptr() for t in wins), ages.data_ptr(),
-        truncated.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        pos.data_ptr(), buf.cursor.data_ptr(), buf.frames_in_use.data_ptr(), n, t2, a_sw,
+        band, float(np.float32(params.dt)), float(np.float32(params.rho + params.dt)),
+        a0.data_ptr(), alast.data_ptr(), hi0.data_ptr(), *(t.data_ptr() for t in wins),
+        ages.data_ptr(), truncated.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(status, "band")
     kernels.launches["band"] += 1

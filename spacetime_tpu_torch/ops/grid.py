@@ -24,9 +24,10 @@ def cell_ids(pos: torch.Tensor, active: torch.Tensor, grid_resolution: float,
     side = grid_dim + 2
     n_cells = side * side
     px, py = pos[:, 0], pos[:, 1]
-    big = torch.tensor(3.0e38, dtype=pos.dtype, device=pos.device)
-    ox = torch.where(active, px, big).min() - 2.0 * grid_resolution
-    oy = torch.where(active, py, big).min() - 2.0 * grid_resolution
+    # a Python scalar, not a tensor made from one: no host-to-device copy,
+    # which a captured CUDA graph could not hold
+    ox = torch.where(active, px, 3.0e38).min() - 2.0 * grid_resolution
+    oy = torch.where(active, py, 3.0e38).min() - 2.0 * grid_resolution
     # clamp in float before the int cast: parked 1e9 padding would overflow i32
     cx = torch.floor((px - ox) / grid_resolution).clamp(0, grid_dim - 1).to(torch.int32) + 1
     cy = torch.floor((py - oy) / grid_resolution).clamp(0, grid_dim - 1).to(torch.int32) + 1

@@ -20,6 +20,12 @@ that the wrapper keeps between calls, one pair per (device, stream) for the
 latest image size: a winner slot per pixel at EMPTY and an occupancy mask
 of one bit a pixel at 0, which every render leaves as it found them.  A
 launch that fails drops them, so the next call starts from fresh ones.
+
+A captured CUDA graph (fused.py) holds the raw pointers of the pair of the
+stream it was captured on, so that pair is made before the capture (by the
+eager frame the capture follows, on the same stream) and the graph keeps a
+reference to it; a render under capture that would make a pair raises.
+Eager calls on other streams use their own pairs, never the graph's.
 """
 
 from __future__ import annotations
@@ -74,11 +80,21 @@ def scratch(dev, stream: int, width: int, height: int):
     key = (dev.index, stream)
     held = _scratch.get(key)
     if held is None or held[:2] != (height, width):
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("render_points: the points scratch of the capturing stream "
+                               "must exist before a CUDA graph capture (run the frame once "
+                               "on that stream first)")
         hw = width * height
         held = (height, width, torch.full((hw,), EMPTY, dtype=torch.int32, device=dev),
                 torch.zeros(((hw + 31) // 32,), dtype=torch.int32, device=dev))
         _scratch[key] = held
     return held[2], held[3]
+
+
+def held(dev, stream: int):
+    """The (winner, mask) scratch kept for `dev` and `stream`, or None."""
+    held_pair = _scratch.get((dev.index, stream))
+    return None if held_pair is None else held_pair[2:]
 
 
 def render_points(particles, objects, cam, width: int, height: int) -> torch.Tensor:

@@ -49,7 +49,7 @@ from ..camera import Camera, pixel_centers
 from ..constants import C2
 from ..state import Objects
 from . import band_cuda, boost, render_cuda
-from .worldline import WorldlineBuffer
+from .worldline import WorldlineBuffer, newest_time, row_at_age
 
 _BIG = 3.0e38
 _PI = np.float32(np.pi)
@@ -332,12 +332,11 @@ def _instant_pairs(buf: WorldlineBuffer, obj_index, objects: Objects,
     """Pairs for the instantaneous view: only the newest segment (age 1 ->
     age 0) of each particle, i.e. "measured reality" — the filled upgrade
     of the reference's debug point renderer."""
-    t_cap = buf.capacity
-    row = lambda plane, age: plane[buf.cursor + t_cap - age]
+    row = lambda plane, age: row_at_age(plane, buf, age)
     qax, qay = row(buf.pos_x, 1), row(buf.pos_y, 1)
     qbx, qby = row(buf.pos_x, 0), row(buf.pos_y, 0)
     pvx, pvy = row(buf.vel_x, 1), row(buf.vel_y, 1)
-    pta = buf.times[buf.cursor] - params.dt
+    pta = newest_time(buf) - params.dt
     valid = (torch.abs(qax) < 1.0e8) & (buf.frames_in_use >= 2)
     far = 2.0e9
     keep = lambda v: torch.where(valid, v, far)
@@ -589,7 +588,7 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
                        params: RenderParams, boundary=None):
     """Steps 1-4 of the frame (see the module docstring).  Returns
     (PixelInputs, RenderDiag); the diag fields are device tensors."""
-    t_now = buf.times[buf.cursor]
+    t_now = newest_time(buf)
     use_rays = params.opaque and params.retarded
     if params.camera_frame and not params.retarded:
         raise ValueError(
@@ -608,7 +607,8 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
         rows = pairs_raw.pdata.shape[0]
         if use_rays and boundary is not None and 0 < params.retina_budget < rows:
             # boundary pairs at the buffer front; the retina reads a prefix
-            rmask = boundary.repeat_interleave(params.band)
+            n = boundary.shape[0]
+            rmask = boundary[:, None].expand(n, params.band).reshape(-1)
             pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
             rb = min(params.retina_budget, pairs.pdata.shape[0])
             n_r = torch.clamp(n_b, max=rb)
@@ -696,7 +696,7 @@ def render_retarded_brute(buf: WorldlineBuffer, obj_index, objects: Objects,
     T * N) — tests on tiny scenes only.  Returns (H, W, 3)."""
     dt, rho = params.dt, params.rho
     qax, qay, qbx, qby, ta, seg_valid = _segment_data(buf, dt)
-    t_now = buf.times[buf.cursor]
+    t_now = newest_time(buf)
     t_cap, n = qax.shape
 
     pc = pixel_centers(width, height, cam)

@@ -34,6 +34,7 @@ _F_AX, _F_AY, _F_BX, _F_BY, _F_TA, _F_VX, _F_VY, _F_CR, _F_CG, _F_CB = range(10)
 _LAMBDA_RGB = (610e-9, 550e-9, 465e-9)
 _USE_RAYS, _RETARDED, _DOPPLER, _BEAMING, _SPECTRAL, _CAMERA_FRAME = 1, 2, 4, 8, 16, 32
 PLAIN_CELL_CHUNK = 256  # view cells per block of the plain version
+SMEM_OPT_IN = 232448  # shared memory an H100 block can opt into (csrc/pixel_pass.cu kSmemOptIn)
 
 
 class PixelParams(ctypes.Structure):
@@ -147,10 +148,11 @@ def pixel_pass(inputs, params, *, width, height):
     if sfq is not None:
         need(sfq, "sfq", torch.float32, (hc_img * k // ds, wq))
     # a warp stages (ax, ay, bx - ax, by - ay), a box, ta and an index per
-    # entry and 257 words of age tables (csrc/pixel_pass.cu slice_bytes)
-    if cap * 40 + 4 * 257 > 48 * 1024:
-        raise ValueError(f"pixel_pass: bin_capacity {cap} exceeds a warp's 48 KB of shared "
-                         "memory")
+    # entry and 257 words of age tables (csrc/pixel_pass.cu slice_bytes);
+    # past 48 KB the kernel opts into up to an H100 block's 227 KB
+    if -(-(cap * 40 + 4 * 257) // 16) * 16 > SMEM_OPT_IN:
+        raise ValueError(f"pixel_pass: bin_capacity {cap} exceeds the 227 KB of shared memory "
+                         "a block can use")
 
     rho2_edge, inv_dt = _edge_constants(params)
     flags = (

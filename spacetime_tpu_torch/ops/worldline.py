@@ -5,10 +5,12 @@ every particle's (pos, vel) in four TIME-major (2T, N) planes, one per
 scalar component; the time axis is MIRRORED (slot s is also written at
 s + T), so any backward window of up to T ticks is a contiguous row range.
 
-Unlike the JAX package, pushes update the planes IN PLACE: two row writes
-per plane per push.  `cursor` and `frames_in_use` are host ints, because
-every push is driven from the host — that keeps a device sync out of every
-frame.
+Unlike the JAX package, pushes update the ring IN PLACE: two row writes
+per plane per push.  `cursor` and `frames_in_use` are 0-d int32 tensors on
+the ring's device, as in the JAX package, advanced in place by the device:
+a push reads no host int, so a captured CUDA graph (fused.py) replays any
+number of pushes.  Every reader of the cursor indexes with it on the device
+(`index_select`, never `plane[cursor]`, which torch turns into a host read).
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ class WorldlineBuffer:
     vel_x: torch.Tensor  # (2T, N)
     vel_y: torch.Tensor  # (2T, N)
     times: torch.Tensor  # (T,) f32 — coordinate time per slot (-inf = unused)
-    cursor: int  # slot holding the newest tick
-    frames_in_use: int  # ramp-up counter, saturates at T
+    cursor: torch.Tensor  # () i32 — slot holding the newest tick
+    frames_in_use: torch.Tensor  # () i32 — ramp-up counter, saturates at T
 
     @property
     def capacity(self) -> int:
@@ -43,7 +45,8 @@ class WorldlineBuffer:
             self,
             pos_x=self.pos_x.to(device), pos_y=self.pos_y.to(device),
             vel_x=self.vel_x.to(device), vel_y=self.vel_y.to(device),
-            times=self.times.to(device),
+            times=self.times.to(device), cursor=self.cursor.to(device),
+            frames_in_use=self.frames_in_use.to(device),
         )
 
 
@@ -59,29 +62,36 @@ def create(capacity: int, num_particles: int, device="cpu") -> WorldlineBuffer:
         vel_x=plane(0.0),
         vel_y=plane(0.0),
         times=torch.full((capacity,), -float("inf"), dtype=torch.float32, device=device),
-        cursor=capacity - 1,
-        frames_in_use=0,
+        cursor=_scalar(capacity - 1, device),
+        frames_in_use=_scalar(0, device),
     )
+
+
+def _scalar(value: int, device) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.int32, device=device)
 
 
 def push_raw(buf: WorldlineBuffer, pos, vel, present, time) -> WorldlineBuffer:
     """Store one tick in place and return `buf`: the cursor advances with
-    wraparound and the in-use count saturates at capacity.  Slots not
-    `present` are parked at 1e9.  `time` is a float or a 0-d tensor."""
+    wraparound and the in-use count saturates at capacity, both on the
+    device.  Slots not `present` are parked at 1e9.  `time` is a float or
+    a 0-d tensor on the ring's device (stored as f32)."""
     t_cap = buf.capacity
-    cursor = (buf.cursor + 1) % t_cap
-    rows = (cursor, cursor + t_cap)  # the slot and its mirror
+    buf.cursor.add_(1).remainder_(t_cap)
+    slot = buf.cursor.reshape(1).long()
+    rows = torch.cat([slot, slot + t_cap])  # the slot and its mirror
     for plane, values in (
         (buf.pos_x, torch.where(present, pos[:, 0], 1e9)),
         (buf.pos_y, torch.where(present, pos[:, 1], 1e9)),
         (buf.vel_x, vel[:, 0]),
         (buf.vel_y, vel[:, 1]),
     ):
-        for row in rows:
-            plane[row].copy_(values)
-    buf.times[cursor] = time
-    buf.cursor = cursor
-    buf.frames_in_use = min(buf.frames_in_use + 1, t_cap)
+        plane.index_put_((rows,), values)
+    if isinstance(time, torch.Tensor):
+        buf.times.index_copy_(0, slot, time.to(torch.float32).reshape(1))
+    else:
+        buf.times.index_fill_(0, slot, time)
+    buf.frames_in_use.add_(1).clamp_(max=t_cap)
     return buf
 
 
@@ -114,20 +124,32 @@ def prefill_inertial(buf: WorldlineBuffer, pos, vel, present, t0, dt
         vel_x=vel[:, 0][None, :].expand(2 * t_cap, n).contiguous(),
         vel_y=vel[:, 1][None, :].expand(2 * t_cap, n).contiguous(),
         times=t0 + rel_t,
-        cursor=t_cap - 1,
-        frames_in_use=t_cap,
+        cursor=_scalar(t_cap - 1, dev),
+        frames_in_use=_scalar(t_cap, dev),
     )
 
 
-def slot_of_age(buf: WorldlineBuffer, age: int) -> int:
-    """Slot holding the tick `age` steps before the newest (age 0 = newest)."""
+def slot_of_age(buf: WorldlineBuffer, age: int) -> torch.Tensor:
+    """() i32 slot holding the tick `age` steps before the newest (age 0 =
+    newest)."""
     return (buf.cursor - age) % buf.capacity
+
+
+def row_at_age(plane: torch.Tensor, buf: WorldlineBuffer, age: int) -> torch.Tensor:
+    """(N,) row of a (2T, N) ring plane at `age` (0 <= age < T): the
+    mirrored row cursor + T - age, read on the device."""
+    return plane.index_select(0, (buf.cursor + (buf.capacity - age)).reshape(1))[0]
+
+
+def newest_time(buf: WorldlineBuffer) -> torch.Tensor:
+    """() f32 time of the newest tick, read on the device."""
+    return buf.times.index_select(0, buf.cursor.reshape(1))[0]
 
 
 def pos_at_age(buf: WorldlineBuffer, age: int) -> torch.Tensor:
     """(N, 2) positions at a given age."""
-    slot = slot_of_age(buf, age)
-    return torch.stack([buf.pos_x[slot], buf.pos_y[slot]], dim=-1)
+    return torch.stack([row_at_age(buf.pos_x, buf, age), row_at_age(buf.pos_y, buf, age)],
+                       dim=-1)
 
 
 def boundary_mask(particles: Particles) -> torch.Tensor:

@@ -2,89 +2,35 @@
 
     python3 -m spacetime_tpu_torch.profile_frame
 
-Runs the headline frame (headline.py) WARM_FRAMES times, which takes the
-discs into contact, then WALL_FRAMES frames timed on the host clock without
-the profiler, then PROFILE_FRAMES frames under `torch.profiler`.  Every
-device kernel, memcpy and memset of that trace is attributed, through the
-correlation id of its launch, to the innermost named range (the
-sub-stages of `named_ranges`, inside the stages step / push / render) that
-was open on the host when it was launched.  It prints, per frame: the device time and launches per range and
-per kind of kernel, the device's busy time (the union of the device
-intervals) and its busy share of the unprofiled frame's wall time.
+Runs the headline frame (headline.py) eagerly WARM_FRAMES times, which
+takes the discs into contact, then WALL_FRAMES frames timed on the host
+clock without the profiler, then PROFILE_FRAMES frames under
+`torch.profiler`.  Every device kernel, memcpy and memset of that trace is
+attributed (utils/profiling.attribute), through the correlation id of its
+launch, to the innermost named range (the sub-stages of `named_ranges`,
+inside the stages step / push / render) that was open on the host when it
+was launched.  Then the same frame, from the state the eager frames left,
+as the fused frame (fused.py: one CUDA graph a stage, captured at its first
+frame): WALL_FRAMES frames timed the same way and PROFILE_FRAMES traced,
+where a graph's kernels fall in the stage range its replay ran in (the
+sub-stage ranges do not survive into a graph).  It prints, per frame and
+for each of the two: the device time and launches per range and per kind
+of kernel, the device's busy time (the union of the device intervals) and
+its busy share of the unprofiled frame's wall time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import json
-import os
-import re
 import sys
-import tempfile
 import time
-from collections import defaultdict
 
 import torch
 
+from .utils.profiling import attribute, traced_events
+
 WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES = 185, 10, 5
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-# kind of device op, by the first pattern its name matches
-KINDS = (
-    ("collision kernel", r"collision_kernel"),
-    ("pixel kernel", r"pixel_kernel"),
-    ("band kernel", r"band_kernel"),
-    ("sort", r"[Ss]ort|[Rr]adix"),
-    ("reduction", r"[Rr]educe"),
-    ("index / gather / scatter", r"[Ii]ndex|[Gg]ather|[Ss]catter"),
-    ("elementwise", r"[Ee]lementwise|[Vv]ectorized"),
-)
-
-
-def kind_of(name: str, cat: str) -> str:
-    if cat != "kernel":
-        return "memcpy / memset"
-    for kind, pattern in KINDS:
-        if re.search(pattern, name):
-            return kind
-    return "other"
-
-
-def attribute(events, frames: int) -> dict:
-    """Per-frame device ms and launches by range and by kind, and the busy
-    ms (union of device intervals), from a Chrome trace's event list."""
-    launches, ranges, device = {}, defaultdict(list), []
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        cat = e.get("cat", "")
-        if cat in LAUNCH_CATS and "correlation" in e.get("args", {}):
-            launches[e["args"]["correlation"]] = (e["tid"], e["ts"])
-        elif cat == "user_annotation":
-            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
-        elif cat in DEVICE_CATS:
-            device.append(e)
-
-    def innermost(tid, ts):
-        inside = [r for r in ranges.get(tid, ()) if r[0] <= ts <= r[1]]
-        # the latest to open, and of those the first to close
-        return max(inside, key=lambda r: (r[0], -r[1]))[2] if inside else "(no range)"
-
-    by_range = defaultdict(lambda: [0.0, 0])
-    by_kind = defaultdict(lambda: [0.0, 0])
-    for e in device:
-        host = launches.get(e.get("args", {}).get("correlation"))
-        label = innermost(*host) if host else "(no launch)"
-        for table, key in ((by_range, label), (by_kind, kind_of(e["name"], e["cat"]))):
-            table[key][0] += e["dur"] / 1e3 / frames
-            table[key][1] += 1 / frames
-    busy, end = 0.0, float("-inf")
-    for ts, dur in sorted((e["ts"], e["dur"]) for e in device):
-        busy += max(0.0, ts + dur - max(ts, end))
-        end = max(end, ts + dur)
-    return {"by_range": dict(by_range), "by_kind": dict(by_kind),
-            "busy_ms": busy / 1e3 / frames}
 
 
 @contextlib.contextmanager
@@ -126,12 +72,24 @@ def named_ranges():
             setattr(mod, name, fn)
 
 
+def report(title: str, res: dict, wall_ms: float) -> None:
+    print(f"{title}: {wall_ms:.3f} ms wall per frame without the profiler")
+    for name, table in (("range", res["by_range"]), ("kind", res["by_kind"])):
+        print(f"{'device time by ' + name:<28} {'ms/frame':>9} {'launches':>9} {'share':>7}")
+        total = sum(v[0] for v in table.values())
+        for key, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {key:<26} {ms:9.4f} {n:9.1f} {ms / total:7.1%}")
+        print(f"  {'total':<26} {total:9.4f} {sum(v[1] for v in table.values()):9.1f}")
+    print(f"device busy {res['busy_ms']:.4f} ms per frame (union of device intervals), "
+          f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_frame: CUDA is not available; this tool needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    from . import headline, kernels
+    from . import fused, headline, kernels
     from .ops import raytrace
     from .ops import worldline as wl
 
@@ -156,37 +114,51 @@ def main() -> int:
     i = 0
     for _ in range(WARM_FRAMES):
         p, i = frame(p, i), i + 1
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(WALL_FRAMES):
-        p, i = frame(p, i), i + 1
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / WALL_FRAMES * 1e3
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with named_ranges(), torch.profiler.profile(activities=acts) as prof:
-        for _ in range(PROFILE_FRAMES):
-            p, i = frame(p, i), i + 1
+    def timed(run_one) -> float:
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    res = attribute(events, PROFILE_FRAMES)
+        t0 = time.perf_counter()
+        for _ in range(WALL_FRAMES):
+            run_one()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / WALL_FRAMES * 1e3
+
+    state = {"p": p, "i": i}
+
+    def eager_one():
+        state["p"], state["i"] = frame(state["p"], state["i"]), state["i"] + 1
+
+    def eager_traced():
+        with named_ranges():
+            for _ in range(PROFILE_FRAMES):
+                eager_one()
+            torch.cuda.synchronize()
+
+    wall_ms = timed(eager_one)
+    res = attribute(traced_events(eager_traced, kernels.BUILD_DIR), PROFILE_FRAMES)
     if not res["by_range"]:
         raise RuntimeError("the trace holds no device activity")
+    first = WARM_FRAMES + 1
+    report(f"eager frames {first}-{first + WALL_FRAMES - 1}", res, wall_ms)
 
-    print(f"frames {WARM_FRAMES + 1}-{WARM_FRAMES + WALL_FRAMES}: {wall_ms:.3f} ms "
-          f"wall per frame without the profiler")
-    for title, table in (("range", res["by_range"]), ("kind", res["by_kind"])):
-        print(f"{'device time by ' + title:<28} {'ms/frame':>9} {'launches':>9} {'share':>7}")
-        total = sum(v[0] for v in table.values())
-        for key, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0]):
-            print(f"  {key:<26} {ms:9.4f} {n:9.1f} {ms / total:7.1%}")
-        print(f"  {'total':<26} {total:9.4f} {sum(v[1] for v in table.values()):9.1f}")
-    print(f"device busy {res['busy_ms']:.4f} ms per frame (union of device intervals), "
-          f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
+    # the fused frame from the eager frames' last state and clock
+    fs = fused.new_state(state["p"], buf, cam, h * state["i"])
+    graph = fused.FusedFrame(
+        fused.frame_stages(model, None, fs, objects, headline.WIDTH, headline.HEIGHT, params,
+                           "retarded", h), fused.schedule(1), device)
+    graph()  # the eager frame the capture follows, and the capture
+
+    def graph_traced():
+        for _ in range(PROFILE_FRAMES):
+            graph()
+        torch.cuda.synchronize()
+
+    wall_ms = timed(graph)
+    res = attribute(traced_events(graph_traced, kernels.BUILD_DIR), PROFILE_FRAMES)
+    if not res["by_range"]:
+        raise RuntimeError("the graph frame's trace holds no device activity")
+    report(f"graph frames (CUDA graphs; {graph.stats['captures']} capture, "
+           f"{graph.stats['replays']} replays)", res, wall_ms)
     return 0
 
 

@@ -6,10 +6,12 @@ Arrays are stored by name (`<part>.<field>`); fields that are None are
 left out, so an optional field such as `Particles.rest_len` (the per-bond
 rest lengths of plastic creep) is saved when the state has it and expected
 back exactly when the resuming state has it — the JAX package's rule,
-whose pytree has a `rest_len` leaf only when the field is set.  Host ints of a dataclass (the ring's cursor) are stored as 0-d
-arrays.  `load` validates the names and shapes against the current state
-before it returns anything, and puts each tensor on the device and dtype
-of its counterpart there.
+whose pytree has a `rest_len` leaf only when the field is set.  The ring's
+cursor and in-use count are 0-d tensors, stored as 0-d arrays (checkpoints
+written while they were host ints hold 0-d int64 arrays of the same
+names and load the same way).  `load` validates the names and shapes
+against the current state before it returns anything, and puts each
+tensor on the device and dtype of its counterpart there.
 """
 
 from __future__ import annotations

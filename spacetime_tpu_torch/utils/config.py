@@ -2,11 +2,10 @@
 `spacetime_tpu/utils/config.py`).
 
 `SceneSpec` and `EngineConfig` keep the JAX field names and defaults;
-`render` holds the port's RenderParams.  Two JAX fields are left out: the
-`wl3d` view parameters, which wait for the worldline3d mode, and
-`stage_timing`, because the port measures stage times on every frame
-(utils/stats.py).  Fields whose feature is not ported yet (defects, BTZ)
-are kept so configs read the same; the Engine refuses them.
+`render` holds the port's RenderParams.  One JAX field is left out: the
+`wl3d` view parameters, which wait for the worldline3d mode.  Fields whose
+feature is not ported yet (defects, BTZ) are kept so configs read the
+same; the Engine refuses them.
 
 The registry keeps every name of the JAX package.  Seven named configs are
 built field for field as the JAX functions build them; every other name
@@ -56,6 +55,9 @@ class EngineConfig:
     max_fps: float = 72.0  # frame pacing target (realtime pacing is not ported yet)
     render_mode: str = "retarded"  # retarded | instant | points (others not ported)
     steps_per_frame: int = 1
+    # per-stage timing: run the frame eagerly with CUDA-event stage times
+    # instead of replaying the fused frame's CUDA graphs
+    stage_timing: bool = False
     # not ported yet (the Engine raises when set): conical defects, BTZ
     defect: Optional[Tuple] = None
     defect_vel: Optional[Tuple[Tuple[float, float], ...]] = None

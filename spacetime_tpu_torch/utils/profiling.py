@@ -1,0 +1,165 @@
+"""Device-level profiling on a CUDA card (counterpart of
+`spacetime_tpu/utils/profiling.py`, on `torch.profiler` and `torch.cuda`).
+
+  * `trace(path)`: a `torch.profiler` trace (CPU and CUDA activity) of the
+    enclosed block, written as a Chrome trace to `path`;
+  * `annotate(name)`: a named range in such a trace;
+  * `attribute(events, n)`: each device kernel, memcpy and memset of a
+    trace, by the innermost named range open on the host when it was
+    launched (the correlation id of its launch) and by kind of kernel, per
+    frame, with the device's busy time (the union of the device
+    intervals);
+  * `stage_breakdown(events, n)`: a trace's device seconds per frame by
+    stage (step, worldline, render) and in all.  The fused frame (fused.py)
+    replays one CUDA graph per stage inside a range named after the stage
+    while a trace runs; the kernels of a graph replay carry the correlation
+    id of its graph launch, so they fall in that range, though the ranges
+    of the code the graph was captured from do not survive into it;
+  * `measured_roofline(run, n)`: trace `run()` and return its device
+    seconds per frame, the device's busy time and the stage split;
+  * `device_memory_stats()`: bytes in use, peak and the card's total.
+
+The JAX package also reads each op's HBM bytes from its profiler; the torch
+profiler does not report bytes moved, so `measured_roofline`'s
+`hbm_bytes` is None.  Without device activity (a CPU run) the functions
+that measure device time return empty results: a CPU run gives no device
+time.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+import tempfile
+from collections import defaultdict
+from typing import Dict, Optional
+
+import torch
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+STAGES = ("step", "worldline", "render")
+# kind of device op, by the first pattern its name matches
+KINDS = (
+    ("collision kernel", r"collision_kernel"),
+    ("pixel kernel", r"pixel_kernel"),
+    ("band kernel", r"band_kernel"),
+    ("points kernel", r"points_(winner|resolve)_kernel"),
+    ("sort", r"[Ss]ort|[Rr]adix"),
+    ("reduction", r"[Rr]educe"),
+    ("index / gather / scatter", r"[Ii]ndex|[Gg]ather|[Ss]catter"),
+    ("elementwise", r"[Ee]lementwise|[Vv]ectorized"),
+)
+
+
+@contextlib.contextmanager
+def trace(path: str):
+    """Trace the enclosed block (CPU and CUDA activity) and write it to
+    `path` as a Chrome trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(path)
+
+
+def annotate(name: str):
+    """A named range inside a trace."""
+    return torch.profiler.record_function(name)
+
+
+def kind_of(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return "memcpy / memset"
+    for kind, pattern in KINDS:
+        if re.search(pattern, name):
+            return kind
+    return "other"
+
+
+def attribute(events, frames: int) -> dict:
+    """Per-frame device ms and launches by range and by kind, and the busy
+    ms (union of device intervals), from a Chrome trace's event list."""
+    launches, ranges, device = {}, defaultdict(list), []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        if cat in LAUNCH_CATS and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = (e["tid"], e["ts"])
+        elif cat == "user_annotation":
+            ranges[e["tid"]].append((e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in DEVICE_CATS:
+            device.append(e)
+
+    def innermost(tid, ts):
+        inside = [r for r in ranges.get(tid, ()) if r[0] <= ts <= r[1]]
+        # the latest to open, and of those the first to close
+        return max(inside, key=lambda r: (r[0], -r[1]))[2] if inside else "(no range)"
+
+    by_range = defaultdict(lambda: [0.0, 0])
+    by_kind = defaultdict(lambda: [0.0, 0])
+    for e in device:
+        host = launches.get(e.get("args", {}).get("correlation"))
+        label = innermost(*host) if host else "(no launch)"
+        for table, key in ((by_range, label), (by_kind, kind_of(e["name"], e["cat"]))):
+            table[key][0] += e["dur"] / 1e3 / frames
+            table[key][1] += 1 / frames
+    busy, end = 0.0, float("-inf")
+    for ts, dur in sorted((e["ts"], e["dur"]) for e in device):
+        busy += max(0.0, ts + dur - max(ts, end))
+        end = max(end, ts + dur)
+    return {"by_range": dict(by_range), "by_kind": dict(by_kind),
+            "busy_ms": busy / 1e3 / frames}
+
+
+def traced_events(run, tmp_dir: Optional[str] = None) -> list:
+    """The Chrome trace events of `run()` (which must synchronize with the
+    device before it returns, so the trace holds all its device work); the
+    trace file goes to a temporary directory, made in `tmp_dir` if given."""
+    with tempfile.TemporaryDirectory(prefix="spacetime_prof_", dir=tmp_dir) as d:
+        path = os.path.join(d, "trace.json")
+        with trace(path):
+            run()
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def stage_breakdown(events, n_frames: int) -> Dict[str, float]:
+    """Device seconds per frame of a trace's events (`n_frames` frames), by
+    the stage range each device op was launched in, plus 'total' over every
+    device op; empty without device activity."""
+    res = attribute(events, n_frames)
+    out = {k: v[0] / 1e3 for k, v in res["by_range"].items() if k in STAGES}
+    if res["by_range"]:
+        out["total"] = sum(v[0] for v in res["by_range"].values()) / 1e3
+    return out
+
+
+def measured_roofline(run, n_frames: int, tmp_dir: Optional[str] = None) -> Dict[str, object]:
+    """Trace `run()` (`n_frames` frames, synchronized at the end) and return
+    {"device_s": device seconds per frame summed over every device op,
+    "busy_s": the union of the device intervals per frame, "hbm_bytes":
+    None (not reported by the torch profiler), "stages": stage_breakdown
+    without its total}; empty without device activity."""
+    events = traced_events(run, tmp_dir)
+    stages = stage_breakdown(events, n_frames)
+    if not stages:
+        return {}
+    return {"device_s": stages.pop("total"),
+            "busy_s": attribute(events, n_frames)["busy_ms"] / 1e3, "hbm_bytes": None,
+            "stages": stages}
+
+
+def device_memory_stats(device=None) -> Dict[str, int]:
+    """Bytes in use, peak in use and the card's total for one CUDA device
+    (empty without CUDA)."""
+    if not torch.cuda.is_available():
+        return {}
+    dev = torch.device(device) if device is not None else torch.device("cuda", 0)
+    return {"bytes_in_use": int(torch.cuda.memory_allocated(dev)),
+            "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(dev)),
+            "bytes_limit": int(torch.cuda.get_device_properties(dev).total_memory)}

@@ -4,10 +4,11 @@
 Stage times come from `StageClock`: CUDA events on a CUDA device, read once
 the frame's work has ended (the Engine reads them one frame late, when it
 waits on the previous frame anyway, so timing adds no sync); the host
-clock on the CPU, where torch runs each op before it returns.  Unlike the
-JAX package's fused frame, which reports zero stage times unless a
-profiler capture fills them in, every frame here carries its measured
-step, worldline and render times.
+clock on the CPU, where torch runs each op before it returns.  As in the
+JAX package, the fused frame reports zero stage times: frames run with
+`EngineConfig.stage_timing` carry their measured step, worldline and
+render times, and `Engine.profile_stages` fills `profiled_stages`, which
+the summary reports as `*_dev_ms`.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ class StageClock:
 
     def seconds(self) -> Dict[str, float]:
         """{stage: seconds}; on CUDA this waits for the frame's last mark."""
-        if self.cuda and self.last is not None:
+        if self.cuda and self.spans:
             self.last.synchronize()
         out = {}
         for stage, a, b in self.spans:
@@ -64,17 +65,28 @@ class StageClock:
 
 
 class StatsWindow:
-    """Rolling frame-time statistics: average, 1% low and 0.1% low over the
-    last `window` frames, and per-stage averages over all frames."""
+    """Rolling frame-time statistics: average, median, 1% low and 0.1% low
+    over the last `window` frames, the first frame's time (a new process's
+    warm-up and the first capture land there), and per-stage averages over
+    all frames."""
 
     def __init__(self, window: int = 2000):
         self.window = window
         self.samples: deque[float] = deque(maxlen=window)
         self.stage_sums: Dict[str, float] = {}
         self.frames = 0
+        self.first = None  # the first frame's seconds
+        # per-frame stage seconds of the fused frame (Engine.profile_stages),
+        # and whether CUDA events ("device") or the CPU's clock ("host")
+        # timed them; when set, summary() reports them as *_dev_ms or
+        # *_host_ms beside the (zero) stage averages
+        self.profiled_stages: Dict[str, float] = {}
+        self.profiled_on = "device"
 
     def add(self, stats: FramePerfStats) -> None:
         self.samples.append(stats.frame_time)
+        if self.first is None:
+            self.first = stats.frame_time
         self.frames += 1
         for k in ("step_time", "worldline_time", "render_time"):
             self.stage_sums[k] = self.stage_sums.get(k, 0.0) + getattr(stats, k)
@@ -89,10 +101,17 @@ class StatsWindow:
         out = {
             "frame_avg_ms": float(arr.mean() * 1e3),
             "frame_last_ms": float(self.samples[-1] * 1e3),
+            "frame_median_ms": float(np.median(arr) * 1e3),
+            "frame_first_ms": float(self.first * 1e3),
             "low_1pct_ms": float(worst_1pct.mean() * 1e3),
             "low_01pct_ms": float(worst_01pct.mean() * 1e3),
             "fps_avg": float(1.0 / max(arr.mean(), 1e-9)),
         }
         for k, v in self.stage_sums.items():
             out[f"{k.removesuffix('_time')}_avg_ms"] = float(v / max(self.frames, 1) * 1e3)
+        if self.profiled_stages:
+            suffix = "dev" if self.profiled_on == "device" else "host"
+            for k, v in self.profiled_stages.items():
+                out[f"{k}_{suffix}_ms"] = float(v * 1e3)
+            out["stage_source"] = "profile_stages"
         return out

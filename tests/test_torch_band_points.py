@@ -77,6 +77,7 @@ def test_band_plain_matches_pallas_kernel_and_xla_sweep(ramp, band):
     cam = convert.camera_from_numpy(_fields(jcam))
     ours = band_cuda.cone_band_window_plain(buf, rt.RenderParams(band=band, max_age=128), cam)
     base_col, a_sw, col0, hi0 = band_cuda._sweep_bounds(buf, jparams)
+    base_col, col0, hi0 = int(base_col), int(col0), int(hi0)  # () i32 tensors on the ring's device
     assert a_sw == 128 and (hi0 < 127) == ramp
     ka0, kalast, *kwin = band_pallas.cone_band_window_pallas(
         jbuf.pos_x, jbuf.pos_y, jbuf.vel_x, jbuf.vel_y, jnp.int32(col0), jnp.int32(hi0),

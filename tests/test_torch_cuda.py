@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from spacetime_tpu_torch import kernels, scene
+from spacetime_tpu_torch import fused, kernels, scene
 from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.constants import DEFAULT_PARAMS as P
 from spacetime_tpu_torch.models.softbody import SoftbodyModel, default_bin_resolution
@@ -342,7 +342,7 @@ def _far_frame(device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("camera_frame", [False, True], ids=["ground", "camera_frame"])
-@pytest.mark.parametrize("case", ["saturated", "ties", "ragged", "age_span", "uhd"])
+@pytest.mark.parametrize("case", ["saturated", "ties", "ragged", "age_span", "uhd", "cap_1536"])
 def test_pixel_kernel_cases(cuda_device, camera_frame, case):
     """Both branches against plain (at most PIXEL_SHARE of pixels off by
     more than PIXEL_TOL), two launches bit-equal: 32-pixel cells filled
@@ -352,7 +352,9 @@ def test_pixel_kernel_cases(cuda_device, camera_frame, case):
     (no multiple of 4 wide, no multiple of cell_px 16 high: ragged runs, a
     partial last cell row, scalar stores); a cell whose entries span more
     than the kernel's 64 age bins (bins two ages wide); a 3840 x 2160
-    image (2,073,600 runs of 4 pixels)."""
+    image (2,073,600 runs of 4 pixels); a bin_capacity of 1536, whose
+    62,480-byte slice needs more than the 48 KB a block has without opting
+    in."""
     vel = (0.5, 0.1) if camera_frame else (0, 0)
     zoom = 0.15
     width, height = {"ragged": (97, 61), "age_span": (128, 64), "uhd": (3840, 2160)}.get(
@@ -368,6 +370,8 @@ def test_pixel_kernel_cases(cuda_device, camera_frame, case):
     if case == "uhd":
         zoom = 0.8
         kw.update(cell_px=32, occlusion_downsample=2)
+    if case == "cap_1536":
+        kw.update(cell_px=32, bin_capacity=1536, pair_budget=2048)
     cam = Camera.create(pos=(0.38, 0.41), zoom=zoom, vel=vel, device=cuda_device)
     if case == "ties":
         p, objects, buf = _tie_frame(cuda_device)
@@ -381,6 +385,8 @@ def test_pixel_kernel_cases(cuda_device, camera_frame, case):
     count = inputs.cell_hi - inputs.cell_lo
     if case == "saturated":
         assert (count == params.bin_capacity).any() and int(diag.bin_dropped) > 0
+    if case == "cap_1536":
+        assert int(count.max()) > 192 and int(diag.bin_dropped) == 0
     if case == "age_span":
         ages = torch.round((inputs.scal[0] - inputs.entries[:, 4]) / params.dt)
         spans = [int(ages[lo:hi].max() - ages[lo:hi].min())
@@ -584,3 +590,136 @@ def test_points_failed_launch_drops_scratch(cuda_device, monkeypatch):
     ours = points_cuda.render_points(p, objects, cam, 96, 64)
     assert torch.equal(ours, points_cuda.render_points_plain(p, objects, cam, 96, 64))
     assert _scratch_clean(cuda_device, 96, 64)
+
+
+# --------------------------------------------------------------------------
+# the fused frame's CUDA graphs
+# --------------------------------------------------------------------------
+
+
+def _fused_state(device, frames=3):
+    """A FrameState over _frame's scene (the discs near contact), and the
+    model and objects, for the fused frame's stages."""
+    p, objects, buf, cam = _frame(device, frames)
+    model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.cpu().numpy()),
+                          device=device)
+    return fused.new_state(p, buf, cam, H * frames), model, objects
+
+
+def _stages(state, model, objects, params, mode="retarded"):
+    return fused.frame_stages(model, None, state, objects, 96, 64, params, mode, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spf", [1, 2])
+def test_fused_graph_replays_bit_equal_to_eager(cuda_device, spf):
+    """The same frames as CUDA graph replays and eagerly, from copies of one
+    state: positions, velocities, bonds, ring, clock, images and counters
+    bit-equal (every kernel is deterministic); one capture, then replays,
+    with the launches of each replayed graph counted (4 collision, 1 band,
+    1 pixel pass a tick / a frame)."""
+    state, model, objects = _fused_state(cuda_device)
+    other = fused.copy_state(state)
+    params = _params()
+    order = fused.schedule(spf)
+    graph = fused.FusedFrame(_stages(state, model, objects, params), order, cuda_device)
+    eager = _stages(other, model, objects, params)
+    frames = 5
+    kernels.reset_launch_counts()
+    outs = [graph() for _ in range(frames)]
+    counts = dict(kernels.launches)
+    want = [fused.run_stages(eager, order) for _ in range(frames)]
+    assert (graph.stats["captures"], graph.stats["replays"]) == (1, frames - 1)
+    assert graph.stats["capture_s"] > 0
+    assert counts["collision"] == 4 * spf * frames and counts["band"] == frames
+    assert counts["pixel_pass"] == frames
+    for (img, ctr), (img2, ctr2) in zip(outs, want):
+        assert torch.equal(img, img2) and torch.equal(ctr, ctr2)
+    assert outs[0].__class__ is tuple and outs[0][0].data_ptr() != outs[1][0].data_ptr()
+    for a, b in ((state.particles, other.particles), (state.buf, other.buf)):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert x is None or torch.equal(x, y), f.name
+    assert torch.equal(state.frame_in, other.frame_in) and torch.equal(state.aux, other.aux)
+
+
+@pytest.mark.cuda
+def test_engine_captures_once_per_render_params_key(cuda_device):
+    """A fused CUDA Engine: every frame after a key's first replays its
+    graphs; a zoom across the cell ladder captures a new key, revisiting the
+    old zoom replays the old one; launches count per replay."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    cfg = EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 50, (0.45, 0.45), (0.1, 0.0), (0.2, 0.2, 1.0)),),
+                        capacity=256),
+        render=raytrace.RenderParams(num_rays=256), width=48, height=48, history=32)
+    eng = Engine(cfg, device=cuda_device)
+    kernels.reset_launch_counts()
+    eng.run(3)
+    assert (eng.graph_stats["captures"], eng.graph_stats["replays"]) == (1, 2)
+    for zoom, captures in ((0.02, 2), (1.0, 2), (0.02, 2)):
+        eng.camera = Camera.create(pos=(0.45, 0.45), zoom=zoom, device=cuda_device)
+        eng.run(2)
+        assert eng.graph_stats["captures"] == captures, zoom
+    assert eng.graph_stats["replays"] == 9 - 2
+    assert kernels.launches["collision"] == 4 * 9 and kernels.launches["band"] == 9
+    assert kernels.launches["pixel_pass"] == 9 and len(eng._fused_cache) == 2
+
+
+@pytest.mark.cuda
+def test_points_graph_scratch_untouched_by_eager_calls(cuda_device):
+    """The points Engine's graphs keep their own scratch (made on the
+    graphs' stream before the capture); eager renders on the current stream
+    between replays, at other sizes and cameras, leave the replays
+    bit-equal to the plain renderer and every scratch clean."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    cfg = EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 400, (0.45, 0.45), (0.1, 0.0), (0.2, 0.2, 1.0)),)),
+        width=96, height=64, history=16, render_mode="points", cam_zoom=0.3,
+        cam_pos=(0.46, 0.45))
+    eng = Engine(cfg, device=cuda_device)
+    eng.run(2)
+    graph_scratch = points_cuda.held(cuda_device, eng._graph_stream.cuda_stream)
+    assert graph_scratch is not None
+    for i in range(3):
+        cam = Camera.create(pos=(0.4 + 0.02 * i, 0.45), zoom=0.5 + 0.3 * i, device=cuda_device)
+        assert torch.equal(points_cuda.render_points(eng.particles, eng.objects, cam, 64, 96),
+                           points_cuda.render_points_plain(eng.particles, eng.objects, cam,
+                                                           64, 96))
+        eng.render()
+        img = eng.run_frame().permute(2, 0, 1)
+        plain = points_cuda.render_points_plain(eng.particles, eng.objects, eng.camera, 96, 64)
+        assert torch.equal(img, plain) and (plain != 1.0).any()
+    assert eng.graph_stats["replays"] == 4
+    winner, mask = graph_scratch
+    assert bool((winner == points_cuda.EMPTY).all()) and not bool(mask.any())
+    assert _scratch_clean(cuda_device, 96, 64) and _scratch_clean(cuda_device, 64, 96)
+
+
+@pytest.mark.cuda
+def test_engine_capture_failure_raises(cuda_device, monkeypatch):
+    """A render that reads a device value on the host cannot be captured:
+    the Engine raises, and never carries on eagerly."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    cfg = EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 50, (0.45, 0.45), (0.1, 0.0), (0.2, 0.2, 1.0)),),
+                        capacity=256),
+        render=raytrace.RenderParams(num_rays=256), width=48, height=48, history=32)
+    eng = Engine(cfg, device=cuda_device)
+    render = raytrace.render_retarded_with_diag
+
+    def syncing(*args, **kwargs):
+        img, diag = render(*args, **kwargs)
+        int(diag.pairs_used)  # a host read: refused under capture
+        return img, diag
+
+    monkeypatch.setattr(raytrace, "render_retarded_with_diag", syncing)
+    with pytest.raises(RuntimeError):
+        eng.run_frame()
+    assert eng.graph_stats["captures"] == 0 and eng.graph_stats["replays"] == 0

@@ -70,7 +70,9 @@ def test_rindler_velocity_stays_below_c():
 
 @pytest.mark.parametrize("mode", ["points", "retarded", "instant"])
 def test_stats_report_stage_times(mode):
-    eng = Engine(_tiny(render_mode=mode), device="cpu")
+    """Stage times are measured with `stage_timing` (the fused frame reports
+    zeros, as the JAX package's does)."""
+    eng = Engine(_tiny(render_mode=mode, stage_timing=True), device="cpu")
     summary = eng.run(4)
     assert summary["fps_avg"] > 0 and summary["frame_avg_ms"] > 0
     for k in ("step_avg_ms", "worldline_avg_ms", "render_avg_ms"):
@@ -249,7 +251,8 @@ def test_refdemo_config_is_the_reference_demo_scene():
 def test_cli_runs_on_the_cpu_and_prints_the_summary(capsys, tmp_path):
     ckpt = str(tmp_path / "c.npz")
     assert cli.main(["--config", "single_blob", "--frames", "3", "--width", "32",
-                     "--height", "32", "--stats", "--save", ckpt, "--cpu"]) == 0
+                     "--height", "32", "--stats", "--stage-timing", "--save", ckpt,
+                     "--cpu"]) == 0
     out = capsys.readouterr().out
     summary = json.loads(out[out.index("{"):])
     for k in ("frame_avg_ms", "fps_avg", "step_avg_ms", "worldline_avg_ms", "render_avg_ms"):

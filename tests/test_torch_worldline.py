@@ -103,3 +103,26 @@ def test_push_time_from_device_tensor():
     buf = wl.create(4, 8)
     wl.push_frame(buf, _one(pack_particles, 1.0), torch.tensor(0.25))
     assert buf.times[buf.cursor].item() == 0.25
+
+
+def test_cursor_and_in_use_are_device_tensors_matching_jax():
+    """`cursor` and `frames_in_use` are () int32 tensors on the ring's
+    device, advanced in place by each push (the same tensors throughout, as
+    a captured graph needs), equal to JAX's after every push: ramp-up,
+    exactly full, wrapped once and twice; the newest time and the rows at
+    each age read through them match JAX's."""
+    buf, jbuf = wl.create(4, 8), jwl.create(4, 8)
+    cursor, in_use = buf.cursor, buf.frames_in_use
+    assert cursor.dtype == in_use.dtype == torch.int32 and cursor.shape == in_use.shape == ()
+    for i in range(10):
+        jbuf = jwl.push_frame(jbuf, _one(jpack, float(i)), time=i * H)
+        wl.push_frame(buf, _one(pack_particles, float(i)), time=torch.tensor(i * H))
+        assert buf.cursor is cursor and buf.frames_in_use is in_use
+        assert int(cursor) == int(jbuf.cursor) and int(in_use) == int(jbuf.frames_in_use)
+        assert wl.newest_time(buf).item() == float(jbuf.times[jbuf.cursor])
+        for age in range(min(i + 1, 4)):
+            np.testing.assert_array_equal(wl.row_at_age(buf.pos_x, buf, age).numpy(),
+                                          np.asarray(jwl.pos_at_age(jbuf, age))[:, 0])
+    _assert_same(buf, jbuf)
+    converted = convert.worldline_from_numpy(_fields(jbuf))
+    assert converted.cursor.dtype == torch.int32 and converted.cursor.shape == ()
