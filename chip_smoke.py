@@ -62,8 +62,29 @@ just after:
     state at RK4 stage 3's positions;
   * small scenes on the GPU against the port's CPU path (which the tier-1
     tests hold against the JAX package): the headline frame's pieces, the
-    Engine in all three modes, and tiny `plastic_collision`,
-    `boosted_observer` and row-gather scenes.
+    Engine in its four modes, and tiny `plastic_collision`,
+    `boosted_observer` and row-gather scenes;
+  * `Engine.render_views`, after the flagship run: three cameras on its
+    ring, bit-equal to three single renders, 3 band and 3 pixel launches;
+  * the reference demo's retarded frame (headline.build_refdemo: 116,178
+    active at capacity 149,248, a T=1024 ring of 4.9 GB, 1920x1080,
+    `splat_cells=4`, rank compaction to 3 crossings, band 4): the fused
+    frame's graphs bit-equal to its stages run eagerly from a copy of the
+    start state for REFDEMO_COMPARE_FRAMES frames, then REFDEMO_FRAMES graph
+    frames with 4 / 1 / 1 launches a frame, every drop counter 0
+    (segment_dropped included) and the pairs within pair_budget; then the
+    pixel, band and collision kernels against plain on its final state;
+    then, at that scale, the compacted frame against the uncompacted one
+    under the pixel gate, and the drops at the reference demo's segments=2;
+  * the retina mode through the CLI (`accelerated_camera --mode retina`)
+    for RETINA_FRAMES eager frames (4 collision and 1 band launch a frame,
+    the strip's shape); a tiny retina Engine on the GPU and the CPU above;
+  * `flagship_1080p` with an aloof disc on a circular trajectory: its
+    stages as graphs bit-equal to eager, then ALOOF_FRAMES fused Engine
+    frames (a capture a key, the aloof slots at state_at(the clock));
+  * Euler (`SoftbodyModel(integrator="euler")`): EULER_STEPS headline steps
+    with one collision launch a step, and a small scene on the GPU against
+    the CPU.
 
 Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
 keeps the host's enqueue out of the reading (a device spin covers it);
@@ -100,6 +121,14 @@ from spacetime_tpu_torch.device import card_line
 from spacetime_tpu_torch.utils.timing import cuda_ms, launch_floor_ms
 
 FRAMES = 200  # the discs meet at about frame 170
+REFDEMO_FRAMES = 60  # fused refdemo frames (the discs meet near frame 350)
+REFDEMO_COMPARE_FRAMES = 10  # graph vs eager refdemo frames from one start state
+RETINA_FRAMES = 60
+ALOOF_FRAMES = 60  # flagship_1080p with an aloof disc, before the impact
+# explicit Euler is unstable at the default stiffness (the reference's
+# "strictly worse than rk4"): lattice noise grows ~1.7x a step and turns to
+# NaN near step 20, so the launch count is read over 10 steps
+EULER_STEPS = 10
 ENGINE_FRAMES = 200  # flagship_1080p: the discs meet at about frame 120
 INSTANT_FRAMES = 20
 POINTS_FRAMES = 100
@@ -370,8 +399,10 @@ def engine_via_cli(argv, frames, expect, gate_drops=False):
     its launches per frame (the names not in it must stay 0).  With
     `gate_drops` every drop counter summed over the run (the summary's
     `drops`) must be 0.  A fused run (no --stage-timing) must have replayed
-    a captured graph in every frame but each key's first; an eager one must
-    report stage times > 0."""
+    a captured graph in every frame but each key's first; an eager one
+    (--stage-timing, or the retina mode, which runs unfused) must report
+    stage times > 0 and capture nothing.  The image is (H, W, 3), or the
+    retina strip (max(16, H // 8), num_rays, 3)."""
     from spacetime_tpu_torch import cli, kernels
 
     kernels.reset_launch_counts()
@@ -391,11 +422,16 @@ def engine_via_cli(argv, frames, expect, gate_drops=False):
         raise AssertionError(f"engine launches {counts}, expected {want}")
     if gate_drops and any(summary["drops"].values()):
         raise AssertionError(f"nonzero drop counters over the run: {summary['drops']}")
-    if img.shape != (eng.config.height, eng.config.width, 3) or not torch.isfinite(img).all() \
-            or lit <= 0.0:
-        raise AssertionError("engine image is not finite or shows no matter")
+    cfg = eng.config
+    shape = ((max(16, cfg.height // 8), cfg.render.num_rays, 3) if cfg.render_mode == "retina"
+             else (cfg.height, cfg.width, 3))
+    if img.shape != shape or not torch.isfinite(img).all() or lit <= 0.0:
+        raise AssertionError(f"engine image {tuple(img.shape)} (expected {shape}) is not "
+                             "finite or shows no matter")
     g = eng.graph_stats
-    if eng.config.stage_timing:
+    if cfg.stage_timing or cfg.render_mode == "retina":
+        if g["eager"] != frames:
+            raise AssertionError(f"eager engine ran {g['eager']} eager frames of {frames}")
         if g["captures"] or not all(summary[k] > 0 for k in ("step_avg_ms", "worldline_avg_ms",
                                                               "render_avg_ms")):
             raise AssertionError(f"stage-timed engine: graphs {g} or a stage time not > 0: "
@@ -656,7 +692,7 @@ def _tiny_configs():
     from spacetime_tpu_torch.utils.config import BLUE, RED, EngineConfig, SceneSpec, get_config
 
     out = []
-    for mode in ("retarded", "instant", "points"):
+    for mode in ("retarded", "instant", "points", "retina"):
         out.append((mode, EngineConfig(
             scene=SceneSpec(bodies=(("disc", 50, (0.45, 0.45), (0.1, 0.0), (0.2, 0.2, 1.0)),),
                             capacity=256),
@@ -846,6 +882,259 @@ def check_small_vs_cpu():
         raise AssertionError("GPU run disagrees with the CPU path on the small scene")
 
 
+def refdemo_frame(device):
+    """The reference demo's retarded frame (headline.build_refdemo: 116,178
+    active particles at capacity 149,248, a T=1024 ring of 4.9 GB, 1920x1080,
+    band 4, `splat_cells=4`, rank compaction) as the fused frame:
+    REFDEMO_COMPARE_FRAMES graph frames bit-equal to the same stages run
+    eagerly from a copy of the start state; then, with the launch counts
+    reset, REFDEMO_FRAMES graph frames: 4 collision, 1 band and 1 pixel
+    launch a frame, every drop counter summed over them 0 (segment_dropped
+    included) and the pairs within pair_budget; then the pixel, band and
+    collision kernels against plain on the final state.  Returns (state,
+    model, objects, params, {kernel: (err, ms, plain ms, bound)}, launches)."""
+    from spacetime_tpu_torch import fused, headline, kernels
+
+    t0 = time.perf_counter()
+    model, particles, objects, buf, cam, params = headline.build_refdemo(device)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    state = fused.new_state(particles, buf, cam, 0.0)
+    del particles, buf
+    other = fused.copy_state(state)
+    order = fused.schedule(1)
+    stages = lambda st: fused.frame_stages(model, None, st, objects, headline.WIDTH,
+                                           headline.HEIGHT, params, "retarded", model.params.h)
+    graph = fused.FusedFrame(stages(state), order, device)
+    eager = stages(other)
+    unequal = []
+    for i in range(REFDEMO_COMPARE_FRAMES):
+        (img_g, ctr_g), (img_e, ctr_e) = graph(), fused.run_stages(eager, order)
+        if not torch.equal(img_g, img_e) or not torch.equal(ctr_g, ctr_e):
+            unequal.append(i)
+    unequal += _state_diff(state, other)
+    del other, eager
+    kernels.reset_launch_counts()
+    sums = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REFDEMO_FRAMES):
+        img, ctr = graph()
+        sums = ctr if sums is None else sums + ctr
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / REFDEMO_FRAMES * 1e3
+    counts = dict(kernels.launches)
+    render = graph.stages["render"]
+    drops = fused.drops_of(sums, render)
+    diag = fused.unpack(ctr, render)[1]
+    pairs = int(diag.pairs_used)
+    occupied = ((img != 1.0) & (img != np.float32(params.shadow))).any(dim=0).float().mean().item()
+    p = state.particles
+    print(f"refdemo frame: {int(p.active.sum())} active of {p.capacity}, ring "
+          f"{4 * state.buf.pos_x.numel() * 4 / 1e9:.2f} GB, setup {setup:.2f} s; graph vs eager "
+          f"({REFDEMO_COMPARE_FRAMES} frames from one start state) differ in "
+          f"{unequal or 'nothing'}; then {REFDEMO_FRAMES} graph frames, {wall:.4f} ms wall a "
+          f"frame; launches {counts}; graphs {graph.stats}; drop counters summed {drops}; "
+          f"last frame pairs_used {pairs} (pair_budget {params.pair_budget}); occupied share "
+          f"{occupied:.4f}")
+    if unequal:
+        raise AssertionError(f"refdemo graph frames differ from eager ones in {unequal}")
+    if (counts["collision"] != 4 * REFDEMO_FRAMES or counts["band"] != REFDEMO_FRAMES
+            or counts["pixel_pass"] != REFDEMO_FRAMES):
+        raise AssertionError(f"refdemo launches {counts}, expected 4x / 1x / 1x {REFDEMO_FRAMES}")
+    if any(drops.values()) or pairs > params.pair_budget:
+        raise AssertionError(f"refdemo drops {drops}, pairs {pairs} of {params.pair_budget}")
+    if not torch.isfinite(img).all() or occupied <= 0.0 or not torch.isfinite(p.pos).all():
+        raise AssertionError("refdemo image or positions not finite, or all background")
+    cam = fused.camera_of(state.frame_in)
+    when = f"refdemo, after {REFDEMO_COMPARE_FRAMES + REFDEMO_FRAMES} frames"
+    errs = {"pixel_pass": check_pixel(p, objects, state.buf, cam, params, headline.WIDTH,
+                                      headline.HEIGHT, when),
+            "band": check_band(state.buf, cam, params, when),
+            "collision": time_collision(p, model)}
+    return state, model, objects, params, errs, counts
+
+
+def check_segments(state, objects, params):
+    """At refdemo scale, on the final state: the frame at its `segments`
+    (segment_dropped 0) against the uncompacted one (segments 0) under the
+    pixel gate, the pairs equal; the drops at segments 2 counted; the
+    particles by valid crossings; and the drop counters at the reference
+    demo's own bin_capacity and segments."""
+    from spacetime_tpu_torch import fused, headline
+    from spacetime_tpu_torch.ops import raytrace
+    from spacetime_tpu_torch.ops import worldline as wl
+
+    p, buf = state.particles, state.buf
+    cam = fused.camera_of(state.frame_in)
+    out = {}
+    for k in sorted({params.segments, 0, 2}):
+        pk = dataclasses.replace(params, segments=k)
+        img, diag = raytrace.render_retarded_with_diag(
+            buf, p.object_index, objects, cam, headline.WIDTH, headline.HEIGHT, pk, planar=True,
+            boundary=wl.boundary_mask(p))
+        out[k] = (img, diag)
+    img, diag = out[params.segments]
+    img0, diag0 = out[0]
+    dropped = {k: (None if d.segment_dropped is None else int(d.segment_dropped))
+               for k, (_, d) in out.items()}
+    share = ((img - img0).abs().amax(dim=0) > PIXEL_TOL).float().mean().item()
+    # valid crossings a particle, and the drops at tools/refdemo.py's own
+    # params (bin_capacity 96, segments 2), which the refdemo row changes
+    raw = raytrace._band_pairs(buf, p.object_index, objects, cam, wl.newest_time(buf),
+                               headline.WIDTH, headline.HEIGHT,
+                               dataclasses.replace(params, segments=0))[0]
+    hist = torch.bincount(raw.pair_valid.reshape(-1, params.band).sum(dim=1)).tolist()
+    ref = dataclasses.replace(params, bin_capacity=96, segments=2)
+    _, rdiag = raytrace.render_retarded_with_diag(
+        buf, p.object_index, objects, cam, headline.WIDTH, headline.HEIGHT, ref, planar=True,
+        boundary=wl.boundary_mask(p))
+    rdrops = {f: int(getattr(rdiag, f)) for f in ("bin_dropped", "segment_dropped",
+                                                  "entry_dropped", "pairs_used")}
+    print(f"segments at refdemo scale: segment_dropped by segments {dropped}; pairs_used "
+          f"{ {k: int(d.pairs_used) for k, (_, d) in out.items()} }; segments="
+          f"{params.segments} vs 0: pixel share > {PIXEL_TOL:g}: {share:.2e} (limit "
+          f"{PIXEL_SHARE:g}), bit-equal {torch.equal(img, img0)}; particles by valid "
+          f"crossings (0, 1, 2, ...) {hist}; at the reference demo's bin_capacity 96 and "
+          f"segments 2: {rdrops}")
+    if dropped[params.segments] != 0 or int(diag.pairs_used) != int(diag0.pairs_used) \
+            or share > PIXEL_SHARE:
+        raise AssertionError("the compacted refdemo frame disagrees with the uncompacted one")
+
+
+def check_views(eng):
+    """Engine.render_views with three cameras on the Engine's ring: bit-equal
+    to three single renders at its render params, with 3 band and 3 pixel
+    launches."""
+    from spacetime_tpu_torch import kernels
+    from spacetime_tpu_torch.camera import Camera
+    from spacetime_tpu_torch.ops import raytrace
+    from spacetime_tpu_torch.ops import worldline as wl
+
+    cfg, dev = eng.config, eng.device
+    x, y = eng.camera.pos.tolist()
+    zoom = float(eng.camera.zoom)
+    cams = [Camera.create(pos=(x, y), zoom=zoom, device=dev),
+            Camera.create(pos=(x - 0.1, y + 0.05), zoom=0.8 * zoom, device=dev),
+            Camera.create(pos=(x + 0.05, y), zoom=zoom, vel=(0.3, 0.0), device=dev)]
+    kernels.reset_launch_counts()
+    batch = eng.render_views(cams)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    params, p = eng._render_params(), eng.particles
+    singles = [raytrace.render_retarded(eng.worldline, p.object_index, eng.objects, c, cfg.width,
+                                        cfg.height, params, boundary=wl.boundary_mask(p))
+               for c in cams]
+    equal = [torch.equal(batch[i], s) for i, s in enumerate(singles)]
+    print(f"render_views ({cfg.width}x{cfg.height}, 3 cameras on the flagship ring): "
+          f"shape {tuple(batch.shape)}, launches {counts}, each view bit-equal to its single "
+          f"render {equal}, lit shares {[round(_lit(s, params), 4) for s in singles]}")
+    if batch.shape != (3, cfg.height, cfg.width, 3) or not all(equal):
+        raise AssertionError("render_views differs from single renders")
+    if counts["band"] != 3 or counts["pixel_pass"] != 3:
+        raise AssertionError(f"render_views launches {counts}, expected 3 band and 3 pixel")
+
+
+def engine_aloof(device):
+    """flagship_1080p with an aloof disc on a circular trajectory through the
+    view: its frame's stages as graph replays bit-equal to the same stages
+    run eagerly from copies of the Engine's state (REFDEMO_COMPARE_FRAMES
+    frames); then ALOOF_FRAMES fused Engine frames: one capture, 4 / 1 / 1
+    launches a frame, the aloof slots at state_at(the device clock)."""
+    from spacetime_tpu_torch import fused, kernels
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.models.aloofbody import AloofBody, circular_trajectory, disc_template
+    from spacetime_tpu_torch.utils.config import get_config
+
+    cfg = get_config("flagship_1080p")
+    body = AloofBody(disc_template(20), circular_trajectory((0.7, 0.5), 0.15, 0.3),
+                     object_index=2)
+    eng = Engine(cfg, device=device, aloof_bodies=[body])
+    lo, hi = eng._aloof_slice
+    a, b = fused.copy_state(eng._state), fused.copy_state(eng._state)
+    params = eng._render_params()
+    stages = lambda st: fused.frame_stages(eng.model, None, st, eng.objects, cfg.width,
+                                           cfg.height, params, "retarded", cfg.physics.h,
+                                           aloof=eng._aloof, present=eng.present)
+    order = fused.schedule(cfg.steps_per_frame)
+    graph, eager = fused.FusedFrame(stages(a), order, device), stages(b)
+    unequal = []
+    for i in range(REFDEMO_COMPARE_FRAMES):
+        (ig, cg), (ie, ce) = graph(), fused.run_stages(eager, order)
+        if not torch.equal(ig, ie) or not torch.equal(cg, ce):
+            unequal.append(i)
+    unequal += _state_diff(a, b)
+    del a, b, graph, eager
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = eng.run(ALOOF_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    t = eng._state.frame_in[5]
+    pos, vel = body.state_at(t)
+    at_clock = torch.equal(eng.particles.pos[lo:hi], pos) and torch.equal(
+        eng.particles.vel[lo:hi], vel)
+    img = eng.render()
+    print(f"engine aloof (flagship_1080p + a {body.num_points}-point disc, circular): slots "
+          f"{lo}-{hi} of {eng.particles.capacity}; graph vs eager ({REFDEMO_COMPARE_FRAMES} "
+          f"frames) differ in {unequal or 'nothing'}; {ALOOF_FRAMES} fused frames in "
+          f"{wall:.2f} s, launches {counts}, graphs {eng.graph_stats}; slots at state_at(clock "
+          f"{float(t):.4f}) {at_clock}; lit share {_lit(img, params):.4f}")
+    print(f"  summary {json.dumps(summary)}")
+    if unequal or not at_clock:
+        raise AssertionError(f"aloof frame: graph vs eager differ in {unequal}, slots at the "
+                             f"clock {at_clock}")
+    # moved to the front, the padded lattice's bonds lose their constant
+    # offsets: the row-gather physics, the bond-excluding collision variant
+    coll = "collision" if eng.model.spring_offsets is not None else "collision_exclude"
+    want = {coll: 4, "band": 1, "pixel_pass": 1}
+    g = eng.graph_stats
+    keys = len(eng._fused_cache)
+    if any(counts[k] != want.get(k, 0) * ALOOF_FRAMES for k in counts) \
+            or g["captures"] != keys or g["captures"] + g["replays"] != ALOOF_FRAMES:
+        raise AssertionError(f"aloof engine launches {counts}, graphs {g} for {keys} keys")
+
+
+def check_euler(device):
+    """SoftbodyModel(integrator="euler"): EULER_STEPS steps of the headline
+    scene on the card with one collision launch a step; and the small
+    two-disc scene of check_small_vs_cpu through its impact on the card
+    against the CPU path."""
+    from spacetime_tpu_torch import headline, kernels, scene
+    from spacetime_tpu_torch.models.softbody import SoftbodyModel
+    from spacetime_tpu_torch.ops import forces
+
+    model, p, _, _, _, _ = headline.build(device)
+    euler = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.cpu().numpy()),
+                          device=device, integrator="euler")
+    kernels.reset_launch_counts()
+    for _ in range(EULER_STEPS):
+        p, aux = euler.step(p)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        sb = scene.SceneBuilder()
+        sb.add(scene.disc_softbody(6, 0, (0.35, 0.40), (0.25, 0.05), lattice_pad=True))
+        sb.add(scene.disc_softbody(6, 1, (0.395, 0.41), (-0.25, -0.05), lattice_pad=True))
+        q, _ = sb.build(device=dev)
+        m = SoftbodyModel(q.capacity, forces.derive_spring_offsets(q.neighbors.cpu().numpy()),
+                          device=dev, integrator="euler")
+        for _ in range(SMALL_FRAMES):
+            q, qaux = m.step(q)
+        out[dev] = (q.pos[q.active].cpu(), q.vel[q.active].cpu(), int(qaux.bonds_broken))
+    pos_err = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
+    vel_err = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
+    print(f"euler: {EULER_STEPS} headline steps, launches {counts}, bonds broken (last) "
+          f"{int(aux.bonds_broken)}; small scene GPU vs CPU after {SMALL_FRAMES} steps: max "
+          f"position err {pos_err:.3e}, velocity err {vel_err:.3e}")
+    if counts["collision"] != EULER_STEPS or sum(counts.values()) != EULER_STEPS:
+        raise AssertionError(f"euler launches {counts}, expected {EULER_STEPS} collision")
+    if pos_err > 1e-4 or vel_err > 1e-3 or out["cuda"][2] != 0 or not torch.isfinite(p.pos).all():
+        raise AssertionError("euler on the card disagrees with the CPU path")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -889,6 +1178,7 @@ def main() -> int:
         ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1})
     retarded_errs = check_engine_kernels(eng)
     check_profile_stages(eng)
+    check_views(eng)
     del eng
     eng, _, timed_summary = engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats",
@@ -932,6 +1222,19 @@ def main() -> int:
     ex_launches, ex_err, ex_ms, ex_plain_ms, ex_bnd = engine_rows(device)
     check_small_vs_cpu()
     check_small_engine_vs_cpu()
+
+    # the paths of this slice: the reference demo's retarded frame, the
+    # segments check at its scale, the retina mode, aloof bodies and Euler
+    state, _, objects, rd_params, rd_errs, _ = refdemo_frame(device)
+    check_segments(state, objects, rd_params)
+    pix_err = max(pix_err, rd_errs["pixel_pass"][0])
+    band_err = max(band_err, rd_errs["band"][0])
+    coll_err = max(coll_err, rd_errs["collision"][0])
+    del state, objects
+    engine_via_cli(["--config", "accelerated_camera", "--mode", "retina", "--frames",
+                    str(RETINA_FRAMES), "--stats"], RETINA_FRAMES, {"collision": 4, "band": 1})
+    engine_aloof(device)
+    check_euler(device)
 
     record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",

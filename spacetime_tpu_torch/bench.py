@@ -5,6 +5,14 @@ ring and one 1920x1080 opaque retarded render with Doppler and beaming
 (headline.build), replayed as CUDA graphs (fused.py).
 
     python3 -m spacetime_tpu_torch.bench
+    python3 -m spacetime_tpu_torch.bench --scene refdemo
+
+`--scene refdemo` times the reference demo's retarded frame instead
+(headline.build_refdemo: 116,178 active particles at capacity 149,248, a
+T=1024 ring of 4.9 GB, 1920x1080 with `splat_cells=4`, band 4, rank
+compaction to 3 crossings a particle and bin_capacity 128; see
+headline.refdemo_params) by the same protocol; its row adds `scene` and
+`segment_dropped` (also among `drops`).
 
 Prints ONE JSON line.  Without CUDA it exits 1 and prints no result: a CPU
 run gives no device time.  The row holds:
@@ -36,7 +44,7 @@ Left out of the JAX bench's keys: `flops_per_frame`, `hbm_bytes_per_frame`,
 PyTorch has no counterpart of, and `hbm_util_measured_pct` /
 `hbm_bytes_measured` from the TPU profiler's byte counts, which the torch
 profiler does not report.  `--record`, `--replay` and `--diff` wait for the
-replay module; the 116k retarded frame waits for `segments` compaction.
+replay module.
 An Engine config's row comes from the CLI: `python3 -m spacetime_tpu_torch
 --config NAME --frames N --stats [--stage-timing]` prints its stats
 summary, with the drop counters summed over the run and the graph counts.
@@ -59,6 +67,7 @@ STEPS = 100
 PROFILE_FRAMES = 5
 TARGET_FPS = 60.0
 METRIC = "fused 10k-particle step + 1080p retarded-time render"
+REFDEMO_METRIC = "fused 116k-particle step + 1080p retarded-time render (reference demo)"
 
 
 def time_frames(frame, sync, reset=lambda: None, frames: int = TIMED_FRAMES,
@@ -119,14 +128,15 @@ def report(per_frame, steps_per_s: float, width: int, height: int, drops: dict,
     }
 
 
-def headline_frames(device):
-    """(frame, reset, step_only, width, height): the headline frame as a
-    fused.FusedFrame over headline.build's state, a function that puts
-    that state back as built, and a FusedFrame of the step stage alone over
-    a copy of it."""
+def headline_frames(device, scene: str = "headline"):
+    """(frame, reset, step_only, width, height): the headline frame (or,
+    with scene "refdemo", the reference demo's) as a fused.FusedFrame over
+    headline.build's state, a function that puts that state back as built,
+    and a FusedFrame of the step stage alone over a copy of it."""
     from . import fused, headline
 
-    model, particles, objects, buf, cam, params = headline.build(device)
+    build = headline.build_refdemo if scene == "refdemo" else headline.build
+    model, particles, objects, buf, cam, params = build(device)
     state = fused.new_state(particles, buf, cam, 0.0)
     built = fused.copy_state(state)
     frame = fused.FusedFrame(
@@ -140,15 +150,16 @@ def headline_frames(device):
             headline.HEIGHT)
 
 
-def run_headline() -> dict:
-    """The headline row on CUDA device 0 (see the module docstring)."""
+def run_headline(scene: str = "headline") -> dict:
+    """The headline row (or the refdemo row) on CUDA device 0 (see the
+    module docstring)."""
     from . import device as device_mod
     from . import fused
     from .utils import profiling
 
     device = device_mod.resolve(None)
     sync = torch.cuda.synchronize
-    frame, reset, step_only, width, height = headline_frames(device)
+    frame, reset, step_only, width, height = headline_frames(device, scene)
     per_frame, counters = time_frames(frame, sync, reset)
     drops = fused.drops_of(counters, frame.stages["render"])
     steps_per_s = time_steps(step_only, sync)
@@ -159,19 +170,24 @@ def run_headline() -> dict:
         sync()
 
     measured = profiling.measured_roofline(traced, PROFILE_FRAMES)
-    return report(per_frame, steps_per_s, width, height, drops, measured, dict(frame.stats),
-                  device_mod.card_line())
+    row = report(per_frame, steps_per_s, width, height, drops, measured, dict(frame.stats),
+                 device_mod.card_line())
+    if scene == "refdemo":
+        row = {**row, "metric": REFDEMO_METRIC, "scene": scene,
+               "segment_dropped": drops["segment_dropped"]}
+    return row
 
 
 def main(argv=None) -> int:
-    argparse.ArgumentParser(prog="spacetime_tpu_torch.bench", description=__doc__,
-                            formatter_class=argparse.RawDescriptionHelpFormatter
-                            ).parse_args(argv)
+    ap = argparse.ArgumentParser(prog="spacetime_tpu_torch.bench", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--scene", default="headline", choices=["headline", "refdemo"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("spacetime_tpu_torch.bench: CUDA is not available; the bench measures an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    row = run_headline()
+    row = run_headline(args.scene)
     print(json.dumps(row))
     if any(row["drops"].values()):
         print(f"nonzero drop counters: {row['drops']}", file=sys.stderr)

@@ -46,6 +46,17 @@ class CameraController:
                 np.maximum(zoom + np.float32(dz), np.float32(1e-3)))
 
 
+def stack_cameras(cams) -> Camera:
+    """One batched Camera of a sequence of Cameras (each field gains a
+    leading B axis), for raytrace.render_views."""
+    cams = list(cams)
+    if not cams:
+        raise ValueError("stack_cameras needs at least one camera")
+    return Camera(pos=torch.stack([c.pos for c in cams]),
+                  zoom=torch.stack([c.zoom for c in cams]),
+                  vel=torch.stack([c.vel for c in cams]))
+
+
 def pixel_centers(width: int, height: int, cam: Camera) -> torch.Tensor:
     """Ground-frame positions of pixel centers, (H, W, 2)."""
     larger = max(width, height)

@@ -2,6 +2,7 @@
 
     python -m spacetime_tpu_torch --config flagship_1080p --frames 200
     python -m spacetime_tpu_torch --config single_blob --frames 30 --mode points --cpu
+    python -m spacetime_tpu_torch --config accelerated_camera --frames 60 --mode retina
 
 Counterpart of `spacetime_tpu/cli.py`, with its flag names.  It runs on
 CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
@@ -9,8 +10,9 @@ CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
 stats summary as JSON (with the drop counters summed over the run and
 the CUDA graphs' counts), else one line.  Frames run fused (CUDA graphs on
 the card) unless --stage-timing asks for eager frames with per-stage
-times.  Not accepted yet: --out, --every, --serve, --serve-bind, --overlay
-and --realtime (they wait for the frame and stream sinks).
+times; the retina mode's frames always run eagerly, as in the JAX package.
+Not accepted yet: --out, --every, --serve, --serve-bind, --overlay and
+--realtime (they wait for the frame and stream sinks).
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def _parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="single_blob", help="named config (utils/config.py)")
     ap.add_argument("--frames", type=int, default=30)
-    ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points"])
+    ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points", "retina"])
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--stats", action="store_true", help="print the stats summary JSON")

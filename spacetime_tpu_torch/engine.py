@@ -2,13 +2,18 @@
 
 Counterpart of `spacetime_tpu/engine.py` for one device.  Per frame it
 (1) moves the camera, (2) steps physics and pushes each new tick into the
-worldline ring, (3) renders in the config's mode — `retarded`, `instant`
-or `points` — and (4) records stage times and consumes the diagnostics.
+worldline ring, (3) renders in the config's mode — `retarded`, `instant`,
+`points` or `retina` (the observer's 360-degree strip, (max(16, H // 8),
+num_rays, 3)) — and (4) records stage times and consumes the diagnostics.
+`render_views` renders several cameras from the current ring (retarded and
+instant modes).
 
 The normal frame is the fused frame (fused.py), as in the JAX package:
-`_can_fuse` takes it unless the Engine is paused or `config.stage_timing`
-is set, and `_fused_frame_fn` keeps one per render-params key (at most
-`_FUSED_CACHE_MAX`, evicted first in, first out).  On a CUDA device its
+`_can_fuse` takes it unless the Engine is paused, `config.stage_timing` is
+set, the mode is `retina` (unfused in JAX too) or an aloof body's
+trajectory cannot be captured, and `_fused_frame_fn` keeps one per
+render-params key (at most `_FUSED_CACHE_MAX`, evicted first in, first
+out).  On a CUDA device its
 stages are captured as CUDA graphs at the key's first frame and replayed
 at every later one (`graph_stats` counts captures and replays); on the CPU
 the same closures run uncaptured.  Its stats carry the frame time and zero
@@ -37,13 +42,20 @@ Differences by design:
     package's `wmax` adaptation has no counterpart.
   * The Engine runs on cuda:0 unless `device` names another (`"cpu"` for
     the plain-torch path); without CUDA the default raises.
+  * Reserving aloof slots moves the active particles to the front and
+    renumbers their bonds with them; the JAX Engine keeps the old numbers,
+    which garble a lattice-padded scene's bonds.  A lattice scene so
+    repacked loses its shifted spring offsets and takes the row-gather
+    physics.
 
 Materials (`config.materials`, with plastic creep), the camera-frame
-(boosted) view and scenes without spring offsets (the row-gather physics,
-e.g. `SceneSpec(lattice_pad=False)` bodies with irregular rows) run as in
-the JAX package.  Not ported yet (they raise NotImplementedError): a mesh,
-aloof bodies, defects and BTZ, and the retina, conical, btz and worldline3d
-modes.
+(boosted) view, scenes without spring offsets (the row-gather physics,
+e.g. `SceneSpec(lattice_pad=False)` bodies with irregular rows) and aloof
+bodies (models/aloofbody.py: slots reserved after the softbody particles,
+render-present and physics-inactive, written after each step and before
+each push at the tick's time) run as in the JAX package.  Not ported yet
+(they raise NotImplementedError): a mesh, defects and BTZ, and the conical,
+btz and worldline3d modes.
 """
 
 from __future__ import annotations
@@ -60,17 +72,19 @@ import torch
 from . import device as device_mod
 from . import fused
 from . import scene as scene_mod
-from .camera import Camera, CameraController
+from .camera import Camera, CameraController, stack_cameras
+from .models import aloofbody
 from .models.softbody import SoftbodyModel
 from .ops import forces, materials as materials_ops, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
-from .state import Objects, Particles, with_rest_len
+from .state import Objects, Particles, pack_particles, with_rest_len
 from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
 from .utils.stats import FramePerfStats, StageClock, StatsWindow
 
-MODES = ("retarded", "instant", "points")
+MODES = ("retarded", "instant", "points", "retina")
+FUSED_MODES = ("retarded", "instant", "points")  # retina frames run eagerly, as in JAX
 
 
 def build_scene(spec: SceneSpec, device=None):
@@ -99,10 +113,9 @@ def build_scene(spec: SceneSpec, device=None):
     return sb.build(spec.capacity, device=device)
 
 
-def _refuse_unported(config: EngineConfig, aloof_bodies, mesh) -> None:
+def _refuse_unported(config: EngineConfig, mesh) -> None:
     missing = [
         (mesh is not None, "a device mesh (parallel/)"),
-        (bool(aloof_bodies), "aloof bodies (models/aloofbody.py)"),
         (config.defect is not None or config.defect_source is not None,
          "conical defects (ops/curved.py, ops/gravity.py)"),
         (config.btz is not None, "BTZ (ops/btz.py)"),
@@ -120,12 +133,17 @@ class Engine:
     def __init__(self, config: EngineConfig, particles: Optional[Particles] = None,
                  objects: Optional[Objects] = None, device=None, aloof_bodies=(),
                  mesh=None):
-        _refuse_unported(config, aloof_bodies, mesh)
+        _refuse_unported(config, mesh)
         self.device = device_mod.resolve(device)
         self.log = logmod.initialize()
         self.config = config
         if particles is None:
             particles, objects = build_scene(config.scene, self.device)
+        self.aloof_bodies = tuple(aloof_bodies)
+        self.present = None  # render-present mask when aloof slots exist
+        self._aloof = None  # their injection (aloofbody.Injection)
+        if self.aloof_bodies:
+            particles = self._reserve_aloof_slots(particles)
         particles = fused.owned(particles.to(self.device))  # updated in place
         self.objects = objects.to(self.device)
         # None for an irregular bond graph: the row-gather physics
@@ -167,8 +185,13 @@ class Engine:
         self.graph_stats = fused.new_stats()
         # the FULL history primed with inertially extrapolated past states,
         # so retarded visibility does not ramp in over `history` frames
+        present = particles.active
+        if self._aloof is not None:
+            self._aloof(particles, torch.zeros((), device=self.device), self.time)
+            self._aloof.check_speed(particles)
+            present = self.present
         buf = wl.create(config.history, particles.capacity, device=self.device)
-        buf = wl.prefill_inertial(buf, particles.pos, particles.vel, particles.active,
+        buf = wl.prefill_inertial(buf, particles.pos, particles.vel, present,
                                   self.time, config.physics.h)
         self._state = fused.FrameState(
             particles, buf, torch.zeros(6, dtype=torch.float32, device=self.device),
@@ -221,6 +244,59 @@ class Engine:
                 value = fused.owned(value)
             self._state = self._state._replace(**{field: value})
             self._fused_cache.clear()
+
+    # -- aloof bodies ---------------------------------------------------------
+
+    def _reserve_aloof_slots(self, particles: Particles) -> Particles:
+        """The softbody particles repacked with one physics-inactive slot per
+        aloof point after them (capacity grown to a multiple of 256 if
+        needed), each body's slots carrying its object index; sets
+        `present` (softbody and aloof slots) and the injection.  The active
+        particles move to the front, and their bonds are renumbered with
+        them (the JAX Engine keeps the old numbers, which point at other
+        particles wherever a lattice-padded scene had padding between
+        them)."""
+        bodies = self.aloof_bodies
+        act = particles.active.cpu().numpy()
+        n_soft = int(act.sum())
+        total = sum(b.num_points for b in bodies)
+        cap = particles.capacity
+        if n_soft + total > cap:
+            cap = ((n_soft + total + 255) // 256) * 256
+        host = lambda x: x.cpu().numpy()[act]
+        renumber = np.full(act.shape[0], -1, np.int32)
+        renumber[act] = np.arange(n_soft, dtype=np.int32)
+        nbr = host(particles.neighbors)
+        nbr = np.where(nbr >= 0, renumber[np.clip(nbr, 0, None)], -1).astype(np.int32)
+        a_obj = np.concatenate([np.full(b.num_points, b.object_index, np.int32)
+                                for b in bodies])
+        new = pack_particles(
+            np.concatenate([host(particles.pos), np.full((total, 2), 1e9, np.float32)]),
+            np.concatenate([host(particles.vel), np.zeros((total, 2), np.float32)]),
+            np.concatenate([nbr, np.full((total, 8), -1, np.int32)]),
+            np.concatenate([host(particles.object_index), a_obj]),
+            capacity=cap, device=self.device)
+        if particles.rest_len is not None:
+            # the evolved creep state goes along (aloof and padding rows are
+            # bondless, their values unread)
+            rl = np.zeros((cap, 8), np.float32)
+            rl[:n_soft] = host(particles.rest_len)
+            new = dataclasses.replace(new, rest_len=torch.from_numpy(rl).to(self.device))
+        active = np.zeros(cap, bool)
+        active[:n_soft] = True
+        present = active.copy()
+        present[n_soft:n_soft + total] = True
+        self.present = torch.from_numpy(present).to(self.device)
+        self._aloof = aloofbody.Injection(bodies, n_soft, n_soft + total)
+        if not self._aloof.capturable:
+            self.log.warning("an aloof body's trajectory cannot be captured (it reads its "
+                             "time on the host): every frame runs eagerly")
+        return dataclasses.replace(new, active=torch.from_numpy(active).to(self.device))
+
+    @property
+    def _aloof_slice(self):
+        """(lo, hi): the aloof slots, or None."""
+        return None if self._aloof is None else (self._aloof.lo, self._aloof.hi)
 
     # -- camera -------------------------------------------------------------
 
@@ -283,7 +359,8 @@ class Engine:
         cfg = self.config
         return fused.frame_stages(self.model, self.materials, self._state, self.objects,
                                   cfg.width, cfg.height, rparams, cfg.render_mode,
-                                  cfg.physics.h, tick_time)
+                                  cfg.physics.h, tick_time, aloof=self._aloof,
+                                  present=self.present)
 
     def _tick(self) -> float:
         """An eager tick's host clock: `time` advanced by h (the JAX eager
@@ -338,12 +415,31 @@ class Engine:
         return out
 
     def render(self) -> torch.Tensor:
-        """The current frame, (H, W, 3) f32, rendered eagerly; sets
-        `last_diag`."""
+        """The current frame, (H, W, 3) f32 ((max(16, H // 8), num_rays, 3)
+        in retina mode), rendered eagerly; sets `last_diag`."""
         stages = self._stages(self._render_params())
         img, counters = stages["render"]()
         self.last_diag = fused.unpack(counters, stages["render"])[1]
         return img.permute(1, 2, 0)
+
+    def render_views(self, cams) -> torch.Tensor:
+        """The current ring seen by several cameras: (B, H, W, 3).  `cams` is
+        a sequence of Cameras or a batched Camera (camera.stack_cameras).
+        Retarded and instant modes only, as in the JAX package; each view
+        launches the band (retarded) and pixel kernels on the card."""
+        cfg = self.config
+        mode = cfg.render_mode
+        if mode not in ("retarded", "instant"):
+            raise ValueError(f"render_views supports retarded/instant modes, not {mode!r}")
+        rparams = self._render_params()
+        if mode == "instant":
+            rparams = dataclasses.replace(rparams, opaque=False, retarded=False)
+        if isinstance(cams, (list, tuple)):
+            cams = stack_cameras([c.to(self.device) for c in cams])
+        p = self.particles
+        return raytrace.render_views(self.worldline, p.object_index, self.objects, cams,
+                                     cfg.width, cfg.height, rparams,
+                                     boundary=wl.boundary_mask(p))
 
     # -- fused frame --------------------------------------------------------
 
@@ -358,7 +454,7 @@ class Engine:
         id cannot alias a stale frame."""
         cfg = self.config
         key = (rparams, cfg.render_mode, cfg.steps_per_frame, self.model, id(self.materials),
-               cfg.width, cfg.height, cfg.physics)
+               id(self._aloof), cfg.width, cfg.height, cfg.physics)
         cache = self._fused_cache
         if key in cache:
             return cache[key][0]
@@ -370,12 +466,13 @@ class Engine:
                                  stream=self._graph_stream, stats=self.graph_stats)
         if len(cache) >= self._FUSED_CACHE_MAX:
             cache.pop(next(iter(cache)))  # FIFO evict
-        cache[key] = (frame, self.materials)
+        cache[key] = (frame, self.materials, self._aloof)
         return frame
 
     def _can_fuse(self) -> bool:
         return (not self.paused and not self.config.stage_timing
-                and self.config.render_mode in MODES)
+                and self.config.render_mode in FUSED_MODES
+                and (self._aloof is None or self._aloof.capturable))
 
     def run_frame(self, keys: Optional[Dict] = None) -> torch.Tensor:
         """One full frame: camera -> physics -> worldline -> render -> stats
@@ -408,6 +505,7 @@ class Engine:
             img, counters = fused.run_stages(
                 stages, fused.schedule(cfg.steps_per_frame, ticks=not self.paused), clock)
             render = stages["render"]
+            self.graph_stats["eager"] += 1
         self.last_aux, self.last_diag = fused.unpack(counters, render)
         self._drops += fused.drop_counts(counters, render)
         if self.device.type == "cuda":
@@ -518,21 +616,27 @@ class Engine:
                               "valid splat entries beyond entry_budget",
                               "whole view cells may be missing")
         if d.get("segment_dropped", 0) > 0:
+            # _render_params caps segments at the (boosted) band
+            band = min(render.band + self._band_boost, 12) if self._band_boost else render.band
             self._grow_budget("_seg_boost", render.segments, d["segment_dropped"],
                               "valid crossings beyond the segments slots",
-                              "fast approachers lose trailing-edge capsules")
+                              "fast approachers lose trailing-edge capsules", ceiling=band)
 
     def _grow_budget(self, boost_attr: str, base: int, count: int,
-                     what: str, consequence: str) -> None:
+                     what: str, consequence: str, ceiling: Optional[int] = None) -> None:
         """Shared budget-doubling adaptation: up to 4 doublings, then warn at
-        the ceiling.  _render_params applies `base << boost`."""
+        the ceiling.  _render_params applies `base << boost`, capped at
+        `ceiling` where one is given (segments at the band), and the log
+        names the value it applies."""
         if base <= 0:
             return
         boost = getattr(self, boost_attr)
         if boost < 4:
             setattr(self, boost_attr, boost + 1)
-            self.log.warning("%d %s: raising the budget to %d", count, what,
-                             base << (boost + 1))
+            value = base << (boost + 1)
+            if ceiling is not None:
+                value = min(value, ceiling)
+            self.log.warning("%d %s: raising the budget to %d", count, what, value)
         else:
             self.log.warning("%d %s at the adaptation ceiling: %s", count, what, consequence)
 

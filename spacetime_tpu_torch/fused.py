@@ -23,11 +23,14 @@ The stages (`frame_stages`), in the order a frame runs them:
     writes its StepAux counters into `aux`, later ticks add theirs, as the
     JAX frame sums them over its scan;
   * worldline: the clock advances by h in f32 on the device (JAX's
-    `t_prev + h`) and the tick is pushed into the ring;
+    `t_prev + h`), the aloof bodies (if any) are written into their slots
+    at that clock, and the tick is pushed into the ring (aloof slots
+    present, physics-inactive);
     step and worldline run `steps_per_frame` times;
-  * render: the planar (3, H, W) image and one i64 vector of counters:
-    `aux`, then the render's diagnostics that are not None (`unpack`
-    reads it back).
+  * render: the planar (3, H, W) image (the retina mode's strip is
+    (3, max(16, H // 8), num_rays)) and one i64 vector of counters: `aux`,
+    then the render's diagnostics that are not None (`unpack` reads it
+    back; the retina mode has none).
 
 `FusedFrame` runs that schedule.  On the CPU it calls the stages in turn;
 the tier-1 tests hold that path to the JAX fused frame.  On CUDA its first
@@ -131,14 +134,17 @@ def same_layout(a, b) -> bool:
 
 
 def frame_stages(model, materials, state: FrameState, objects, width: int, height: int,
-                 params, mode: str, h: float, tick_time: Optional[Callable[[], float]] = None):
+                 params, mode: str, h: float, tick_time: Optional[Callable[[], float]] = None,
+                 aloof=None, present=None):
     """{stage name: closure} of one frame: 'step' (first tick), 'step_more'
     (later ticks), 'worldline' and 'render' (see the module docstring).
-    `mode` is 'retarded', 'instant' or 'points'; instant renders with
-    opaque=False, retarded=False, as the JAX Engine does.  With `tick_time`
-    (eager frames only: its value is baked into a capture) each push takes
-    the clock from it instead, f32 of the host time it returns, as the JAX
-    Engine's eager path pushes its host clock."""
+    `mode` is 'retarded', 'instant', 'points' or 'retina'; instant renders
+    with opaque=False, retarded=False, as the JAX Engine does.  With
+    `tick_time` (eager frames only: its value is baked into a capture) each
+    push takes the clock from it instead, f32 of the host time it returns,
+    as the JAX Engine's eager path pushes its host clock.  `aloof`
+    (models/aloofbody.Injection) writes the aloof bodies before each push,
+    which stores the slots of `present` (default: the active ones)."""
     h32 = float(np.float32(h))
     cam = camera_of(state.frame_in)
     clock = state.frame_in[5]
@@ -155,11 +161,15 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
         return run
 
     def push():
+        host = None
         if tick_time is None:
             clock.add_(h32)
         else:
-            clock.fill_(float(np.float32(tick_time())))
-        wl.push_frame(state.buf, state.particles, clock)
+            host = tick_time()
+            clock.fill_(float(np.float32(host)))
+        if aloof is not None:
+            aloof(state.particles, clock, host)
+        wl.push_frame(state.buf, state.particles, clock, present=present)
 
     if mode == "points":
         def render():
@@ -168,6 +178,12 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
             render.fields = ["window_truncated"]
             return img, torch.cat([state.aux, torch.zeros(1, dtype=torch.int64,
                                                           device=state.aux.device)])
+    elif mode == "retina":
+        def render():
+            img = raytrace.render_retina(state.buf, state.particles.object_index, objects, cam,
+                                         params, height=max(16, height // 8), planar=True)
+            render.fields = []
+            return img, state.aux.clone()
     else:
         if mode == "instant":
             params = dataclasses.replace(params, opaque=False, retarded=False)
@@ -197,9 +213,11 @@ def schedule(steps_per_frame: int, ticks: bool = True) -> List[Tuple[str, str]]:
 def unpack(counters: torch.Tensor, render) -> tuple:
     """(StepAux, diag) as views of the counter vector of the render closure
     `render` (of frame_stages; its `fields` names the diagnostics it
-    packed): PointsDiag for the point view, else RenderDiag, whose fields
-    the renderer left None stay None."""
+    packed): PointsDiag for the point view, None for the retina mode, else
+    RenderDiag, whose fields the renderer left None stay None."""
     aux = StepAux(*counters[:3])
+    if not render.fields:
+        return aux, None
     vals = dict(zip(render.fields, counters[3:]))
     if render.fields == ["window_truncated"]:
         return aux, PointsDiag(**vals)
@@ -262,8 +280,10 @@ def run_stages(stages, order, clock=None):
 
 def new_stats() -> dict:
     """Graph counts (FusedFrame.stats): captures, replays, and the host
-    seconds the captures took (their first frames' eager runs apart)."""
-    return {"captures": 0, "replays": 0, "capture_s": 0.0}
+    seconds the captures took (their first frames' eager runs apart); and
+    `eager`, the frames an Engine ran without its graphs (stage timing, a
+    pause, the retina mode, an aloof trajectory that cannot be captured)."""
+    return {"captures": 0, "replays": 0, "capture_s": 0.0, "eager": 0}
 
 
 class FusedFrame:

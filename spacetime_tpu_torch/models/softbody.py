@@ -8,7 +8,8 @@ With spring offsets (lattice-padded scenes) the step reads bonds by the
 shifted rule; without them (`spring_offsets=None`, any bond graph) it takes
 the row-gather physics and the collision kernel's bond-excluding variant.
 The collision kernel runs exactly when the particles are CUDA tensors
-(ops/forces_cuda.py).
+(ops/forces_cuda.py).  `integrator` is "rk4" (four force evaluations a
+step) or "euler" (one; ops/rk4.py).
 """
 
 from __future__ import annotations
@@ -49,12 +50,14 @@ class SoftbodyModel(nn.Module):
         spring_offsets: Optional[tuple],
         params: PhysicsParams = DEFAULT_PARAMS,
         device=None,
+        integrator: str = "rk4",
     ):
         super().__init__()
         device = device_mod.resolve(device)
         self.capacity = capacity
         self.params = params
         self.grid_dim = GRID_DIM
+        self.integrator = integrator
         self.bin_resolution = default_bin_resolution(params)
         self.register_buffer(
             "rest_lengths", torch.from_numpy(params.rest_lengths()).to(device)
@@ -67,10 +70,11 @@ class SoftbodyModel(nn.Module):
 
     def step(self, particles: Particles, materials=None
              ) -> tuple[Particles, rk4_ops.StepAux]:
-        """One physics frame: cell sort + RK4."""
+        """One physics frame: cell sort + the integrator's step."""
         return rk4_ops.physics_step(
             particles, self.params, self.rest_lengths, self.grid_dim,
             self.spring_offsets, self.bin_resolution, materials=materials,
+            integrator=self.integrator,
         )
 
     def step_n(self, particles: Particles, n_steps: int, materials=None

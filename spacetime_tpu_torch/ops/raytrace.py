@@ -31,10 +31,19 @@ pixel pass unwarp each pixel to its ground query point, and step 1 skips
 the view-hull cull, since the view's ground footprint goes beyond the
 output rect.
 
-Steps 1 and 5 have CUDA kernels; the compaction, retina and splat are
-plain torch on every device (in the JAX package they are XLA, not Pallas).
-Not ported yet: `segments` rank compaction and the nearest-corner 2x2
-splat (`splat_cells=4`).
+With `0 < segments < band`, step 1 keeps each particle's first `segments`
+valid crossings in age order (rank compaction) and counts the rest in
+`RenderDiag.segment_dropped`.  `splat_cells=4` splats into the 2x2 cells
+nearest the pair's centre instead of the 3x3 block.
+
+`render_retina` is the observer's own 360-degree view: the band search
+without the view cull, a ray march over every pair that keeps the winner's
+shading fields, and aberration and Doppler shading, as a 1D strip.
+`render_views` renders B cameras from one ring.
+
+Steps 1 and 5 have CUDA kernels; the compaction, retina, splat and the
+retina mode's march are plain torch on every device (in the JAX package
+they are XLA, not Pallas).
 """
 
 from __future__ import annotations
@@ -64,11 +73,14 @@ class RenderParams:
     dt: float = 0.005  # history tick spacing (= PhysicsParams.h when pushed every step)
     rho: float = 0.0026  # particle render radius
     band: int = 6  # cone-crossing ticks kept per particle
-    segments: int = 0  # rank compaction of valid crossings (not ported: 0 only)
+    segments: int = 0  # valid crossings kept per particle when 0 < segments < band
     bin_capacity: int = 64  # candidates kept per view cell, nearest first
     num_rays: int = 2048  # 1D retina resolution (occlusion only)
     ray_chunk: int = 8192  # pairs per chunk of the retina march
     cell_px: int = 16  # view-cell edge in pixels; k * pixel_size must be >= reach
+    # cells a pair splats into: 9 (the 3x3 block) or 4 (the 2x2 nearest its
+    # centre, exact while the reach is at most half a cell)
+    splat_cells: int = 9
     pair_budget: int = 131072  # compact valid pairs to this many rows (0 = never)
     entry_budget: int = 0  # cap on sorted splat entries (0 = all)
     opaque: bool = True  # False = x-ray: no occlusion shading
@@ -95,7 +107,9 @@ class RenderParams:
 def auto_cell_px(params: RenderParams, width: int, height: int, zoom: float) -> int:
     """Smallest view-cell edge (pixels) satisfying the coverage constraint
     cell_px * pixel_size >= reach, so a capsule splatted into its 3x3 cells
-    is visible from every pixel it can cover."""
+    is visible from every pixel it can cover.  Like the JAX function it
+    ignores `splat_cells`; `RenderDiag.cell_too_small` reports a 2x2 splat
+    whose cells are under twice the reach."""
     pixel_size = zoom / max(width, height)
     return max(1, int(-(-params.reach // pixel_size)))
 
@@ -261,14 +275,17 @@ def _view_grid(width, height, cam, k):
 
 
 def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
-                t_now, width: int, height: int, params: RenderParams):
+                t_now, width: int, height: int, params: RenderParams,
+                cull_hull: bool = True):
     """Cone-crossing segments in the (N * band) pair layout, validity
-    re-checked exactly per segment and culled to the view + camera hull
-    (not in the camera frame, whose ground footprint goes beyond the output
-    rect).  Returns (PairData, band_truncated, segment_dropped)."""
+    re-checked exactly per segment and, with `cull_hull`, culled to the view
+    + camera hull (never in the camera frame, whose ground footprint goes
+    beyond the output rect).  With 0 < segments < band each particle keeps
+    its first `segments` valid crossings, oldest first, in an
+    (N * segments) layout.  Returns (PairData, band_truncated,
+    segment_dropped), the last a () i64 device tensor with compaction on,
+    else None."""
     dt, rho, band = params.dt, params.rho, params.band
-    if 0 < params.segments < band:
-        raise NotImplementedError("segments rank compaction is not ported yet")
     n = buf.num_particles
     cxm, cym = cam.pos[0], cam.pos[1]
     # the cone band search: the kernel for CUDA tensors, the dense sweep for CPU ones
@@ -294,7 +311,7 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
         & (torch.minimum(ra, rb) <= s_hi + rho)
         & (torch.abs(qax) < 1.0e8)
     )
-    if not params.camera_frame:
+    if cull_hull and not params.camera_frame:
         # straight rays: a camera -> pixel segment stays in the view + camera hull
         _, _, pixel_size, x0, y0 = _view_grid(width, height, cam, params.cell_px)
         margin = 4.0 * (rho + dt)
@@ -310,6 +327,25 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
             & (torch.minimum(qay, qby) <= vy1)
         )
 
+    seg_dropped = None
+    k = params.segments
+    if 0 < k < band:
+        # rank compaction: slot s takes the column of the particle's (s+1)-th
+        # valid crossing, the number of columns whose inclusive valid count
+        # is still <= s (the count never falls along a row); a particle with
+        # more than k valid crossings loses its youngest
+        csum = torch.cumsum(valid.to(torch.int32), dim=1)
+        vcount = csum[:, -1]
+        seg_dropped = torch.clamp(vcount - k, min=0).sum()
+        col = torch.stack([(csum <= s).sum(dim=1) for s in range(k)], dim=1)
+        col = col.clamp(max=band - 1)
+        valid = vcount[:, None] > torch.arange(k, dtype=torch.int32, device=col.device)
+        # JAX's masked sums leave 0 in the slots with no crossing
+        sel = lambda f: torch.where(valid, torch.gather(f, 1, col), 0.0)
+        qax, qay, qbx, qby = sel(qax), sel(qay), sel(qbx), sel(qby)
+        pta, pvx, pvy = sel(pta), sel(pvx), sel(pvy)
+        band = k
+
     far = 2.0e9
     keep = lambda v: torch.where(valid, v, far).reshape(-1)
     prgb = objects.base_color[obj_index.long()]  # (N, 3)
@@ -324,7 +360,16 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
         dim=1,
     )
     pairs = PairData(pdata=pdata, pair_valid=valid.reshape(-1), n_pairs=valid.sum())
-    return pairs, truncated, None
+    return pairs, truncated, seg_dropped
+
+
+def _band_pairs_nocull(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
+                       t_now, params: RenderParams) -> PairData:
+    """Band pairs without the view cull or rank compaction, (N * band) rows:
+    the retina mode's panorama sees every direction."""
+    params = dataclasses.replace(params, segments=0)
+    return _band_pairs(buf, obj_index, objects, cam, t_now, 0, 0, params,
+                       cull_hull=False)[0]
 
 
 def _instant_pairs(buf: WorldlineBuffer, obj_index, objects: Objects,
@@ -419,12 +464,20 @@ def _splat_keys(pairs: PairData, cam: Camera, width: int, height: int,
         cx = cam.pos[0] + wux
         cy = cam.pos[1] + wuy
         reach = reach * boost.stretch(cam.vel[0], cam.vel[1])
+    ux, uy = (cx - gx0) / lam, (cy - gy0) / lam
+    fx, fy = torch.floor(ux), torch.floor(uy)
     # clamp before the int cast (far sentinels would overflow i32); values
     # past the clamp are out of the grid for every splat offset either way
-    cell_x = torch.floor((cx - gx0) / lam).clamp(-2, wc + 1).to(torch.int32)
-    cell_y = torch.floor((cy - gy0) / lam).clamp(-2, hc + 1).to(torch.int32)
+    cell_x = fx.clamp(-2, wc + 1).to(torch.int32)
+    cell_y = fy.clamp(-2, hc + 1).to(torch.int32)
 
-    offsets = [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]  # 3x3 splat
+    if params.splat_cells == 4:
+        # nearest-corner 2x2: step toward the side of the in-cell fraction
+        sx_ = torch.where(ux - fx < 0.5, -1, 1).to(torch.int32)
+        sy_ = torch.where(uy - fy < 0.5, -1, 1).to(torch.int32)
+        offsets = [(0, 0), (sx_, 0), (0, sy_), (sx_, sy_)]
+    else:
+        offsets = [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]  # 3x3 splat
     inv_lam2 = float(_DQ) / torch.clamp(lam * lam, min=1e-20)
     keys = []
     for dx, dy in offsets:
@@ -445,7 +498,8 @@ def _splat_keys(pairs: PairData, cam: Camera, width: int, height: int,
     key = torch.stack(keys, dim=1).reshape(-1).to(torch.int32)
     val = torch.arange(pcap, dtype=torch.int32, device=dev)[:, None].expand(
         pcap, n_splat).reshape(-1)
-    min_lam = params.reach  # a 3x3 splat needs cells >= the reach
+    # coverage: a 3x3 splat needs cells >= the reach, a 2x2 one twice that
+    min_lam = params.reach * (2.0 if params.splat_cells == 4 else 1.0)
     if params.camera_frame:
         min_lam = min_lam * boost.stretch(cam.vel[0], cam.vel[1])
     cell_too_small = lam < min_lam
@@ -606,9 +660,11 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
             buf, obj_index, objects, cam, t_now, width, height, params)
         rows = pairs_raw.pdata.shape[0]
         if use_rays and boundary is not None and 0 < params.retina_budget < rows:
-            # boundary pairs at the buffer front; the retina reads a prefix
+            # boundary pairs at the buffer front; the retina reads a prefix.
+            # A particle owns `segments` rows with rank compaction, else `band`
             n = boundary.shape[0]
-            rmask = boundary[:, None].expand(n, params.band).reshape(-1)
+            k_rows = params.segments if 0 < params.segments < params.band else params.band
+            rmask = boundary[:, None].expand(n, k_rows).reshape(-1)
             pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
             rb = min(params.retina_budget, pairs.pdata.shape[0])
             n_r = torch.clamp(n_b, max=rb)
@@ -674,6 +730,89 @@ def render_retarded(buf, obj_index, objects, cam, width, height, params,
         buf, obj_index, objects, cam, width, height, params, planar, boundary
     )
     return img
+
+
+def render_views(buf, obj_index, objects, cams: Camera, width, height, params,
+                 planar=False, boundary=None):
+    """B observers of one ring: `cams` is a batched Camera (camera.
+    stack_cameras; each field has a leading B axis).  Each view is
+    render_retarded's image; returns (B, H, W, 3), or (B, 3, H, W) with
+    `planar`."""
+    views = [
+        render_retarded(buf, obj_index, objects,
+                        Camera(pos=cams.pos[b], zoom=cams.zoom[b], vel=cams.vel[b]),
+                        width, height, params, planar, boundary)
+        for b in range(cams.pos.shape[0])
+    ]
+    return torch.stack(views)
+
+
+def _aberrated_directions(theta, cvx, cvy):
+    """Ground-frame look directions (dhx, dhy) of the camera-frame arrival
+    angles `theta` for a camera moving at (cvx, cvy): the photon arrives
+    along -d_cam in the camera frame, is composed with the camera velocity
+    (relativistic velocity addition, c = 1) into its ground-frame
+    propagation, and the camera looks along minus that."""
+    acx = -torch.cos(theta)
+    acy = -torch.sin(theta)
+    v2 = cvx * cvx + cvy * cvy
+    safe_v2 = torch.clamp(v2, min=1e-12)
+    udotv = acx * cvx + acy * cvy
+    parx = udotv / safe_v2 * cvx
+    pary = udotv / safe_v2 * cvy
+    g = _gamma_xy(cvx, cvy)
+    denom = 1.0 + udotv
+    moving = v2 > 1e-12
+    px_ = torch.where(moving, (parx + cvx + (acx - parx) / g) / denom, acx)
+    py_ = torch.where(moving, (pary + cvy + (acy - pary) / g) / denom, acy)
+    inv = 1.0 / torch.clamp(torch.sqrt(px_ * px_ + py_ * py_), min=1e-12)
+    return -px_ * inv, -py_ * inv
+
+
+def render_retina(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
+                  params: RenderParams, height: int = 64, planar: bool = False):
+    """The observer's own field of view: a 360-degree 1D retina strip of
+    params.num_rays camera-frame arrival angles, with aberration (a moving
+    observer sees the forward view compressed) and Doppler shading; the
+    strip repeated over `height` rows.  Returns (height, num_rays, 3), or
+    (3, height, num_rays) with `planar`.
+
+    The pairs are _band_pairs_nocull's (the band kernel on the card); the
+    march runs over them in chunks of params.ray_chunk and keeps, per ray,
+    the first hit's arclength and the winning pair's velocity and colour
+    (the lowest pair index among equal arclengths, as the JAX scan's
+    first-in-chunk pick and strict improvement across chunks give)."""
+    dt, rho = params.dt, params.rho
+    t_now = newest_time(buf)
+    n_rays = params.num_rays
+    theta = _ray_angles(n_rays, buf.pos_x.device)
+    cvx, cvy = cam.vel[0], cam.vel[1]
+    dhx, dhy = _aberrated_directions(theta, cvx, cvy)
+
+    pairs = _band_pairs_nocull(buf, obj_index, objects, cam, t_now, params)
+    pd = pairs.pdata
+    s_first = torch.full((n_rays,), _BIG, dtype=torch.float32, device=pd.device)
+    win = torch.zeros((n_rays, 5), dtype=torch.float32, device=pd.device)  # vx vy r g b
+    for a in range(0, pd.shape[0], params.ray_chunk):
+        c = pd[a:a + params.ray_chunk]
+        hit, s_hit = _ray_hit_xy(
+            cam.pos[0], cam.pos[1], dhx[:, None], dhy[:, None],
+            c[None, :, _F_AX], c[None, :, _F_AY], c[None, :, _F_BX],
+            c[None, :, _F_BY], c[None, :, _F_TA], t_now, dt, rho,
+        )
+        s_hit = torch.where(hit & pairs.pair_valid[None, a:a + params.ray_chunk], s_hit, _BIG)
+        s_c, idx = s_hit.min(dim=1)  # the first index of the minimum
+        better = s_c < s_first
+        s_first = torch.where(better, s_c, s_first)
+        win = torch.where(better[:, None], c[idx, _F_VX:], win)
+    hit_any = s_first < _BIG
+    nx, ny = -dhx, -dhy  # photon propagation: event -> camera (ground frame)
+    d = doppler_factor_xy(win[:, 0], win[:, 1], nx, ny) * camera_doppler_factor_xy(
+        cvx, cvy, nx, ny)
+    sr, sg, sb = shade_channels(win[:, 2], win[:, 3], win[:, 4], d, params)
+    strip = torch.stack([torch.where(hit_any, v, 1.0) for v in (sr, sg, sb)])  # (3, R)
+    img = strip[:, None, :].expand(3, height, n_rays)
+    return img.contiguous() if planar else img.permute(1, 2, 0).contiguous()
 
 
 def _segment_data(buf: WorldlineBuffer, dt: float):

@@ -28,8 +28,11 @@ are kept:
 The cell sort is built once from the start-of-step positions and shared by
 all four force evaluations; each evaluation passes the collision kernel the
 largest displacement since along each axis, which widens its scan so no
-contact that forms during the step is missed.  The Euler integrator is not
-ported.
+contact that forms during the step is missed.
+
+`integrator="euler"` is the reference's deprecated Euler path: one force
+evaluation at the start positions, the position advanced with the OLD
+velocity, no speed clamp, no bond breaking and no creep (bonds_broken 0).
 """
 
 from __future__ import annotations
@@ -102,13 +105,16 @@ def physics_step(
     spring_offsets,
     bin_resolution: float,
     materials=None,
+    integrator: str = "rk4",
 ) -> tuple[Particles, StepAux]:
-    """Cell sort + RK4 for one frame.  `spring_offsets` is the (8, D) table
+    """Cell sort + RK4 (or Euler, `integrator="euler"`) for one frame.  `spring_offsets` is the (8, D) table
     of forces.spring_offsets_tensor, or None for the row-gather physics;
     `bin_resolution` (>= the collision distance) sets the collision
     binning, whose grid dim rescales so the live extent stays
     grid_dim * grid_resolution.  `materials` is an optional
     ops.materials.ParticleMaterials."""
+    if integrator not in ("rk4", "euler"):
+        raise ValueError(f"unknown integrator: {integrator}")
     h = params.h
     pos0, vel0 = particles.pos, particles.vel
     nbr, m, active = particles.neighbors, particles.rest_mass, particles.active
@@ -158,7 +164,16 @@ def physics_step(
                 sfx, sfy = sfx + dfx, sfy + dfy
         return coll + torch.stack([sfx, sfy], dim=-1)
 
+    zero = torch.zeros((), dtype=torch.int32, device=pos0.device)
     f0 = F(pos0)
+    if integrator == "euler":
+        acc = relativity.r_acc(f0, vel0, m)
+        new = dataclasses.replace(
+            particles,
+            pos=torch.where(act, pos0 + vel0 * h, pos0),
+            vel=torch.where(act, vel0 + acc * h, vel0),
+        )
+        return new, StepAux(grid_overflow=zero, bonds_broken=zero, window_truncated=zero)
     p1, _ = _advance(pos0, vel0, f0, m, h / 2.0)
     f1 = F(p1)
     p2, _ = _advance(pos0, vel0, f1, m, h / 2.0)
@@ -208,6 +223,5 @@ def physics_step(
         neighbors=new_neighbors,
         rest_len=new_rest,
     )
-    zero = torch.zeros((), dtype=torch.int32, device=pos0.device)
     return new, StepAux(grid_overflow=zero, bonds_broken=n_broken,
                         window_truncated=zero)

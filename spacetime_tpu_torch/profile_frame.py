@@ -1,6 +1,10 @@
 """Where the device time of the headline frame goes, on one CUDA card.
 
     python3 -m spacetime_tpu_torch.profile_frame
+    python3 -m spacetime_tpu_torch.profile_frame --scene refdemo
+
+`--scene refdemo` profiles the reference demo's retarded frame
+(headline.build_refdemo) instead, by the same protocol.
 
 Runs the headline frame (headline.py) eagerly WARM_FRAMES times, which
 takes the discs into contact, then WALL_FRAMES frames timed on the host
@@ -21,6 +25,7 @@ its busy share of the unprofiled frame's wall time.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import functools
 import sys
@@ -84,7 +89,11 @@ def report(title: str, res: dict, wall_ms: float) -> None:
           f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="spacetime_tpu_torch.profile_frame", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--scene", default="headline", choices=["headline", "refdemo"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: CUDA is not available; this tool needs an NVIDIA GPU",
               file=sys.stderr)
@@ -96,7 +105,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     kernels.library()
-    model, p, objects, buf, cam, params = headline.build(device)
+    build = headline.build_refdemo if args.scene == "refdemo" else headline.build
+    model, p, objects, buf, cam, params = build(device)
     h = model.params.h
     rf = torch.profiler.record_function
 

@@ -53,7 +53,7 @@ class EngineConfig:
     cam_vel: Tuple[float, float] = (0.0, 0.0)
     cam_accel: Tuple[float, float] = (0.0, 0.0)  # Rindler-style proper acceleration
     max_fps: float = 72.0  # frame pacing target (realtime pacing is not ported yet)
-    render_mode: str = "retarded"  # retarded | instant | points (others not ported)
+    render_mode: str = "retarded"  # retarded | instant | points | retina (others not ported)
     steps_per_frame: int = 1
     # per-stage timing: run the frame eagerly with CUDA-event stage times
     # instead of replaying the fused frame's CUDA graphs

@@ -723,3 +723,127 @@ def test_engine_capture_failure_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run_frame()
     assert eng.graph_stats["captures"] == 0 and eng.graph_stats["replays"] == 0
+
+
+# --------------------------------------------------------------------------
+# segments, the 2x2 splat, retina, views, aloof bodies, Euler
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("camera_frame", [False, True], ids=["ground", "camera_frame"])
+@pytest.mark.parametrize("change", [dict(splat_cells=4), dict(segments=2),
+                                    dict(splat_cells=4, segments=2, band=4)],
+                         ids=["splat4", "segments", "both"])
+def test_pixel_kernel_on_compacted_and_2x2_csr_matches_plain(cuda_device, camera_frame, change):
+    """The pixel kernel on a 2x2-splat CSR (4 entries a pair, fewer and
+    differently spread a cell) and on rank-compacted pair rows, against
+    the plain version: the pixel gate, and two launches bit-equal."""
+    p, objects, buf, cam = _frame(cuda_device)
+    if camera_frame:
+        cam = Camera.create(pos=(0.38, 0.41), zoom=0.15, vel=(0.5, 0.1), device=cuda_device)
+    params = _params(cell_px=16, occlusion_downsample=2, camera_frame=camera_frame, **change)
+    inputs, diag = raytrace.prepare_pixel_pass(buf, p.object_index, objects, cam, 96, 64, params,
+                                               boundary=wl.boundary_mask(p))
+    if "segments" in change:
+        assert diag.segment_dropped is not None
+    ours = render_cuda.pixel_pass(inputs, params, width=96, height=64)
+    plain = render_cuda.pixel_pass_plain(inputs, params, width=96, height=64)
+    assert (plain < 0.99).float().mean() > 0.02
+    assert _mismatch(ours, plain) <= PIXEL_SHARE
+    assert torch.equal(ours, render_cuda.pixel_pass(inputs, params, width=96, height=64))
+
+
+@pytest.mark.cuda
+def test_retina_and_views_on_card_match_cpu(cuda_device):
+    """render_retina (the band kernel, unculled) and render_views (B band
+    and B pixel launches) on the card against the CPU path."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p, objects, buf, cam = _frame(dev)
+        moving = Camera.create(pos=(0.38, 0.41), zoom=0.15, vel=(0.5, 0.0), device=dev)
+        params = _params()
+        kernels.reset_launch_counts()
+        strip = raytrace.render_retina(buf, p.object_index, objects, moving, params, height=8)
+        band = kernels.launches["band"]
+        from spacetime_tpu_torch.camera import stack_cameras
+
+        cams = [cam, Camera.create(pos=(0.40, 0.40), zoom=0.2, device=dev), moving]
+        kernels.reset_launch_counts()
+        views = raytrace.render_views(buf, p.object_index, objects, stack_cameras(cams), 96, 64,
+                                      params, boundary=wl.boundary_mask(p))
+        launches = dict(kernels.launches)
+        singles = [raytrace.render_retarded(buf, p.object_index, objects, c, 96, 64, params,
+                                            boundary=wl.boundary_mask(p)) for c in cams]
+        assert all(torch.equal(views[i], s) for i, s in enumerate(singles))
+        out[str(dev)] = (strip.cpu(), views.cpu(), band, launches)
+    (strip_c, views_c, _, _), (strip_g, views_g, band, launches) = out.values()
+    assert band == 1 and launches["band"] == 3 and launches["pixel_pass"] == 3
+    hit = (strip_c != 1.0).any(-1)
+    assert hit.any() and torch.equal(hit, (strip_g != 1.0).any(-1))
+    torch.testing.assert_close(strip_g, strip_c, rtol=1e-5, atol=1e-5)
+    for a, b in zip(views_g, views_c):
+        assert _mismatch(a.permute(2, 0, 1), b.permute(2, 0, 1)) <= PIXEL_SHARE
+
+
+@pytest.mark.cuda
+def test_euler_on_card_matches_cpu(cuda_device):
+    """Euler steps on the card (one collision launch a step) against the
+    CPU path."""
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p, _, _, _ = _frame(dev, frames=0)
+        model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.cpu().numpy()),
+                              device=dev, integrator="euler")
+        kernels.reset_launch_counts()
+        for _ in range(4):
+            p, aux = model.step(p)
+        out[str(dev)] = (p.pos.cpu(), p.vel.cpu(), kernels.launches["collision"])
+        assert int(aux.bonds_broken) == 0
+    (pc, vc, _), (pg, vg, launches) = out.values()
+    assert launches == 4
+    torch.testing.assert_close(pg, pc, rtol=0, atol=1e-5)
+    torch.testing.assert_close(vg, vc, **COLL)
+
+
+@pytest.mark.cuda
+def test_aloof_frame_graph_matches_eager_on_card(cuda_device):
+    """An aloof scene's frame on the card: as CUDA graph replays (the
+    injection captured in the worldline graph at the device clock) bit-equal
+    to the same stages run eagerly from a copy of the state; the aloof
+    slots at state_at(clock); and an Engine fused against one with eager
+    stage-timed frames (host clock) within an ulp's reach."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.models.aloofbody import AloofBody, circular_trajectory, disc_template
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    cfg = EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 30, (0.42, 0.42), (0.0, 0.0), (0.2, 0.2, 1.0)),),
+                        capacity=256),
+        render=raytrace.RenderParams(num_rays=256), width=48, height=48, history=32,
+        cam_zoom=0.3)
+    make = lambda c=cfg: Engine(c, device=cuda_device, aloof_bodies=[
+        AloofBody(disc_template(2), circular_trajectory((0.55, 0.5), 0.02, 0.3), object_index=5)])
+    eng = make()
+    state, other = eng._state, fused.copy_state(eng._state)
+    params = eng._render_params()
+    stages = lambda st: fused.frame_stages(eng.model, None, st, eng.objects, 48, 48, params,
+                                           "retarded", H, aloof=eng._aloof, present=eng.present)
+    order = fused.schedule(1)
+    graph = fused.FusedFrame(stages(state), order, cuda_device)
+    eager = stages(other)
+    for _ in range(5):
+        a, b = graph(), fused.run_stages(eager, order)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (graph.stats["captures"], graph.stats["replays"]) == (1, 4)
+    assert torch.equal(state.particles.pos, other.particles.pos)
+    assert torch.equal(state.buf.pos_x, other.buf.pos_x)
+    lo, hi = eng._aloof_slice
+    pos, _ = eng.aloof_bodies[0].state_at(state.frame_in[5])
+    assert torch.equal(state.particles.pos[lo:hi], pos)
+    fused_eng, timed = make(), make(dataclasses.replace(cfg, stage_timing=True))
+    for _ in range(5):
+        img_f, img_t = fused_eng.run_frame(), timed.run_frame()
+        assert _mismatch(img_f.permute(2, 0, 1), img_t.permute(2, 0, 1)) <= PIXEL_SHARE
+    assert fused_eng.graph_stats["captures"] == 1 and timed.graph_stats["eager"] == 5
+    torch.testing.assert_close(fused_eng.particles.pos, timed.particles.pos, rtol=0, atol=1e-6)

@@ -162,7 +162,7 @@ def test_conserved_quantities():
 
 @pytest.mark.parametrize("change,what", [
     (dict(render_mode="conical"), "render_mode"),
-    (dict(render_mode="retina"), "render_mode"),
+    (dict(render_mode="worldline3d"), "render_mode"),
     (dict(btz=((0.5, 0.5), 0.03, 0.45)), "BTZ"),
     (dict(defect=((0.5, 0.5), 1.0)), "defects"),
 ])
@@ -192,8 +192,6 @@ def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch):
 def test_mesh_and_aloof_raise():
     with pytest.raises(NotImplementedError, match="mesh"):
         Engine(_tiny(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="aloof"):
-        Engine(_tiny(), device="cpu", aloof_bodies=(object(),))
 
 
 # --------------------------------------------------------------------------

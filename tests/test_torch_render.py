@@ -284,13 +284,11 @@ def test_instant_render_matches_jax(frame, cell_px):
         assert int(getattr(diag, name)) == int(getattr(jdiag, name)), name
 
 
-@pytest.mark.parametrize("change", [dict(camera_frame=True, retarded=False), dict(segments=2)])
+@pytest.mark.parametrize("change", [dict(camera_frame=True, retarded=False)])
 def test_unported_modes_raise(frame, change):
-    """Modes the renderer refuses: `segments` rank compaction is not ported;
-    a camera-frame view of the instantaneous slice does not exist (the JAX
-    package raises ValueError for it too)."""
+    """Modes the renderer refuses: a camera-frame view of the instantaneous
+    slice does not exist (the JAX package raises ValueError for it too)."""
     buf, tp, to, cam = frame["t"]
     params = dataclasses.replace(_port_params(_jparams()), **change)
-    error = ValueError if params.camera_frame else NotImplementedError
-    with pytest.raises(error, match="retarded=True" if params.camera_frame else None):
+    with pytest.raises(ValueError, match="retarded=True"):
         rt.render_retarded(buf, tp.object_index, to, cam, W, HT, params)
