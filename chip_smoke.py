@@ -23,7 +23,7 @@ just after:
     counters), with 4 collision, 1 band and 1 pixel launch a frame counted
     from the replays, one capture and FRAMES - 1 replays, and every drop
     counter, summed over its frames by name, 0;
-  * the Engine through its CLI (`cli.run`, the code of
+  * the Engine through its CLI (`cli.build` + `Engine.run`, the code of
     `python -m spacetime_tpu_torch`), fused (CUDA graphs) unless told
     otherwise: `flagship_1080p` in retarded mode for ENGINE_FRAMES frames
     (the discs meet near frame 120 at a 0.9c closing speed), then
@@ -84,7 +84,22 @@ just after:
     frames (a capture a key, the aloof slots at state_at(the clock));
   * Euler (`SoftbodyModel(integrator="euler")`): EULER_STEPS headline steps
     with one collision launch a step, and a small scene on the GPU against
-    the CPU.
+    the CPU;
+  * the conical mode through the CLI: `conical_defect` (a static defect)
+    and `selfgravity` (two defects sourced by the discs' retarded centres
+    of energy), CONICAL_FRAMES and SELFGRAVITY_FRAMES fused frames with 4
+    collision and 1 band launch a frame (route 1 on the band kernel) and
+    no pixel launch, every drop counter 0 over the frames after the
+    adaptation's last boost for conical_defect (selfgravity's drops are
+    printed: three routes fill its bins past the adaptation's ceiling); the
+    conical stages as graphs bit-equal to eager from the final state, the
+    route-1 band window exact against the plain sweep, and selfgravity's
+    last graph defects bit-equal to an eager recompute; `worldline3d` for
+    WL3D_FRAMES fused frames with 4 collision launches a frame and nothing
+    else, graph bit-equal to eager; after each of the three, the collision
+    kernel against plain at its final state (selfgravity's after the
+    impact, with particles near c) at RK4 stages 0 and 3; tiny conical
+    and worldline3d Engines join the GPU-vs-CPU set above.
 
 Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
 keeps the host's enqueue out of the reading (a device spin covers it);
@@ -135,6 +150,9 @@ POINTS_FRAMES = 100
 BOOSTED_FRAMES = 300
 PLASTIC_FRAMES = 220  # the discs, 0.184 ls apart closing at 0.24c, meet near frame 153
 ROWS_FRAMES = 200  # flagship_1080p unpadded: the discs meet near frame 120
+CONICAL_FRAMES = 200  # conical_defect: the discs pass the defect's side
+SELFGRAVITY_FRAMES = 200  # selfgravity: the discs meet near frame 73
+WL3D_FRAMES = 100  # worldline3d: the discs meet near frame 92
 SMALL_NEW_FRAMES = 8  # tiny new-config Engines, GPU vs CPU, through contact
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
@@ -394,22 +412,37 @@ def _slowest(eng):
     return [(i, round(ms[i], 3)) for i in sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]]
 
 
-def engine_via_cli(argv, frames, expect, gate_drops=False):
-    """The Engine through the CLI's code path; `expect` maps a kernel name to
-    its launches per frame (the names not in it must stay 0).  With
-    `gate_drops` every drop counter summed over the run (the summary's
-    `drops`) must be 0.  A fused run (no --stage-timing) must have replayed
-    a captured graph in every frame but each key's first; an eager one
+def engine_via_cli(argv, frames, expect, drops="report"):
+    """The Engine through the CLI's code path (`cli.build`, then its
+    frames run as `cli.run` runs them); `expect` maps a kernel name to its
+    launches per frame (the names not in it must stay 0).  The frames at
+    which the adaptation boosted and the drop counters summed over each
+    span of frames run at one setting are printed; `drops` says what is
+    held of them: "gate", every drop summed over the run (the summary's
+    `drops`) is 0; "gate_after_boost", every drop summed over the frames
+    after the last boost (all frames when nothing boosts) is 0; "report",
+    nothing.  A fused run (no --stage-timing) must have replayed a
+    captured graph in every frame but each key's first; an eager one
     (--stage-timing, or the retina mode, which runs unfused) must report
     stage times > 0 and capture nothing.  The image is (H, W, 3), or the
     retina strip (max(16, H // 8), num_rays, 3)."""
-    from spacetime_tpu_torch import cli, kernels
+    from spacetime_tpu_torch import cli, fused, kernels
+
+    if drops not in ("gate", "gate_after_boost", "report"):
+        raise ValueError(f"engine_via_cli: unknown drops {drops!r}")
+    history, last = [], {}  # per frame: (the Engine's drop sums so far, its boosts after it)
+
+    def watch(i, img):
+        history.append((eng._drops.clone(), tuple(getattr(eng, f) for f in eng._ADAPT_FIELDS)))
+        last["img"] = img
 
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    eng, img, summary = cli.run(argv)
+    eng, args = cli.build(argv)
+    summary = eng.run(args.frames, on_frame=watch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    img = last["img"]
     counts = dict(kernels.launches)
     lit = _lit(img, eng._render_params())
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS}
@@ -420,8 +453,19 @@ def engine_via_cli(argv, frames, expect, gate_drops=False):
     want = {k: expect.get(k, 0) * frames for k in counts}
     if counts != want:
         raise AssertionError(f"engine launches {counts}, expected {want}")
-    if gate_drops and any(summary["drops"].values()):
+    before = (0,) * len(eng._ADAPT_FIELDS)
+    boosted = [i for i, h in enumerate(history) if h[1] != (history[i - 1][1] if i else before)]
+    # drop sums over the frames run at each setting: frames ends[j-1]+2 .. ends[j]+1
+    ends = [-1] + boosted + [frames - 1]
+    sums = [history[i][0] if i >= 0 else torch.zeros_like(history[-1][0]) for i in ends]
+    spans = [(f"{a + 2}-{b + 1}", history[a][1] if a >= 0 else before,
+              {k: v for k, v in zip(fused.DROP_FIELDS, (hi - lo).tolist()) if v})
+             for a, b, lo, hi in zip(ends, ends[1:], sums, sums[1:])]
+    print(f"  adaptation ({eng._ADAPT_FIELDS}): frames, boosts, nonzero drops summed {spans}")
+    if drops == "gate" and any(summary["drops"].values()):
         raise AssertionError(f"nonzero drop counters over the run: {summary['drops']}")
+    if drops == "gate_after_boost" and (spans[-1][2] or boosted[-1:] == [frames - 1]):
+        raise AssertionError(f"drops after the last boost: {spans[-1][2]}")
     cfg = eng.config
     shape = ((max(16, cfg.height // 8), cfg.render.num_rays, 3) if cfg.render_mode == "retina"
              else (cfg.height, cfg.width, 3))
@@ -686,9 +730,12 @@ def engine_points(device):
 
 def _tiny_configs():
     """(name, config, frames): the tiny Engine config of tests/test_engine.py
-    in each ported mode, and tests/test_torch_engine_configs.py's shrunk
-    plastic_collision, boosted_observer and row-gather scenes."""
+    in each ported mode, tests/test_torch_engine_configs.py's shrunk
+    plastic_collision, boosted_observer and row-gather scenes, the shrunk
+    conical_defect of tests/test_torch_curved.py and a worldline3d view of
+    the plastic scene's tiny discs through their impact."""
     from spacetime_tpu_torch.ops.raytrace import RenderParams
+    from spacetime_tpu_torch.ops.worldline3d import Worldline3DParams
     from spacetime_tpu_torch.utils.config import BLUE, RED, EngineConfig, SceneSpec, get_config
 
     out = []
@@ -712,6 +759,18 @@ def _tiny_configs():
                                          ("disc", 50, (0.40, 0.53), (0.0, 0.0), RED))),
         render=dataclasses.replace(boosted.render, num_rays=256), cam_pos=(0.4513, 0.4437),
         cam_zoom=0.25, history=256, **shrink), SMALL_NEW_FRAMES))
+    conical = get_config("conical_defect")
+    out.append(("conical_defect", dataclasses.replace(
+        conical, scene=SceneSpec(bodies=(("disc", 60, (0.25, 0.50), (0.0, 0.2), BLUE),
+                                         ("disc", 60, (0.75, 0.50), (0.0, -0.2), RED))),
+        render=dataclasses.replace(conical.render, num_rays=256), history=128, **shrink),
+        SMALL_NEW_FRAMES))
+    out.append(("worldline3d", EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 50, (0.40, 0.45), (0.12, 0.0), BLUE),
+                                ("disc", 50, (0.4295, 0.453), (-0.12, 0.0), RED))),
+        render=RenderParams(num_rays=256), cam_pos=(0.4113, 0.4437), cam_zoom=0.2,
+        history=32, render_mode="worldline3d",
+        wl3d=Worldline3DParams(time_scale=2.0, fade=0.5), **shrink), SMALL_NEW_FRAMES))
     out.append(("rows", dataclasses.replace(
         plastic, materials=None,
         scene=SceneSpec(bodies=(("disc", 450, (0.40, 0.45), (0.1, 0.0), BLUE),
@@ -783,6 +842,35 @@ def time_collision(particles, model, exclude=False):
           f"{ms:.4f} ms at stage 3's positions (disp ({dx:.3e}, {dy:.3e})), {still_ms:.4f} ms "
           f"at stage 0's; plain {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
     return err, ms, plain_ms, bnd
+
+
+def check_collision_state(particles, model, when):
+    """Kernel vs plain (the include variant, as the path launches it) at a
+    path's own state: the cell order built from its positions, at those
+    positions (RK4 stage 0) and at stage 3's, pos + vel h, with the
+    per-axis displacement its particles have (the widened scan).  Prints
+    how fast the particles move; returns the max abs error."""
+    from spacetime_tpu_torch.constants import C
+    from spacetime_tpu_torch.ops import forces_cuda
+
+    P = model.params
+    act = particles.active
+    order, stages = collision_inputs(particles, model)
+    cd, rep = P.collision_distance, P.collision_repulsion_coefficient
+    speed = particles.vel[act].norm(dim=1) / C
+    errs, fmax = [], 0.0
+    for k in (0, 3):
+        at, disp = stages[k]
+        f_kernel = forces_cuda.collision_forces(at, act, order, cd, rep, disp)
+        f_plain = forces_cuda.collision_forces_plain(at, act, cd, rep)
+        errs.append(collision_error(f_kernel, f_plain, act))
+        fmax = max(fmax, f_plain[act].abs().max().item())
+    dx, dy = stages[3][1].tolist()
+    print(f"collision at {when}: {int(act.sum())} active, max |v|/c {speed.max().item():.4f} "
+          f"({int((speed > 0.9).sum())} past 0.9c), stage 3 disp ({dx:.3e}, {dy:.3e}); "
+          f"max|f| {fmax:.3f}; max abs err stage 0 {errs[0]:.3e}, stage 3 {errs[1]:.3e} "
+          f"(rtol 1e-4, atol 1e-3)")
+    return max(errs)
 
 
 def engine_rows(device):
@@ -1035,13 +1123,136 @@ def check_views(eng):
         raise AssertionError(f"render_views launches {counts}, expected 3 band and 3 pixel")
 
 
+def graph_vs_eager(eng, frames=REFDEMO_COMPARE_FRAMES):
+    """The Engine's frame stages at its current render params (its mode,
+    defects, view parameters and aloof bodies) for `frames` frames from
+    copies of its state: as CUDA graph replays and run eagerly.  Returns
+    the frames whose image or counters differ and the state tensors that
+    differ after them (empty when bit-equal)."""
+    from spacetime_tpu_torch import fused
+
+    cfg = eng.config
+    a, b = fused.copy_state(eng._state), fused.copy_state(eng._state)
+    params = eng._render_params()
+    defects = eng._defects if cfg.render_mode == "conical" else None
+    stages = lambda st: fused.frame_stages(eng.model, eng.materials, st, eng.objects, cfg.width,
+                                           cfg.height, params, cfg.render_mode, cfg.physics.h,
+                                           aloof=eng._aloof, present=eng.present,
+                                           defects=defects, wl3d=cfg.wl3d)
+    order = fused.schedule(cfg.steps_per_frame)
+    graph, eager = fused.FusedFrame(stages(a), order, eng.device), stages(b)
+    unequal = []
+    for i in range(frames):
+        (ig, cg), (ie, ce) = graph(), fused.run_stages(eager, order)
+        if not torch.equal(ig, ie) or not torch.equal(cg, ce):
+            unequal.append(i)
+    return unequal + _state_diff(a, b)
+
+
+def engine_conical(device):
+    """`conical_defect` through the CLI's code path (two 3,000-particle discs
+    passing a defect of deficit 1.2, 512x512, history 512): CONICAL_FRAMES
+    fused frames with 4 collision and 1 band launch a frame (route 1 on the
+    band kernel; the route-2 sweep, the retinas and the route pass are
+    plain torch) and no pixel launch, every drop 0 once the adaptation has
+    settled; then its stages as graphs bit-equal to eager for
+    REFDEMO_COMPARE_FRAMES frames from the final state, and the route-1
+    band window (the Euclidean route at the Engine's params) against the
+    plain sweep, exactly, and the collision kernel against plain at the
+    final state (check_collision_state).  Returns (band check, collision
+    error, seconds)."""
+    t0 = time.perf_counter()
+    eng, _, summary = engine_via_cli(
+        ["--config", "conical_defect", "--frames", str(CONICAL_FRAMES), "--stats"],
+        CONICAL_FRAMES, {"collision": 4, "band": 1}, drops="gate_after_boost")
+    unequal = graph_vs_eager(eng)
+    band = check_band(eng.worldline, eng.camera, eng._render_params(),
+                      "engine conical_defect, final state, route 1")
+    coll = check_collision_state(eng.particles, eng.model, "conical_defect's final state")
+    seconds = time.perf_counter() - t0
+    print(f"engine conical_defect: frame median {summary['frame_median_ms']:.4f} ms; graph vs "
+          f"eager ({REFDEMO_COMPARE_FRAMES} frames from the final state) differ in "
+          f"{unequal or 'nothing'}; phase {seconds:.2f} s")
+    if unequal:
+        raise AssertionError(f"conical graph frames differ from eager ones in {unequal}")
+    return band, coll, seconds
+
+
+def engine_selfgravity(device):
+    """`selfgravity` through the CLI's code path (two 3,000-particle discs
+    colliding, each sourcing a defect at its retarded centre of energy):
+    SELFGRAVITY_FRAMES fused frames, 4 collision and 1 band launch a frame,
+    the adaptation and the drops printed (three routes' pairs fill the
+    view bins past the adaptation's bin_capacity ceiling of 384, and the
+    impact truncates bands: this config drops work in the JAX package's
+    algorithm too, so its drops are reported, not gated); then the two
+    defects the last graph frame used (the render stage's own tensors,
+    rewritten by each replay) against gravity.source_defects run eagerly
+    on the final state, bit-equal, the stages as graphs bit-equal to
+    eager for REFDEMO_COMPARE_FRAMES frames, and the collision kernel
+    against plain at the final, post-impact state, where many particles
+    move near c (check_collision_state).  Returns (collision error,
+    seconds)."""
+    from spacetime_tpu_torch.ops import gravity
+
+    t0 = time.perf_counter()
+    eng, _, summary = engine_via_cli(
+        ["--config", "selfgravity", "--frames", str(SELFGRAVITY_FRAMES), "--stats"],
+        SELFGRAVITY_FRAMES, {"collision": 4, "band": 1}, drops="report")
+    cfg, params = eng.config, eng._render_params()
+    captures = eng.graph_stats["captures"]
+    used = eng._fused_frame_fn(params).stages["render"].defects
+    again = gravity.source_defects(cfg.defect_source, eng.particles, eng.worldline, eng.camera,
+                                   cfg.physics.h, cfg.defect_G, cfg.defect_retarded,
+                                   max_age=params.max_age)
+    equal = [torch.equal(u.center, a.center) and torch.equal(u.deficit, a.deficit)
+             for u, a in zip(used, again)]
+    unequal = graph_vs_eager(eng)
+    coll = check_collision_state(eng.particles, eng.model,
+                                 "selfgravity's final state (after the impact)")
+    seconds = time.perf_counter() - t0
+    print(f"engine selfgravity: frame median {summary['frame_median_ms']:.4f} ms; defects of "
+          f"the last graph frame {[(u.center.tolist(), float(u.deficit)) for u in used]}, "
+          f"recomputed eagerly bit-equal {equal}; graph vs eager ({REFDEMO_COMPARE_FRAMES} "
+          f"frames from the final state) differ in {unequal or 'nothing'}; phase "
+          f"{seconds:.2f} s")
+    if eng.graph_stats["captures"] != captures or len(used) != 2 or not all(equal):
+        raise AssertionError("the selfgravity graph's defects differ from the eager ones")
+    if unequal:
+        raise AssertionError(f"selfgravity graph frames differ from eager ones in {unequal}")
+    return coll, seconds
+
+
+def engine_worldline3d(device):
+    """`worldline3d` through the CLI's code path (two 2,000-particle discs
+    colliding, the ring drawn as an (x, y, t) block, 384 ticks):
+    WL3D_FRAMES fused frames with 4 collision launches a frame and nothing
+    else (the view is plain torch: one scatter_reduce_ amin), then its
+    stages as graphs bit-equal to eager for REFDEMO_COMPARE_FRAMES frames,
+    and the collision kernel against plain at the final state
+    (check_collision_state).  Returns (collision error, seconds)."""
+    t0 = time.perf_counter()
+    eng, _, summary = engine_via_cli(
+        ["--config", "worldline3d", "--frames", str(WL3D_FRAMES), "--stats"], WL3D_FRAMES,
+        {"collision": 4}, drops="gate")
+    unequal = graph_vs_eager(eng)
+    coll = check_collision_state(eng.particles, eng.model, "worldline3d's final state")
+    seconds = time.perf_counter() - t0
+    print(f"engine worldline3d: frame median {summary['frame_median_ms']:.4f} ms; graph vs "
+          f"eager ({REFDEMO_COMPARE_FRAMES} frames) differ in {unequal or 'nothing'}; phase "
+          f"{seconds:.2f} s")
+    if unequal:
+        raise AssertionError(f"worldline3d graph frames differ from eager ones in {unequal}")
+    return coll, seconds
+
+
 def engine_aloof(device):
     """flagship_1080p with an aloof disc on a circular trajectory through the
     view: its frame's stages as graph replays bit-equal to the same stages
     run eagerly from copies of the Engine's state (REFDEMO_COMPARE_FRAMES
     frames); then ALOOF_FRAMES fused Engine frames: one capture, 4 / 1 / 1
     launches a frame, the aloof slots at state_at(the device clock)."""
-    from spacetime_tpu_torch import fused, kernels
+    from spacetime_tpu_torch import kernels
     from spacetime_tpu_torch.engine import Engine
     from spacetime_tpu_torch.models.aloofbody import AloofBody, circular_trajectory, disc_template
     from spacetime_tpu_torch.utils.config import get_config
@@ -1051,20 +1262,8 @@ def engine_aloof(device):
                      object_index=2)
     eng = Engine(cfg, device=device, aloof_bodies=[body])
     lo, hi = eng._aloof_slice
-    a, b = fused.copy_state(eng._state), fused.copy_state(eng._state)
     params = eng._render_params()
-    stages = lambda st: fused.frame_stages(eng.model, None, st, eng.objects, cfg.width,
-                                           cfg.height, params, "retarded", cfg.physics.h,
-                                           aloof=eng._aloof, present=eng.present)
-    order = fused.schedule(cfg.steps_per_frame)
-    graph, eager = fused.FusedFrame(stages(a), order, device), stages(b)
-    unequal = []
-    for i in range(REFDEMO_COMPARE_FRAMES):
-        (ig, cg), (ie, ce) = graph(), fused.run_stages(eager, order)
-        if not torch.equal(ig, ie) or not torch.equal(cg, ce):
-            unequal.append(i)
-    unequal += _state_diff(a, b)
-    del a, b, graph, eager
+    unequal = graph_vs_eager(eng)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     summary = eng.run(ALOOF_FRAMES)
@@ -1204,7 +1403,7 @@ def main() -> int:
     eng, boosted_counts, _ = engine_via_cli(
         ["--config", "boosted_observer", "--frames", str(BOOSTED_FRAMES), "--stats"],
         BOOSTED_FRAMES, {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1},
-        gate_drops=True)
+        drops="gate")
     boosted_errs = check_engine_kernels(eng)
     cf_err, cf_ms, cf_plain_ms, cf_bnd = boosted_errs["pixel_pass"]
     band_err = max(band_err, boosted_errs["band"][0])
@@ -1235,6 +1434,16 @@ def main() -> int:
                     str(RETINA_FRAMES), "--stats"], RETINA_FRAMES, {"collision": 4, "band": 1})
     engine_aloof(device)
     check_euler(device)
+
+    # the paths of this slice: the conical mode (a static defect and
+    # matter-sourced ones) and the worldline3d view
+    (conical_band, conical_coll, conical_s), (sg_coll, selfgravity_s), (wl3d_coll, wl3d_s) = (
+        engine_conical(device), engine_selfgravity(device), engine_worldline3d(device))
+    band_err = max(band_err, conical_band[0])
+    coll_err = max(coll_err, conical_coll, sg_coll, wl3d_coll)
+    print(f"this slice's phases: conical_defect {conical_s:.2f} s, selfgravity "
+          f"{selfgravity_s:.2f} s, worldline3d {wl3d_s:.2f} s, together "
+          f"{conical_s + selfgravity_s + wl3d_s:.2f} s")
 
     record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",

@@ -4,7 +4,9 @@ It covers the relativistic softbody step (RK4 or Euler; lattice-padded or
 row-gather bonds, materials with plastic creep), aloof bodies on prescribed
 trajectories, the mirrored worldline ring, the flat retarded (with rank
 compaction and the 2x2 splat), boosted (camera-frame), instantaneous,
-point and retina renders and multi-view, and the Engine with its CLI.  Module names mirror the JAX package so each
+point and retina renders and multi-view, the conical mode (static, moving
+and matter-sourced defects), the worldline3d view, and the Engine with its
+CLI.  Module names mirror the JAX package so each
 counterpart is easy to find; the JAX package stays the reference that the
 tests hold this one against.
 

@@ -3,6 +3,8 @@
     python -m spacetime_tpu_torch --config flagship_1080p --frames 200
     python -m spacetime_tpu_torch --config single_blob --frames 30 --mode points --cpu
     python -m spacetime_tpu_torch --config accelerated_camera --frames 60 --mode retina
+    python -m spacetime_tpu_torch --config conical_defect --frames 200 --stats
+    python -m spacetime_tpu_torch --config worldline3d --frames 100 --stats
 
 Counterpart of `spacetime_tpu/cli.py`, with its flag names.  It runs on
 CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
@@ -11,8 +13,9 @@ stats summary as JSON (with the drop counters summed over the run and
 the CUDA graphs' counts), else one line.  Frames run fused (CUDA graphs on
 the card) unless --stage-timing asks for eager frames with per-stage
 times; the retina mode's frames always run eagerly, as in the JAX package.
-Not accepted yet: --out, --every, --serve, --serve-bind, --overlay and
---realtime (they wait for the frame and stream sinks).
+The btz mode is not ported yet.  Not accepted yet: --out, --every,
+--serve, --serve-bind, --overlay and --realtime (they wait for the frame
+and stream sinks).
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def _parser() -> argparse.ArgumentParser:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="single_blob", help="named config (utils/config.py)")
     ap.add_argument("--frames", type=int, default=30)
-    ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points", "retina"])
+    ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points", "retina",
+                                                     "conical", "worldline3d"])
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--stats", action="store_true", help="print the stats summary JSON")
@@ -40,9 +44,9 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(argv=None):
-    """Parse `argv`, build the Engine and run its frames.  Returns
-    (engine, last image, stats summary)."""
+def build(argv=None):
+    """Parse `argv` and build the Engine it names (resumed from --load).
+    Returns (engine, parsed arguments)."""
     args = _parser().parse_args(argv)
     from . import device as device_mod
     from .engine import Engine
@@ -59,6 +63,13 @@ def run(argv=None):
     eng = Engine(cfg, device=device)
     if args.load:
         eng.load_checkpoint(args.load)
+    return eng, args
+
+
+def run(argv=None):
+    """Parse `argv`, build the Engine and run its frames.  Returns
+    (engine, last image, stats summary)."""
+    eng, args = build(argv)
     last = {}
     summary = eng.run(args.frames, on_frame=lambda i, img: last.update(img=img))
     if args.save:

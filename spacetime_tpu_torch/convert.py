@@ -3,10 +3,13 @@
 Each function takes a mapping of dataclass field name -> numpy array (for
 the JAX pytrees: `np.asarray(getattr(x, f))` per field) and a device, and
 returns the port's state, so both packages compute from the same inputs.
+Conical defects and the worldline3d view parameters convert from the JAX
+objects themselves.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
@@ -71,3 +74,23 @@ def materials_from_numpy(fields: Mapping[str, np.ndarray], device="cpu") -> Part
         name: None if fields.get(name) is None else _t(fields[name], device, np.float32)
         for name in ParticleMaterials._fields
     })
+
+
+def defects_from_numpy(defect, device="cpu"):
+    """A ConicalDefect from one of the JAX package's (anything with `center`
+    and `deficit` arrays), or a tuple of them from a tuple."""
+    from .ops.curved import ConicalDefect
+
+    if isinstance(defect, (tuple, list)):
+        return tuple(defects_from_numpy(d, device) for d in defect)
+    return ConicalDefect(center=_t(defect.center, device, np.float32),
+                         deficit=_t(defect.deficit, device, np.float32))
+
+
+def worldline3d_params_from(params):
+    """The port's Worldline3DParams with the field values of `params` (the
+    JAX package's Worldline3DParams or any object with those fields)."""
+    from .ops.worldline3d import Worldline3DParams
+
+    return Worldline3DParams(**{f.name: getattr(params, f.name)
+                                for f in dataclasses.fields(Worldline3DParams)})

@@ -3,10 +3,13 @@
 Counterpart of `spacetime_tpu/engine.py` for one device.  Per frame it
 (1) moves the camera, (2) steps physics and pushes each new tick into the
 worldline ring, (3) renders in the config's mode — `retarded`, `instant`,
-`points` or `retina` (the observer's 360-degree strip, (max(16, H // 8),
-num_rays, 3)) — and (4) records stage times and consumes the diagnostics.
-`render_views` renders several cameras from the current ring (retarded and
-instant modes).
+`points`, `retina` (the observer's 360-degree strip, (max(16, H // 8),
+num_rays, 3)), `conical` (geodesic routes around conical defects,
+ops/curved.py; the defects from `config.defect` and the matter-sourced
+`config.defect_source`, ops/gravity.py) or `worldline3d` (the ring as an
+(x, y, t) block, ops/worldline3d.py) — and (4) records stage times and
+consumes the diagnostics.  `render_views` renders several cameras from the
+current ring (retarded and instant modes).
 
 The normal frame is the fused frame (fused.py), as in the JAX package:
 `_can_fuse` takes it unless the Engine is paused, `config.stage_timing` is
@@ -53,9 +56,10 @@ Materials (`config.materials`, with plastic creep), the camera-frame
 e.g. `SceneSpec(lattice_pad=False)` bodies with irregular rows) and aloof
 bodies (models/aloofbody.py: slots reserved after the softbody particles,
 render-present and physics-inactive, written after each step and before
-each push at the tick's time) run as in the JAX package.  Not ported yet
-(they raise NotImplementedError): a mesh, defects and BTZ, and the conical,
-btz and worldline3d modes.
+each push at the tick's time), conical defects (static, moving, retarded
+and matter-sourced) and the worldline3d view run as in the JAX package.
+Not ported yet (they raise NotImplementedError): a mesh, BTZ and the btz
+mode.
 """
 
 from __future__ import annotations
@@ -75,7 +79,7 @@ from . import scene as scene_mod
 from .camera import Camera, CameraController, stack_cameras
 from .models import aloofbody
 from .models.softbody import SoftbodyModel
-from .ops import forces, materials as materials_ops, raytrace
+from .ops import curved, forces, gravity, materials as materials_ops, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .state import Objects, Particles, pack_particles, with_rest_len
@@ -83,8 +87,9 @@ from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
 from .utils.stats import FramePerfStats, StageClock, StatsWindow
 
-MODES = ("retarded", "instant", "points", "retina")
-FUSED_MODES = ("retarded", "instant", "points")  # retina frames run eagerly, as in JAX
+MODES = ("retarded", "instant", "points", "retina", "conical", "worldline3d")
+# retina frames run eagerly, as in JAX
+FUSED_MODES = ("retarded", "instant", "points", "conical", "worldline3d")
 
 
 def build_scene(spec: SceneSpec, device=None):
@@ -116,8 +121,6 @@ def build_scene(spec: SceneSpec, device=None):
 def _refuse_unported(config: EngineConfig, mesh) -> None:
     missing = [
         (mesh is not None, "a device mesh (parallel/)"),
-        (config.defect is not None or config.defect_source is not None,
-         "conical defects (ops/curved.py, ops/gravity.py)"),
         (config.btz is not None, "BTZ (ops/btz.py)"),
         (config.render_mode not in MODES, f"render_mode {config.render_mode!r}"),
     ]
@@ -357,10 +360,66 @@ class Engine:
     def _stages(self, rparams, tick_time=None):
         """The frame's stage closures (fused.frame_stages) at `rparams`."""
         cfg = self.config
+        defects = None
+        if cfg.render_mode == "conical":
+            if cfg.defect is None and cfg.defect_source is None:
+                raise ValueError("render_mode='conical' requires config.defect or "
+                                 "config.defect_source")
+            defects = self._defects
         return fused.frame_stages(self.model, self.materials, self._state, self.objects,
                                   cfg.width, cfg.height, rparams, cfg.render_mode,
                                   cfg.physics.h, tick_time, aloof=self._aloof,
-                                  present=self.present)
+                                  present=self.present, defects=defects, wl3d=cfg.wl3d)
+
+    def _defects(self, t=None, cam=None, particles=None, buf=None, max_age: int = 0):
+        """The ConicalDefect tuple: config.defect, a single ((cx, cy),
+        deficit) spec or a tuple of them, moved by config.defect_vel to time
+        `t` (default: the host clock `time`; the render stage passes the
+        device clock), then the matter-sourced config.defect_source entries
+        (ops/gravity.py).  With config.defect_retarded each moving defect
+        sits where the camera's past light cone meets its linear track
+        c0 + v t_r: the t_r <= t root of |c(t_r) - cam| = t - t_r; sourced
+        ones sit at their retarded centroid.  With tensors `t` and `cam` no
+        value is read back to the host."""
+        cfg = self.config
+        t = self.time if t is None else t
+        cam = self.camera if cam is None else cam
+        particles = self.particles if particles is None else particles
+        buf = self.worldline if buf is None else buf
+        sourced = ()
+        if cfg.defect_source:
+            sourced = gravity.source_defects(cfg.defect_source, particles, buf, cam,
+                                             cfg.physics.h, cfg.defect_G, cfg.defect_retarded,
+                                             max_age=max_age)
+        if cfg.defect is None:
+            return sourced
+        spec = cfg.defect
+        # one spec ((cx, cy), deficit) has a number at spec[0][0]; a tuple a tuple
+        specs = tuple(spec) if isinstance(spec[0][0], (tuple, list)) else (spec,)
+        vels = cfg.defect_vel or ((0.0, 0.0),) * len(specs)
+        if len(vels) != len(specs):
+            raise ValueError(f"defect_vel has {len(vels)} entries for {len(specs)} defects — "
+                             "provide one (vx, vy) per defect")
+        out = []
+        for ((cx, cy), deficit), (vx, vy) in zip(specs, vels):
+            if vx * vx + vy * vy >= 1.0:
+                # the retarded-time quadratic divides by v^2 - 1 and its root
+                # choice assumes |v| < c
+                raise ValueError(f"defect velocity ({vx}, {vy}) is not below c")
+            if cfg.defect_retarded and (vx != 0.0 or vy != 0.0):
+                qx = cx - cam.pos[0]
+                qy = cy - cam.pos[1]
+                a = vx * vx + vy * vy - 1.0
+                b = 2.0 * (qx * vx + qy * vy + t)
+                c_ = qx * qx + qy * qy - t * t
+                # a < 0: the t_r <= t root is (-b + sqrt(D)) / 2a
+                disc = torch.sqrt(torch.clamp(b * b - 4.0 * a * c_, min=0.0))
+                t_r = (-b + disc) / (2.0 * a)
+                center = (cx + vx * t_r, cy + vy * t_r)
+            else:
+                center = (cx + vx * t, cy + vy * t)
+            out.append(curved.ConicalDefect.create(center, deficit, device=self.device))
+        return tuple(out) + sourced
 
     def _tick(self) -> float:
         """An eager tick's host clock: `time` advanced by h (the JAX eager
@@ -416,7 +475,8 @@ class Engine:
 
     def render(self) -> torch.Tensor:
         """The current frame, (H, W, 3) f32 ((max(16, H // 8), num_rays, 3)
-        in retina mode), rendered eagerly; sets `last_diag`."""
+        in retina mode), rendered eagerly; sets `last_diag`.  The conical
+        mode raises ValueError without config.defect or defect_source."""
         stages = self._stages(self._render_params())
         img, counters = stages["render"]()
         self.last_diag = fused.unpack(counters, stages["render"])[1]
@@ -449,12 +509,15 @@ class Engine:
         """The fused frame for `rparams`: steps, pushes and render, captured
         as CUDA graphs at its first call on a CUDA device.  Kept by a key of
         what its closures bake in (the JAX key's fields that the port has,
-        with the view size and physics); at most _FUSED_CACHE_MAX, evicted
-        first in, first out.  Each entry pins the materials, so a recycled
-        id cannot alias a stale frame."""
+        the defect geometry and the worldline3d view among them, with the
+        view size and physics); at most _FUSED_CACHE_MAX, evicted first in,
+        first out.  Each entry pins the materials, so a recycled id cannot
+        alias a stale frame."""
         cfg = self.config
-        key = (rparams, cfg.render_mode, cfg.steps_per_frame, self.model, id(self.materials),
-               id(self._aloof), cfg.width, cfg.height, cfg.physics)
+        key = (rparams, cfg.render_mode, cfg.steps_per_frame, cfg.wl3d, cfg.defect,
+               cfg.defect_vel, cfg.defect_retarded, cfg.defect_source, cfg.defect_G,
+               self.model, id(self.materials), id(self._aloof), cfg.width, cfg.height,
+               cfg.physics)
         cache = self._fused_cache
         if key in cache:
             return cache[key][0]

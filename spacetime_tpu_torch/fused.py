@@ -30,7 +30,10 @@ The stages (`frame_stages`), in the order a frame runs them:
   * render: the planar (3, H, W) image (the retina mode's strip is
     (3, max(16, H // 8), num_rays)) and one i64 vector of counters: `aux`,
     then the render's diagnostics that are not None (`unpack` reads it
-    back; the retina mode has none).
+    back; the retina mode has none).  The conical mode computes its
+    defects inside the stage from the device clock (the JAX frame's
+    in-graph `t_end`), so a replay places them at its own frame's time;
+    matter-sourced ones read the particles and the ring there.
 
 `FusedFrame` runs that schedule.  On the CPU it calls the stages in turn;
 the tier-1 tests hold that path to the JAX fused frame.  On CUDA its first
@@ -57,7 +60,7 @@ import torch
 
 from . import kernels
 from .camera import Camera
-from .ops import points_cuda, raytrace, rasterize
+from .ops import curved, points_cuda, raytrace, rasterize, worldline3d
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .ops.rk4 import StepAux
@@ -135,16 +138,20 @@ def same_layout(a, b) -> bool:
 
 def frame_stages(model, materials, state: FrameState, objects, width: int, height: int,
                  params, mode: str, h: float, tick_time: Optional[Callable[[], float]] = None,
-                 aloof=None, present=None):
+                 aloof=None, present=None, defects=None, wl3d=None):
     """{stage name: closure} of one frame: 'step' (first tick), 'step_more'
     (later ticks), 'worldline' and 'render' (see the module docstring).
-    `mode` is 'retarded', 'instant', 'points' or 'retina'; instant renders
-    with opaque=False, retarded=False, as the JAX Engine does.  With
-    `tick_time` (eager frames only: its value is baked into a capture) each
-    push takes the clock from it instead, f32 of the host time it returns,
-    as the JAX Engine's eager path pushes its host clock.  `aloof`
-    (models/aloofbody.Injection) writes the aloof bodies before each push,
-    which stores the slots of `present` (default: the active ones)."""
+    `mode` is 'retarded', 'instant', 'points', 'retina', 'conical' or
+    'worldline3d'; instant renders with opaque=False, retarded=False, as the
+    JAX Engine does.  With `tick_time` (eager frames only: its value is
+    baked into a capture) each push takes the clock from it instead, f32 of
+    the host time it returns, as the JAX Engine's eager path pushes its host
+    clock.  `aloof` (models/aloofbody.Injection) writes the aloof bodies
+    before each push, which stores the slots of `present` (default: the
+    active ones).  The conical mode takes `defects(t, cam, particles, buf,
+    max_age)` -> ConicalDefect tuple (Engine._defects), called in the
+    render stage with the device clock; worldline3d takes its view
+    parameters `wl3d` (ops/worldline3d.Worldline3DParams)."""
     h32 = float(np.float32(h))
     cam = camera_of(state.frame_in)
     clock = state.frame_in[5]
@@ -171,13 +178,38 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
             aloof(state.particles, clock, host)
         wl.push_frame(state.buf, state.particles, clock, present=present)
 
+    def with_diag(img, diag):
+        """The image and the counters: aux, then the diag fields not None."""
+        render.fields = [f for f, v in zip(diag._fields, diag) if v is not None]
+        vals = [torch.as_tensor(v).to(torch.int64).reshape(1) for v in diag if v is not None]
+        return img, torch.cat([state.aux] + vals)
+
+    def with_points_diag(img):
+        """The image and the counters of the point views: aux, then
+        PointsDiag's window_truncated, always 0 (no window cap)."""
+        render.fields = ["window_truncated"]
+        return img, torch.cat([state.aux, torch.zeros(1, dtype=torch.int64,
+                                                      device=state.aux.device)])
+
     if mode == "points":
         def render():
-            img = rasterize.render_points(state.particles, objects, cam, width, height,
-                                          planar=True)
-            render.fields = ["window_truncated"]
-            return img, torch.cat([state.aux, torch.zeros(1, dtype=torch.int64,
-                                                          device=state.aux.device)])
+            return with_points_diag(rasterize.render_points(
+                state.particles, objects, cam, width, height, planar=True))
+    elif mode == "worldline3d":
+        def render():
+            return with_points_diag(worldline3d.render_worldline3d(
+                state.buf, state.particles.object_index, objects, cam, width, height, wl3d,
+                active=state.particles.active, boundary=wl.boundary_mask(state.particles),
+                planar=True))
+    elif mode == "conical":
+        def render():
+            ds = defects(clock, cam, state.particles, state.buf, params.max_age)
+            # the defects this stage used last: after a capture, the graph's
+            # own tensors, which each replay rewrites
+            render.defects = ds
+            return with_diag(*curved.render_retarded_conical_with_diag(
+                state.buf, state.particles.object_index, objects, cam, ds, width, height,
+                params, planar=True))
     elif mode == "retina":
         def render():
             img = raytrace.render_retina(state.buf, state.particles.object_index, objects, cam,
@@ -189,13 +221,9 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
             params = dataclasses.replace(params, opaque=False, retarded=False)
 
         def render():
-            img, diag = raytrace.render_retarded_with_diag(
+            return with_diag(*raytrace.render_retarded_with_diag(
                 state.buf, state.particles.object_index, objects, cam, width, height, params,
-                planar=True, boundary=wl.boundary_mask(state.particles))
-            render.fields = [f for f, v in zip(diag._fields, diag) if v is not None]
-            present = [torch.as_tensor(v).to(torch.int64).reshape(1)
-                       for v in diag if v is not None]
-            return img, torch.cat([state.aux] + present)
+                planar=True, boundary=wl.boundary_mask(state.particles)))
     return {"step": step(True), "step_more": step(False), "worldline": push,
             "render": render}
 
@@ -213,8 +241,9 @@ def schedule(steps_per_frame: int, ticks: bool = True) -> List[Tuple[str, str]]:
 def unpack(counters: torch.Tensor, render) -> tuple:
     """(StepAux, diag) as views of the counter vector of the render closure
     `render` (of frame_stages; its `fields` names the diagnostics it
-    packed): PointsDiag for the point view, None for the retina mode, else
-    RenderDiag, whose fields the renderer left None stay None."""
+    packed): PointsDiag for the point and worldline3d views, None for the
+    retina mode, else RenderDiag, whose fields the renderer left None stay
+    None."""
     aux = StepAux(*counters[:3])
     if not render.fields:
         return aux, None

@@ -14,7 +14,10 @@ between the two TPU paths, is not ported: CUDA tensors always take the
 kernel.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
-it launches the kernel or raises.
+it launches the kernel or raises.  The kernel, like the reference's Pallas
+kernel, knows only the Euclidean route: a caller with another cone metric
+(`route_lengths`, the curved renderers' geodesic routes) calls the plain
+sweep itself.
 """
 
 from __future__ import annotations
@@ -61,18 +64,20 @@ def _sweep_bounds(buf, params):
     return base_col, a_sw, col0, hi0
 
 
-def cone_band_window_plain(buf, params, cam) -> BandWindow:
+def cone_band_window_plain(buf, params, cam, route_lengths=None) -> BandWindow:
     """Each particle's cone-crossing tick band and its window, by one dense
     sweep over the swept ages.
 
     Because |v| < c while the cone radius grows at c per tick,
-    f(age) = |pos(age) - cam| - age * dt is monotone, so each worldline
+    f(age) = route(pos(age)) - age * dt is monotone, so each worldline
     crosses the cone in one contiguous band.  One dense sweep over ages
     [0, A) finds the youngest entering age a0 and the oldest crossing age;
     the window holds ages [a0 + band - 1 .. a0 - 1] as ascending mirrored
     rows, read by one gather.  Window rows outside the swept ages hold the
     ring's values there; they only feed pairs that fail the age-range
-    validity."""
+    validity.  `route_lengths(qx, qy)` is the cone metric, the Euclidean
+    distance to the camera by default (curved modes pass their geodesic
+    route lengths)."""
     from .raytrace import _euclid_route  # raytrace imports this module
 
     dt, rho, band = params.dt, params.rho, params.band
@@ -81,7 +86,7 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
     dev = buf.pos_x.device
     thresh = rho + dt
     base_col, a_sw, col0, hi0 = _sweep_bounds(buf, params)
-    route = _euclid_route(cam.pos[0], cam.pos[1])
+    route = route_lengths or _euclid_route(cam.pos[0], cam.pos[1])
 
     # the swept rows col0 .. col0 + a_sw - 1, gathered by a device index
     rows = col0 + torch.arange(a_sw, dtype=torch.int32, device=dev)

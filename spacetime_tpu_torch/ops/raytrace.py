@@ -41,9 +41,17 @@ without the view cull, a ray march over every pair that keeps the winner's
 shading fields, and aberration and Doppler shading, as a 1D strip.
 `render_views` renders B cameras from one ring.
 
-Steps 1 and 5 have CUDA kernels; the compaction, retina, splat and the
-retina mode's march are plain torch on every device (in the JAX package
-they are XLA, not Pallas).
+The curved renderers (ops/curved.py) reuse steps 1-4 with their own cone
+metric (`_band_pairs`' `route_lengths`) and replace step 5 by a dense
+per-cell route pass: `_build_view_tables` pads each cell's CSR run to
+bin_capacity rows (the JAX package's `_splat_vslot` table, in the same
+order), and `_cell_pixel_coords`, `_occupancy_cells`, `_field_at` and
+`_assemble_image` test every pixel of a cell against its table, in blocks
+of cells (`ROUTE_PASS_ELEMENTS`).
+
+Steps 1 (on the Euclidean route) and 5 have CUDA kernels; the compaction,
+retina, splat, the route pass and the retina mode's march are plain torch
+on every device (in the JAX package they are XLA, not Pallas).
 """
 
 from __future__ import annotations
@@ -276,23 +284,27 @@ def _view_grid(width, height, cam, k):
 
 def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                 t_now, width: int, height: int, params: RenderParams,
-                cull_hull: bool = True):
+                cull_hull: bool = True, route_lengths=None):
     """Cone-crossing segments in the (N * band) pair layout, validity
     re-checked exactly per segment and, with `cull_hull`, culled to the view
     + camera hull (never in the camera frame, whose ground footprint goes
     beyond the output rect).  With 0 < segments < band each particle keeps
     its first `segments` valid crossings, oldest first, in an
-    (N * segments) layout.  Returns (PairData, band_truncated,
-    segment_dropped), the last a () i64 device tensor with compaction on,
-    else None."""
+    (N * segments) layout.  `route_lengths(qx, qy) -> distance` is the cone
+    metric (curved routes; their callers turn the hull cull off), the
+    Euclidean distance to the camera by default.  Returns (PairData,
+    band_truncated, segment_dropped), the last a () i64 device tensor with
+    compaction on, else None."""
     dt, rho, band = params.dt, params.rho, params.band
     n = buf.num_particles
     cxm, cym = cam.pos[0], cam.pos[1]
-    # the cone band search: the kernel for CUDA tensors, the dense sweep for CPU ones
-    bw = band_cuda.cone_band_window(buf, params, cam)
+    # the cone band search: the kernel for CUDA tensors on the Euclidean
+    # route, the dense sweep for CPU tensors and for any other route
+    bw = (band_cuda.cone_band_window(buf, params, cam) if route_lengths is None
+          else band_cuda.cone_band_window_plain(buf, params, cam, route_lengths))
     hi0, truncated = bw.hi0, bw.truncated
     wx, wy, wvx, wvy, ages = bw.wx, bw.wy, bw.wvx, bw.wvy, bw.ages
-    route = _euclid_route(cxm, cym)
+    route = route_lengths or _euclid_route(cxm, cym)
 
     # segment j: older endpoint = window column j (age a_j), younger = j + 1
     qax, qay = wx[:, :band], wy[:, :band]
@@ -545,6 +557,97 @@ def _splat_csr(pairs: PairData, cam: Camera, width: int, height: int,
     cell_hi = torch.minimum(cell_hi, cell_lo + cap)
     entries = pairs.pdata[sval.long()].contiguous()
     return entries, cell_lo, cell_hi, bin_dropped, entry_dropped, cell_too_small, geom
+
+
+# ---------------------------------------------------------------------------
+# Dense per-cell tables: the curved renderers' route pass
+# ---------------------------------------------------------------------------
+
+# a route pass tests every pixel of a view cell against every candidate of
+# its table, (cells, k * k, bin_capacity) elements; it runs over blocks of
+# cells of at most this many elements (the JAX package's lax.map over
+# `cells_per_block` cells, a RenderParams field the port leaves out)
+ROUTE_PASS_ELEMENTS = 1 << 23
+
+
+class ViewTables(NamedTuple):
+    """Per-frame candidate rows densified onto the image's view-cell grid."""
+
+    vdat: torch.Tensor  # (n_img_cells, cap, 10) f32 pair rows, CSR order
+    vok: torch.Tensor  # (n_img_cells, cap) bool
+    n_img_cells: int
+
+
+def _build_view_tables(pairs: PairData, cam: Camera, width: int, height: int,
+                       params: RenderParams):
+    """Each image cell's CSR run (`_splat_csr`) padded to bin_capacity rows
+    in CSR order, by one row gather: the JAX package's `_splat_vslot`
+    table, whose stable sort on the same keys keeps each cell's first `cap`
+    entries in the same order (the route pass's first-of-ties winner reads
+    that order).  Empty slots hold entry 0's row, masked by `vok`.  Returns
+    (ViewTables, bin_dropped, entry_dropped, cell_too_small, geom)."""
+    cap = params.bin_capacity
+    entries, cell_lo, cell_hi, bin_dropped, entry_dropped, cell_too_small, geom = _splat_csr(
+        pairs, cam, width, height, params)
+    slot = cell_lo[:, None] + torch.arange(cap, dtype=torch.int32, device=cell_lo.device)
+    vok = slot < cell_hi[:, None]
+    vdat = entries[torch.where(vok, slot, 0).long()]
+    return (ViewTables(vdat, vok, cell_lo.shape[0]), bin_dropped, entry_dropped,
+            cell_too_small, geom)
+
+
+def _cell_pixel_coords(width: int, height: int, cam: Camera, params: RenderParams):
+    """Pixel-centre world coordinates grouped by view cell: (px, py), each
+    (n_img_cells, k * k), cell-major in row order, pixels row-major in a
+    cell (those past the image edge included; `_assemble_image` crops
+    them)."""
+    k = params.cell_px
+    wc_img, hc_img, pixel_size, x0, y0 = _view_grid(width, height, cam, k)
+    dev = cam.pos.device
+    ci = torch.arange(hc_img * wc_img, dtype=torch.int32, device=dev)[:, None]
+    pj = torch.arange(k * k, dtype=torch.int32, device=dev)[None, :]
+    gx = (ci % wc_img) * k + pj % k
+    gy = (ci // wc_img) * k + pj // k
+    return (x0 + gx.to(torch.float32) * pixel_size,
+            y0 + gy.to(torch.float32) * pixel_size)
+
+
+def _cell_blocks(n_cells: int, params: RenderParams):
+    """Slices of view cells whose route-pass tests fit ROUTE_PASS_ELEMENTS."""
+    per_cell = params.cell_px * params.cell_px * params.bin_capacity
+    step = max(1, ROUTE_PASS_ELEMENTS // per_cell)
+    return [slice(a, min(a + step, n_cells)) for a in range(0, n_cells, step)]
+
+
+def _occupancy_cells(px, py, t_e, vdat, vok, dt, rho):
+    """Dense per-cell occupancy: pixels (C, k2) at event times t_e (C, k2)
+    against their cells' candidates (C, cap, 10).  Returns (occupied (C,
+    k2) bool, winner (C, k2) i64): the winner is the first candidate in
+    table order among those of least squared distance (the JAX package's
+    first-of-ties mask), candidate 0 where none is inside."""
+    inside, dist2 = _occupancy_xy(
+        px[:, :, None], py[:, :, None], t_e[:, :, None],
+        vdat[:, None, :, _F_AX], vdat[:, None, :, _F_AY],
+        vdat[:, None, :, _F_BX], vdat[:, None, :, _F_BY],
+        vdat[:, None, :, _F_TA], dt, rho,
+    )
+    inside = inside & vok[:, None, :]
+    min_d, winner = torch.where(inside, dist2, _BIG).min(dim=2)  # first index of the min
+    return min_d < _BIG, winner
+
+
+def _field_at(vdat, winner, field: int):
+    """Each pixel's winning candidate's `field`: (C, k2)."""
+    return torch.gather(vdat[:, :, field], 1, winner)
+
+
+def _assemble_image(crgb, width: int, height: int, params: RenderParams, planar: bool,
+                    wc_img: int, hc_img: int):
+    """(n_img_cells, 3, k * k) cell colours -> (3, H, W), or (H, W, 3)."""
+    k = params.cell_px
+    img = crgb.reshape(hc_img, wc_img, 3, k, k).permute(2, 0, 3, 1, 4)
+    img = img.reshape(3, hc_img * k, wc_img * k)[:, :height, :width]
+    return img.contiguous() if planar else img.permute(1, 2, 0).contiguous()
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,18 @@
 
     python3 -m spacetime_tpu_torch.profile_frame
     python3 -m spacetime_tpu_torch.profile_frame --scene refdemo
+    python3 -m spacetime_tpu_torch.profile_frame --scene conical_defect
 
 `--scene refdemo` profiles the reference demo's retarded frame
-(headline.build_refdemo) instead, by the same protocol.
+(headline.build_refdemo) instead, by the same protocol.  `--scene
+conical_defect` or `--scene selfgravity` profiles that named config's
+Engine frame: its eager frames are the Engine's stage-timing frames (stages
+step / worldline / render), its graph frames the Engine's fused frames
+from the state the eager ones left, and the conical render splits into the
+band search of each route (route 1, the Euclidean chord, on the band
+kernel; route 2 of each defect on the plain sweep), the pair compaction,
+the view tables, the route-2 images, the retina march (one per route), the
+route pass and, for matter-sourced defects, the sourced defects.
 
 Runs the headline frame (headline.py) eagerly WARM_FRAMES times, which
 takes the discs into contact, then WALL_FRAMES frames timed on the host
@@ -43,7 +52,11 @@ def named_ranges():
     """Wrap the frame's sub-stages in `record_function` ranges for the
     duration of the block (each is looked up through its module at call
     time, so replacing the module attribute reaches every caller)."""
-    from .ops import forces, forces_cuda, grid, raytrace, render_cuda
+    from .ops import curved, forces, forces_cuda, grid, gravity, raytrace, render_cuda
+
+    def band_label(args, kwargs):
+        return ("band + pairs, route 1" if kwargs.get("route_lengths") is None
+                else "band sweep + pairs, route 2")
 
     targets = (
         (grid, "cell_ids", "cell sort"),
@@ -58,13 +71,21 @@ def named_ranges():
         (raytrace, "_retina", "retina march"),
         (raytrace, "_retina_quads", "retina lookup"),
         (render_cuda, "pixel_pass", "pixel kernel"),
+        (curved, "_band_pairs", band_label),
+        (curved, "_compact_pairs_to_budget", "pair compaction"),
+        (curved, "_build_view_tables", "view tables"),
+        (curved, "_route2_image_pairs", "route-2 images"),
+        (curved, "_retina", "retina march"),
+        (curved, "_route_pass_block", "route pass"),
+        (gravity, "source_defects", "sourced defects"),
     )
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
 
     def ranged(fn, label):
         @functools.wraps(fn)
         def call(*args, **kwargs):
-            with torch.profiler.record_function(label):
+            name = label(args, kwargs) if callable(label) else label
+            with torch.profiler.record_function(name):
                 return fn(*args, **kwargs)
         return call
 
@@ -89,10 +110,60 @@ def report(title: str, res: dict, wall_ms: float) -> None:
           f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
 
 
+def _profile(title: str, run_one, ranges: bool) -> None:
+    """WALL_FRAMES frames of `run_one` on the host clock, then PROFILE_FRAMES
+    traced (inside named_ranges with `ranges`), and the report."""
+    from . import kernels
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WALL_FRAMES):
+        run_one()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / WALL_FRAMES * 1e3
+
+    def traced():
+        with named_ranges() if ranges else contextlib.nullcontext():
+            for _ in range(PROFILE_FRAMES):
+                run_one()
+            torch.cuda.synchronize()
+
+    res = attribute(traced_events(traced, kernels.BUILD_DIR), PROFILE_FRAMES)
+    if not res["by_range"]:
+        raise RuntimeError(f"{title}: the trace holds no device activity")
+    report(title, res, wall_ms)
+
+
+def profile_engine(name: str, device) -> int:
+    """The named config's Engine frame: WARM_FRAMES stage-timing (eager)
+    frames, then the eager and the fused frames profiled in turn, with the
+    adaptation frozen where the warm-up left it (every timed frame runs at
+    one render-params key)."""
+    import dataclasses
+
+    from .engine import Engine
+    from .utils.config import get_config
+
+    cfg = get_config(name)
+    eng = Engine(dataclasses.replace(cfg, stage_timing=True), device=device)
+    for _ in range(WARM_FRAMES):
+        eng.run_frame()
+    boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS if getattr(eng, f)}
+    print(f"{name}: boosts after {WARM_FRAMES} frames {boosts}, frozen from here on")
+    eng.config = dataclasses.replace(cfg, stage_timing=True, diag_every=0)
+    first = WARM_FRAMES + 1
+    _profile(f"{name}: eager frames {first}-{first + WALL_FRAMES - 1}", eng.run_frame, True)
+    eng.config = dataclasses.replace(cfg, diag_every=0)  # fused from here on
+    eng.run_frame()  # the eager frame the capture follows, and the capture
+    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, False)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="spacetime_tpu_torch.profile_frame", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--scene", default="headline", choices=["headline", "refdemo"])
+    ap.add_argument("--scene", default="headline",
+                    choices=["headline", "refdemo", "conical_defect", "selfgravity"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: CUDA is not available; this tool needs an NVIDIA GPU",
@@ -105,6 +176,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     kernels.library()
+    if args.scene in ("conical_defect", "selfgravity"):
+        return profile_engine(args.scene, device)
     build = headline.build_refdemo if args.scene == "refdemo" else headline.build
     model, p, objects, buf, cam, params = build(device)
     h = model.params.h

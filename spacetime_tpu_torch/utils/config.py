@@ -2,12 +2,11 @@
 `spacetime_tpu/utils/config.py`).
 
 `SceneSpec` and `EngineConfig` keep the JAX field names and defaults;
-`render` holds the port's RenderParams.  One JAX field is left out: the
-`wl3d` view parameters, which wait for the worldline3d mode.  Fields whose
-feature is not ported yet (defects, BTZ) are kept so configs read the
-same; the Engine refuses them.
+`render` holds the port's RenderParams and `wl3d` the port's
+Worldline3DParams.  The BTZ field is kept so configs read the same; the
+Engine refuses it until BTZ is ported.
 
-The registry keeps every name of the JAX package.  Seven named configs are
+The registry keeps every name of the JAX package.  Ten named configs are
 built field for field as the JAX functions build them; every other name
 raises NotImplementedError naming what it waits for; an unknown name
 raises KeyError.
@@ -20,6 +19,7 @@ from typing import Optional, Tuple
 
 from ..constants import DEFAULT_PARAMS, PhysicsParams
 from ..ops.raytrace import RenderParams
+from ..ops.worldline3d import Worldline3DParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,18 +53,30 @@ class EngineConfig:
     cam_vel: Tuple[float, float] = (0.0, 0.0)
     cam_accel: Tuple[float, float] = (0.0, 0.0)  # Rindler-style proper acceleration
     max_fps: float = 72.0  # frame pacing target (realtime pacing is not ported yet)
-    render_mode: str = "retarded"  # retarded | instant | points | retina (others not ported)
+    # retarded | instant | points | retina | conical | worldline3d (btz not ported)
+    render_mode: str = "retarded"
     steps_per_frame: int = 1
+    # conical-defect mass(es) for the conical mode: a single
+    # ((cx, cy), deficit_rad) or a tuple of them (single-scattering
+    # superposition, ops/curved.py)
+    defect: Optional[Tuple] = None
+    # quasi-static defect motion: one (vx, vy) per defect
+    defect_vel: Optional[Tuple[Tuple[float, float], ...]] = None
+    # place moving defects (and matter-sourced ones) at their retarded
+    # position on the camera's past light cone instead of at t_now
+    defect_retarded: bool = False
+    # matter-sourced defects (ops/gravity.py): (object_index, deficit)
+    # pairs, each defect at that object's centre of energy; deficit None
+    # derives 8 pi defect_G energy.  Appended after the `defect` entries
+    defect_source: Optional[Tuple] = None
+    defect_G: float = 0.0  # 2+1D gravitational coupling for derived deficits
+    # not ported yet (the Engine raises when set): BTZ
+    btz: Optional[Tuple] = None
+    # view parameters of the worldline3d mode
+    wl3d: Worldline3DParams = Worldline3DParams()
     # per-stage timing: run the frame eagerly with CUDA-event stage times
     # instead of replaying the fused frame's CUDA graphs
     stage_timing: bool = False
-    # not ported yet (the Engine raises when set): conical defects, BTZ
-    defect: Optional[Tuple] = None
-    defect_vel: Optional[Tuple[Tuple[float, float], ...]] = None
-    defect_retarded: bool = False
-    defect_source: Optional[Tuple] = None
-    defect_G: float = 0.0
-    btz: Optional[Tuple] = None
     # read StepAux/RenderDiag every N frames: warn + adapt budgets
     diag_every: int = 30
     # per-material rows (ops/materials.py): (k_scale, damping, break_scale
@@ -213,6 +225,70 @@ def config_rindler_horizon() -> EngineConfig:
     )
 
 
+def config_conical_defect() -> EngineConfig:
+    """Curved 2+1 spacetime: geodesic rays around a conical-defect mass
+    (ops/curved.py), two 3,000-particle discs, 512x512."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(3000, (0.25, 0.50), (0.0, 0.3), BLUE),
+                _blob(3000, (0.75, 0.50), (0.0, -0.3), RED),
+            )
+        ),
+        width=512,
+        height=512,
+        history=512,
+        cam_pos=(0.5, 0.1),  # off the defect: geodesic routes degenerate at r=0
+        render_mode="conical",
+        defect=((0.5, 0.55), 1.2),
+    )
+
+
+def config_worldline3d() -> EngineConfig:
+    """The worldline ring of a two-body collision drawn as an (x, y, t)
+    block seen side-on (ops/worldline3d.py); shell_only draws the boundary
+    tube."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(2000, (0.32, 0.50), (0.2, 0.0), BLUE),
+                _blob(2000, (0.68, 0.50), (-0.2, 0.0), RED),
+            )
+        ),
+        width=512,
+        height=512,
+        history=512,
+        cam_pos=(0.5, 0.5),
+        cam_zoom=1.1,
+        render_mode="worldline3d",
+        wl3d=Worldline3DParams(time_scale=0.45, fade=0.75, max_age=384),
+    )
+
+
+def config_selfgravity() -> EngineConfig:
+    """Matter-sourced gravity (ops/gravity.py): each blob sources its own
+    conical defect at its centre of energy, the deficit derived from the
+    energy via defect_G, placed on the camera's past light cone along the
+    stored centroid track."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(3000, (0.30, 0.50), (0.25, 0.0), BLUE),
+                _blob(3000, (0.70, 0.50), (-0.25, 0.0), RED),
+            )
+        ),
+        width=512,
+        height=512,
+        history=512,
+        cam_pos=(0.5, 0.32),  # off the collision axis: routes stay regular
+        render_mode="conical",
+        # derived deficits: 8 pi G E ~ 1.0 rad per blob at rest
+        defect_source=((0, None), (1, None)),
+        defect_G=1.0 / (8.0 * 3.14159265 * 3000.0),
+        defect_retarded=True,
+    )
+
+
 def _waits_for(name: str, what: str):
     def config() -> EngineConfig:
         raise NotImplementedError(
@@ -223,7 +299,7 @@ def _waits_for(name: str, what: str):
 _BTZ = "the btz render mode (ops/btz.py)"
 CONFIGS = {
     "single_blob": config_single_blob,
-    "worldline3d": _waits_for("worldline3d", "the worldline3d render mode (ops/worldline3d.py)"),
+    "worldline3d": config_worldline3d,
     "btz_hole": _waits_for("btz_hole", _BTZ),
     "btz_reflected": _waits_for("btz_reflected", _BTZ),
     "btz_spinning": _waits_for("btz_spinning", _BTZ),
@@ -235,9 +311,8 @@ CONFIGS = {
     "flagship_1080p": config_flagship_1080p,
     "accelerated_camera": config_accelerated_camera,
     "boosted_observer": config_boosted_observer,
-    "conical_defect": _waits_for("conical_defect", "the conical render mode (ops/curved.py)"),
-    "selfgravity": _waits_for(
-        "selfgravity", "the conical render mode and gravity (ops/curved.py, ops/gravity.py)"),
+    "conical_defect": config_conical_defect,
+    "selfgravity": config_selfgravity,
     "plastic_collision": config_plastic_collision,
     "rindler_horizon": config_rindler_horizon,
 }

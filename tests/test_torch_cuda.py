@@ -847,3 +847,124 @@ def test_aloof_frame_graph_matches_eager_on_card(cuda_device):
         assert _mismatch(img_f.permute(2, 0, 1), img_t.permute(2, 0, 1)) <= PIXEL_SHARE
     assert fused_eng.graph_stats["captures"] == 1 and timed.graph_stats["eager"] == 5
     torch.testing.assert_close(fused_eng.particles.pos, timed.particles.pos, rtol=0, atol=1e-6)
+
+
+def _conical_on_both(cuda_device, centers, opaque):
+    """The conical render with two defects (deficits 4 and 3 at `centers`)
+    on the CPU and on the card from one ring: (CPU image, card image, CPU
+    diag, card diag, card launches, camera); route 1's band window on the
+    card bit-equal to the plain sweep's."""
+    from spacetime_tpu_torch.ops import curved
+
+    out = {}
+    state = _frame("cpu")  # one ring for both devices
+    for dev in ("cpu", cuda_device):
+        p, objects, buf, cam = (x.to(dev) for x in state)
+        defects = tuple(curved.ConicalDefect.create(c, k, device=dev)
+                        for c, k in zip(centers, (4.0, 3.0)))
+        params = _params(opaque=opaque, max_age=0, pair_budget=2048, bin_capacity=384)
+        kernels.reset_launch_counts()
+        img, diag = curved.render_retarded_conical_with_diag(buf, p.object_index, objects, cam,
+                                                             defects, 96, 64, params, planar=True)
+        out[str(dev)] = (img.cpu(), [None if v is None else int(v) for v in diag],
+                         dict(kernels.launches))
+        if dev != "cpu":
+            ours = band_cuda.cone_band_window(buf, params, cam)
+            plain = band_cuda.cone_band_window_plain(buf, params, cam)
+            assert all(torch.equal(a, b) for a, b in zip(ours, plain))
+    (img_c, diag_c, _), (img_g, diag_g, launches) = out.values()
+    return img_c, img_g, diag_c, diag_g, launches, state[3]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+def test_conical_on_card_matches_cpu(cuda_device, opaque):
+    """The conical render with two defects on the card (route 1 on the band
+    kernel, one launch a render; route 2 on the plain sweep; no pixel
+    launch) against the CPU path: the diag counters equal, the pixel gate;
+    route 1's band window bit-equal to the plain sweep's.  The defects sit
+    off the matter, the renderer's stated regime (near a defect the routes
+    degenerate and an ulp picks the image)."""
+    img_c, img_g, diag_c, diag_g, launches, _ = _conical_on_both(
+        cuda_device, ((0.43, 0.37), (0.33, 0.45)), opaque)
+    assert launches["band"] == 1 and launches["pixel_pass"] == 0
+    assert diag_g == diag_c and diag_c[0] > 0 and diag_c[2] == 0
+    assert (img_c < 0.99).any() and _mismatch(img_g, img_c) <= PIXEL_SHARE
+
+
+def _retina_edge_or_seam(cam, centers, params, width, height):
+    """(H, W) mask of the pixels whose image an ulp can flip: a route's
+    retina bearing within 1e-3 of a bin edge (the card's pixel centres and
+    atan2 round otherwise than the CPU's, and the pixel reads the next
+    bin), or the pixel's route-2 bearing within 1e-4 rad of the seam at
+    d_phi = 0 or pi (its rotation sign flips)."""
+    from spacetime_tpu_torch.camera import pixel_centers
+    from spacetime_tpu_torch.ops import curved
+
+    pc = pixel_centers(width, height, cam).double()
+    px, py = pc[..., 0], pc[..., 1]
+    cx, cy = cam.pos.double()
+
+    def on_edge(x, y):
+        u = (torch.atan2(y - cy, x - cx) + np.pi) / (2 * np.pi) * params.num_rays
+        return (u - u.round()).abs() < 1e-3
+
+    mask = on_edge(px, py)
+    for c, k in zip(centers, (4.0, 3.0)):
+        d = curved.ConicalDefect.create(c, k)
+        dc = d.center.double()
+        bearing = torch.atan2(py - dc[1], px - dc[0]) - torch.atan2(cy - dc[1], cx - dc[0])
+        theta = curved._route2_theta(px.float(), py.float(), cam, d).double()
+        rx = dc[0] + torch.cos(theta) * (px - dc[0]) - torch.sin(theta) * (py - dc[1])
+        ry = dc[1] + torch.sin(theta) * (px - dc[0]) + torch.cos(theta) * (py - dc[1])
+        mask |= (torch.sin(bearing).abs() < 1e-4) | on_edge(rx, ry)
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+def test_conical_on_card_among_the_discs_differs_only_at_retina_edges(cuda_device, opaque):
+    """The two-defect render with the defects among the discs' matter, on
+    the card against the CPU: the diag counters equal, and every pixel
+    that differs lies where an ulp picks the result (see
+    _retina_edge_or_seam).  On this scene those are the pixels on the
+    camera's 45-degree diagonals: their bearing falls exactly on retina
+    bin edges 64 and 320 of 512, and on the card the opaque render reads
+    the neighbouring bin for some of them."""
+    centers = ((0.40, 0.43), (0.33, 0.38))
+    img_c, img_g, diag_c, diag_g, launches, cam = _conical_on_both(cuda_device, centers, opaque)
+    assert launches["band"] == 1 and launches["pixel_pass"] == 0
+    assert diag_g == diag_c and diag_c[0] > 0 and diag_c[2] == 0
+    differs = (img_g - img_c).abs().amax(dim=0) > PIXEL_TOL
+    mask = _retina_edge_or_seam(cam, centers, _params(), 96, 64)
+    assert (img_c < 0.99).any() and mask.float().mean() < 0.05
+    assert not (differs & ~mask).any(), (differs & ~mask).nonzero().tolist()
+
+
+@pytest.mark.cuda
+def test_worldline3d_on_card_matches_cpu(cuda_device):
+    """The worldline3d view on the card against the CPU path, and its fused
+    Engine frames as graphs (collision launches only)."""
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.ops import worldline3d
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    out = {}
+    state = _frame("cpu")
+    for dev in ("cpu", cuda_device):
+        p, objects, buf, cam = (x.to(dev) for x in state)
+        view = worldline3d.Worldline3DParams(time_scale=3.0, fade=0.5, age_stride=2)
+        out[str(dev)] = worldline3d.render_worldline3d(
+            buf, p.object_index, objects, cam, 96, 64, view, active=p.active,
+            boundary=wl.boundary_mask(p), planar=True).cpu()
+    img_c, img_g = out.values()
+    assert (img_c < 0.99).any() and _mismatch(img_g, img_c) <= PIXEL_SHARE
+    cfg = EngineConfig(scene=SceneSpec(bodies=(("disc", 50, (0.45, 0.45), (0.1, 0.0),
+                                                (0.2, 0.2, 1.0)),), capacity=256),
+                       width=48, height=48, history=32, render_mode="worldline3d")
+    eng = Engine(cfg, device=cuda_device)
+    kernels.reset_launch_counts()
+    eng.run(5)
+    torch.cuda.synchronize()
+    assert eng.graph_stats["captures"] == 1 and eng.graph_stats["replays"] == 4
+    assert kernels.launches["collision"] == 20 and kernels.launches["band"] == 0

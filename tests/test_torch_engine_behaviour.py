@@ -18,7 +18,8 @@ from spacetime_tpu_torch.utils import config
 from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec, get_config
 
 PORTED = ("single_blob", "two_body_collision", "flagship_1080p", "accelerated_camera",
-          "rindler_horizon", "boosted_observer", "plastic_collision")
+          "rindler_horizon", "boosted_observer", "plastic_collision", "conical_defect",
+          "selfgravity", "worldline3d")
 
 
 def _tiny(**kw):
@@ -161,10 +162,9 @@ def test_conserved_quantities():
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(render_mode="conical"), "render_mode"),
-    (dict(render_mode="worldline3d"), "render_mode"),
+    (dict(render_mode="btz"), "render_mode"),
+    (dict(render_mode="warp"), "render_mode"),
     (dict(btz=((0.5, 0.5), 0.03, 0.45)), "BTZ"),
-    (dict(defect=((0.5, 0.5), 1.0)), "defects"),
 ])
 def test_unported_engine_features_raise(change, what):
     with pytest.raises(NotImplementedError, match=what):
