@@ -99,7 +99,24 @@ just after:
     else, graph bit-equal to eager; after each of the three, the collision
     kernel against plain at its final state (selfgravity's after the
     impact, with particles near c) at RK4 stages 0 and 3; tiny conical
-    and worldline3d Engines join the GPU-vs-CPU set above.
+    and worldline3d Engines join the GPU-vs-CPU set above;
+  * the btz mode through the CLI, all five configs at full size (two
+    3,000-particle discs, 512x512): `btz_hole` for BTZ_HOLE_FRAMES fused
+    frames, `btz_reflected`, `btz_spinning` and `btz_photon_ring` for
+    BTZ_FRAMES and `btz_extremal` (the exact rotating-metric solver) for
+    BTZ_EXTREMAL_FRAMES, their drops printed, not gated: they do not settle
+    under the JAX package's adaptation, which reads one frame in 30.  After
+    the last boost each frame's bin drops are set beside its nearest-k
+    tolerance, and at the final state each route's band truncations with
+    f32 delays beside those with float64 ones.  Each launches 4 collision
+    kernels a frame and no band, pixel or points kernel (every route takes
+    the plain sweep; the retina and the route pass are plain torch); then
+    its stages as graphs bit-equal to eager for REFDEMO_COMPARE_FRAMES
+    frames from the final state, the collision kernel against plain at
+    that state, and a black pixel inside the horizon disc; for
+    btz_extremal the exact solver's fallback share over the final ring's
+    route-0 sweep points is printed.  Shrunk btz_hole and btz_extremal
+    Engines join the GPU-vs-CPU set.
 
 Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
 keeps the host's enqueue out of the reading (a device spin covers it);
@@ -154,6 +171,10 @@ CONICAL_FRAMES = 200  # conical_defect: the discs pass the defect's side
 SELFGRAVITY_FRAMES = 200  # selfgravity: the discs meet near frame 73
 WL3D_FRAMES = 100  # worldline3d: the discs meet near frame 92
 SMALL_NEW_FRAMES = 8  # tiny new-config Engines, GPU vs CPU, through contact
+BTZ_HOLE_FRAMES = 200  # btz_hole: the discs pass the hole
+BTZ_FRAMES = 30  # btz_reflected, btz_spinning, btz_photon_ring
+BTZ_EXTREMAL_FRAMES = 10  # btz_extremal: over half a million launches a frame
+SMALL_EXTREMAL_FRAMES = 3  # the shrunk btz_extremal, GPU vs CPU
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
 BIG_BIN_CAPACITY = 1536  # a staged slice past 48 KB of shared memory
@@ -412,7 +433,7 @@ def _slowest(eng):
     return [(i, round(ms[i], 3)) for i in sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]]
 
 
-def engine_via_cli(argv, frames, expect, drops="report"):
+def engine_via_cli(argv, frames, expect, drops="report", envelope=False):
     """The Engine through the CLI's code path (`cli.build`, then its
     frames run as `cli.run` runs them); `expect` maps a kernel name to its
     launches per frame (the names not in it must stay 0).  The frames at
@@ -421,19 +442,24 @@ def engine_via_cli(argv, frames, expect, drops="report"):
     held of them: "gate", every drop summed over the run (the summary's
     `drops`) is 0; "gate_after_boost", every drop summed over the frames
     after the last boost (all frames when nothing boosts) is 0; "report",
-    nothing.  A fused run (no --stage-timing) must have replayed a
-    captured graph in every frame but each key's first; an eager one
-    (--stage-timing, or the retina mode, which runs unfused) must report
-    stage times > 0 and capture nothing.  The image is (H, W, 3), or the
-    retina strip (max(16, H // 8), num_rays, 3)."""
+    nothing.  With `envelope`, the frames after the last boost are set
+    beside the JAX package's nearest-k tolerance (drop_envelope).  A fused
+    run (no --stage-timing) must have replayed a captured graph in every
+    frame but each key's first; an eager one (--stage-timing, or the retina
+    mode, which runs unfused) must report stage times > 0 and capture
+    nothing.  The image is (H, W, 3), or the retina strip (max(16, H // 8),
+    num_rays, 3)."""
     from spacetime_tpu_torch import cli, fused, kernels
 
     if drops not in ("gate", "gate_after_boost", "report"):
         raise ValueError(f"engine_via_cli: unknown drops {drops!r}")
-    history, last = [], {}  # per frame: (the Engine's drop sums so far, its boosts after it)
+    # per frame: the Engine's drop sums so far, its boosts after it, its pairs
+    history, last = [], {}
 
     def watch(i, img):
-        history.append((eng._drops.clone(), tuple(getattr(eng, f) for f in eng._ADAPT_FIELDS)))
+        pairs = getattr(eng.last_diag, "pairs_used", None)
+        history.append((eng._drops.clone(), tuple(getattr(eng, f) for f in eng._ADAPT_FIELDS),
+                        None if pairs is None else pairs.clone()))
         last["img"] = img
 
     kernels.reset_launch_counts()
@@ -466,6 +492,8 @@ def engine_via_cli(argv, frames, expect, drops="report"):
         raise AssertionError(f"nonzero drop counters over the run: {summary['drops']}")
     if drops == "gate_after_boost" and (spans[-1][2] or boosted[-1:] == [frames - 1]):
         raise AssertionError(f"drops after the last boost: {spans[-1][2]}")
+    if envelope:
+        drop_envelope(history, boosted[-1] + 1 if boosted else 0)
     cfg = eng.config
     shape = ((max(16, cfg.height // 8), cfg.render.num_rays, 3) if cfg.render_mode == "retina"
              else (cfg.height, cfg.width, 3))
@@ -484,6 +512,34 @@ def engine_via_cli(argv, frames, expect, drops="report"):
         # a capture a render-params key: the adaptation moves to a few keys
         raise AssertionError(f"fused engine graphs {g} over {frames} frames")
     return eng, counts, summary
+
+
+def drop_envelope(history, start):
+    """Prints frames `start` .. of engine_via_cli's `history` (per frame:
+    drop sums so far, boosts, pairs) beside the JAX package's nearest-k
+    tolerance, max(1, int(1e-3 * pairs)), the bin drops its adaptation
+    leaves standing when it reads them (one frame in diag_every): the most
+    bins dropped in a frame, and the frames above the tolerance, or that
+    drop anything but bins and bands."""
+    from spacetime_tpu_torch import fused
+
+    if start >= len(history):
+        print(f"  no frame ran after the last boost (frame {len(history)})")
+        return
+    bins, bands = fused.DROP_FIELDS.index("bin_dropped"), fused.DROP_FIELDS.index("band_truncated")
+    worst, over = (0, 1, start + 1), []
+    for i in range(start, len(history)):
+        per = (history[i][0] - history[i - 1][0] if i else history[i][0]).tolist()
+        tol = max(1, int(1e-3 * int(history[i][2])))
+        if per[bins] * worst[1] > worst[0] * tol:
+            worst = (per[bins], tol, i + 1)
+        others = {n: v for j, (n, v) in enumerate(zip(fused.DROP_FIELDS, per))
+                  if v and j not in (bins, bands)}
+        if per[bins] > tol or others:
+            over.append((i + 1, per[bins], tol, others))
+    print(f"  frames {start + 1}-{len(history)} beside the nearest-k tolerance: the most bins "
+          f"dropped in a frame {worst[0]} (frame {worst[2]}, tolerance {worst[1]}); {len(over)} "
+          f"frames over it (frame, bins, tolerance, other drops) {over[:8]}")
 
 
 def check_profile_stages(eng):
@@ -733,7 +789,9 @@ def _tiny_configs():
     in each ported mode, tests/test_torch_engine_configs.py's shrunk
     plastic_collision, boosted_observer and row-gather scenes, the shrunk
     conical_defect of tests/test_torch_curved.py and a worldline3d view of
-    the plastic scene's tiny discs through their impact."""
+    the plastic scene's tiny discs through their impact; tests/test_btz.py's
+    shrunk btz_hole (48x48, history 32) and a shrunk btz_extremal (the
+    same with discs of 60)."""
     from spacetime_tpu_torch.ops.raytrace import RenderParams
     from spacetime_tpu_torch.ops.worldline3d import Worldline3DParams
     from spacetime_tpu_torch.utils.config import BLUE, RED, EngineConfig, SceneSpec, get_config
@@ -778,6 +836,17 @@ def _tiny_configs():
                         lattice_pad=False),
         render=dataclasses.replace(plastic.render, num_rays=256), cam_pos=(0.4613, 0.4437),
         cam_zoom=0.3, history=32, **shrink), SMALL_NEW_FRAMES))
+    for name, frames, bodies in (
+            ("btz_hole", SMALL_NEW_FRAMES, None),
+            ("btz_extremal", SMALL_EXTREMAL_FRAMES,
+             (("disc", 60, (0.25, 0.50), (0.0, 0.3), BLUE),
+              ("disc", 60, (0.75, 0.50), (0.0, -0.3), RED)))):
+        cfg = get_config(name)
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, num_rays=256),
+                                  history=32, **shrink)
+        if bodies is not None:
+            cfg = dataclasses.replace(cfg, scene=SceneSpec(bodies=bodies))
+        out.append((name, cfg, frames))
     return out
 
 
@@ -1135,10 +1204,11 @@ def graph_vs_eager(eng, frames=REFDEMO_COMPARE_FRAMES):
     a, b = fused.copy_state(eng._state), fused.copy_state(eng._state)
     params = eng._render_params()
     defects = eng._defects if cfg.render_mode == "conical" else None
+    hole = eng._btz_hole() if cfg.render_mode == "btz" else None
     stages = lambda st: fused.frame_stages(eng.model, eng.materials, st, eng.objects, cfg.width,
                                            cfg.height, params, cfg.render_mode, cfg.physics.h,
                                            aloof=eng._aloof, present=eng.present,
-                                           defects=defects, wl3d=cfg.wl3d)
+                                           defects=defects, wl3d=cfg.wl3d, hole=hole)
     order = fused.schedule(cfg.steps_per_frame)
     graph, eager = fused.FusedFrame(stages(a), order, eng.device), stages(b)
     unequal = []
@@ -1244,6 +1314,106 @@ def engine_worldline3d(device):
     if unequal:
         raise AssertionError(f"worldline3d graph frames differ from eager ones in {unequal}")
     return coll, seconds
+
+
+def check_horizon(eng, img) -> int:
+    """The pixels of `img` (H, W, 3) whose centres lie inside the Engine's
+    BTZ horizon disc, and how many of them are black; fails if none is."""
+    from spacetime_tpu_torch.camera import pixel_centers
+
+    cfg, hole = eng.config, eng._btz_hole()
+    pc = pixel_centers(cfg.width, cfg.height, eng.camera)
+    d = pc - hole.center
+    inside = (d * d).sum(dim=-1) < hole.r_h ** 2
+    black = inside & (img.amax(dim=-1) == 0.0)
+    n_in, n_black = int(inside.sum()), int(black.sum())
+    if n_black == 0:
+        raise AssertionError(f"{cfg.name}: no black pixel among the {n_in} inside the horizon")
+    return n_in, n_black
+
+
+def fallback_share(eng):
+    """The exact solver's fallback share over route 0's band-sweep points of
+    the Engine's ring: every stored position of an active particle, as the
+    sweep evaluates them.  Returns (share, share outside the horizon,
+    points)."""
+    from spacetime_tpu_torch.ops import btz_exact
+
+    buf, act, cam = eng.worldline, eng.particles.active, eng.camera
+    hole = eng._btz_hole()
+    qx, qy = buf.pos_x[:buf.capacity][:, act], buf.pos_y[:buf.capacity][:, act]
+    fb = btz_exact.exact_route_optics_xy(qx, qy, cam.pos[0], cam.pos[1], hole, 0)[4]
+    d2 = (qx - hole.center[0]) ** 2 + (qy - hole.center[1]) ** 2
+    outside = d2 > hole.r_h ** 2
+    n = fb.numel()
+    return (fb.float().mean().item(), (fb & outside).float().sum().item() / max(n, 1), n)
+
+
+def sweep_truncations(eng):
+    """Each route's band sweep over the Engine's ring (a slow-rotation
+    config), at the Engine's band and at its config's: the particles whose
+    band truncates with the f32 route delays a frame uses, and with the
+    same closed forms evaluated in float64.  Returns {band: [(f32, f64)
+    for each route]}."""
+    import dataclasses
+
+    from spacetime_tpu_torch.ops import band_cuda, btz
+
+    params, cam, hole = eng._render_params(), eng.camera, eng._btz_hole()
+    hole64 = btz.BTZBlackHole(*(getattr(hole, f).double()
+                                for f in ("center", "mass", "ads_l", "spin")))
+    cx, cy = cam.pos.double()
+    out = {}
+    for band in sorted({params.band, eng.config.render.band}):
+        p = dataclasses.replace(params, band=band)
+        counts = []
+        for r in btz.route_ids(p):
+            f32 = lambda qx, qy, r=r: btz.route_delay_xy(qx, qy, cam.pos[0], cam.pos[1], hole, r)
+            f64 = lambda qx, qy, r=r: btz.route_delay_xy(qx.double(), qy.double(), cx, cy, hole64,
+                                                         r)
+            counts.append(tuple(int(band_cuda.cone_band_window_plain(
+                eng.worldline, p, cam, route_lengths=fn).truncated) for fn in (f32, f64)))
+        out[band] = counts
+    return out
+
+
+def engine_btz(name, frames, drops):
+    """A BTZ config through the CLI's code path (two 3,000-particle discs,
+    512x512, every route on the plain sweep): `frames` fused frames with 4
+    collision launches a frame and nothing else, the drops held by `drops`
+    (engine_via_cli); then its stages as graphs bit-equal to eager for
+    REFDEMO_COMPARE_FRAMES frames from the final state, the collision
+    kernel against plain at that state (check_collision_state), a black
+    pixel inside the horizon of an eager render there, and for the exact
+    solver its fallback share, else each route's band truncations at that
+    state with f32 and with float64 delays (sweep_truncations: where they
+    differ, the f32 closed form cancels).  The frames after the last boost
+    are set beside the JAX package's bin-drop tolerance (drop_envelope).
+    Returns (collision launches, collision error, frame median ms,
+    seconds)."""
+    t0 = time.perf_counter()
+    eng, counts, summary = engine_via_cli(["--config", name, "--frames", str(frames), "--stats"],
+                                          frames, {"collision": 4}, drops=drops, envelope=True)
+    unequal = graph_vs_eager(eng)
+    coll = check_collision_state(eng.particles, eng.model, f"{name}'s final state")
+    n_in, n_black = check_horizon(eng, eng.render())
+    extra = ""
+    if eng.config.render.btz_exact_spin:
+        share, share_out, n = fallback_share(eng)
+        extra = (f"; exact-solver fallbacks over route 0's {n} sweep points {share:.6f} "
+                 f"({share_out:.6f} outside the horizon)")
+    else:
+        trunc = sweep_truncations(eng)
+        extra = ("; band truncations of each route's sweep at the final state, (f32, float64): "
+                 + ", ".join(f"band {b} {c}" for b, c in trunc.items()))
+    seconds = time.perf_counter() - t0
+    print(f"engine {name}: frame median {summary['frame_median_ms']:.4f} ms; graph vs eager "
+          f"({REFDEMO_COMPARE_FRAMES} frames from the final state) differ in "
+          f"{unequal or 'nothing'}; horizon {n_black} of {n_in} pixels black{extra}; phase "
+          f"{seconds:.2f} s")
+    if unequal:
+        raise AssertionError(f"{name} graph frames differ from eager ones in {unequal}")
+    return counts["collision"], coll, summary["frame_median_ms"], seconds
 
 
 def engine_aloof(device):
@@ -1445,13 +1615,29 @@ def main() -> int:
           f"{selfgravity_s:.2f} s, worldline3d {wl3d_s:.2f} s, together "
           f"{conical_s + selfgravity_s + wl3d_s:.2f} s")
 
+    # the paths of this slice: the btz mode, its five configs
+    btz_runs = {name: engine_btz(name, frames, drops) for name, frames, drops in (
+        ("btz_hole", BTZ_HOLE_FRAMES, "report"),
+        ("btz_reflected", BTZ_FRAMES, "report"),
+        ("btz_spinning", BTZ_FRAMES, "report"),
+        ("btz_photon_ring", BTZ_FRAMES, "report"),
+        ("btz_extremal", BTZ_EXTREMAL_FRAMES, "report"))}
+    coll_err = max(coll_err, *(r[1] for r in btz_runs.values()))
+    print("this slice's phases: " + ", ".join(
+        f"{name} {r[3]:.2f} s (frame median {r[2]:.4f} ms)" for name, r in btz_runs.items())
+        + f", together {sum(r[3] for r in btz_runs.values()):.2f} s")
+
     record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+    # `launches` counts the headline main path; the btz configs' own runs
+    # beside it
+    collision = record("collision", "collision.cu", "spacetime_tpu/ops/forces_pallas.py:52",
+                       counts["collision"], coll_err, coll_ms, coll_plain_ms, coll_bnd)
+    collision["launches_btz"] = {name: r[0] for name, r in btz_runs.items()}
     print(json.dumps({"kernels": [
-        record("collision", "collision.cu", "spacetime_tpu/ops/forces_pallas.py:52",
-               counts["collision"], coll_err, coll_ms, coll_plain_ms, coll_bnd),
+        collision,
         record("pixel_pass", "pixel_pass.cu", "spacetime_tpu/ops/render_pallas.py:57",
                counts["pixel_pass"], pix_err, pix_ms, pix_plain_ms, pix_bound),
         record("band", "band.cu", "spacetime_tpu/ops/band_pallas.py:52", counts["band"],

@@ -5,6 +5,7 @@
     python -m spacetime_tpu_torch --config accelerated_camera --frames 60 --mode retina
     python -m spacetime_tpu_torch --config conical_defect --frames 200 --stats
     python -m spacetime_tpu_torch --config worldline3d --frames 100 --stats
+    python -m spacetime_tpu_torch --config btz_hole --frames 200 --stats
 
 Counterpart of `spacetime_tpu/cli.py`, with its flag names.  It runs on
 CUDA device 0 and raises when CUDA is absent; only `--cpu` runs on the CPU
@@ -13,7 +14,8 @@ stats summary as JSON (with the drop counters summed over the run and
 the CUDA graphs' counts), else one line.  Frames run fused (CUDA graphs on
 the card) unless --stage-timing asks for eager frames with per-stage
 times; the retina mode's frames always run eagerly, as in the JAX package.
-The btz mode is not ported yet.  Not accepted yet: --out, --every,
+The btz mode needs a config with a hole (`btz_hole`, `btz_reflected`,
+`btz_spinning`, `btz_extremal`, `btz_photon_ring`).  Not accepted yet: --out, --every,
 --serve, --serve-bind, --overlay and --realtime (they wait for the frame
 and stream sinks).
 """
@@ -32,7 +34,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--config", default="single_blob", help="named config (utils/config.py)")
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--mode", default=None, choices=["retarded", "instant", "points", "retina",
-                                                     "conical", "worldline3d"])
+                                                     "conical", "btz", "worldline3d"])
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--stats", action="store_true", help="print the stats summary JSON")

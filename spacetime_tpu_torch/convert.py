@@ -3,8 +3,8 @@
 Each function takes a mapping of dataclass field name -> numpy array (for
 the JAX pytrees: `np.asarray(getattr(x, f))` per field) and a device, and
 returns the port's state, so both packages compute from the same inputs.
-Conical defects and the worldline3d view parameters convert from the JAX
-objects themselves.
+Conical defects, BTZ holes and the worldline3d view parameters convert
+from the JAX objects themselves.
 """
 
 from __future__ import annotations
@@ -85,6 +85,15 @@ def defects_from_numpy(defect, device="cpu"):
         return tuple(defects_from_numpy(d, device) for d in defect)
     return ConicalDefect(center=_t(defect.center, device, np.float32),
                          deficit=_t(defect.deficit, device, np.float32))
+
+
+def btz_hole_from_numpy(hole, device="cpu"):
+    """The port's BTZBlackHole from the JAX package's (anything with
+    `center`, `mass`, `ads_l` and `spin` arrays)."""
+    from .ops.btz import BTZBlackHole
+
+    return BTZBlackHole(**{f: _t(getattr(hole, f), device, np.float32)
+                           for f in ("center", "mass", "ads_l", "spin")})
 
 
 def worldline3d_params_from(params):

@@ -6,8 +6,9 @@ worldline ring, (3) renders in the config's mode — `retarded`, `instant`,
 `points`, `retina` (the observer's 360-degree strip, (max(16, H // 8),
 num_rays, 3)), `conical` (geodesic routes around conical defects,
 ops/curved.py; the defects from `config.defect` and the matter-sourced
-`config.defect_source`, ops/gravity.py) or `worldline3d` (the ring as an
-(x, y, t) block, ops/worldline3d.py) — and (4) records stage times and
+`config.defect_source`, ops/gravity.py), `btz` (null geodesics around the
+BTZ black hole of `config.btz`, ops/btz.py) or `worldline3d` (the ring as
+an (x, y, t) block, ops/worldline3d.py) — and (4) records stage times and
 consumes the diagnostics.  `render_views` renders several cameras from the
 current ring (retarded and instant modes).
 
@@ -57,9 +58,9 @@ e.g. `SceneSpec(lattice_pad=False)` bodies with irregular rows) and aloof
 bodies (models/aloofbody.py: slots reserved after the softbody particles,
 render-present and physics-inactive, written after each step and before
 each push at the tick's time), conical defects (static, moving, retarded
-and matter-sourced) and the worldline3d view run as in the JAX package.
-Not ported yet (they raise NotImplementedError): a mesh, BTZ and the btz
-mode.
+and matter-sourced), the BTZ hole (slow-rotation or exact spin, reflected
+and winding routes) and the worldline3d view run as in the JAX package.
+Not ported yet (it raises NotImplementedError): a mesh.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ from . import scene as scene_mod
 from .camera import Camera, CameraController, stack_cameras
 from .models import aloofbody
 from .models.softbody import SoftbodyModel
-from .ops import curved, forces, gravity, materials as materials_ops, raytrace
+from .ops import btz, curved, forces, gravity, materials as materials_ops, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .state import Objects, Particles, pack_particles, with_rest_len
@@ -87,9 +88,9 @@ from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
 from .utils.stats import FramePerfStats, StageClock, StatsWindow
 
-MODES = ("retarded", "instant", "points", "retina", "conical", "worldline3d")
+MODES = ("retarded", "instant", "points", "retina", "conical", "btz", "worldline3d")
 # retina frames run eagerly, as in JAX
-FUSED_MODES = ("retarded", "instant", "points", "conical", "worldline3d")
+FUSED_MODES = ("retarded", "instant", "points", "conical", "btz", "worldline3d")
 
 
 def build_scene(spec: SceneSpec, device=None):
@@ -121,7 +122,6 @@ def build_scene(spec: SceneSpec, device=None):
 def _refuse_unported(config: EngineConfig, mesh) -> None:
     missing = [
         (mesh is not None, "a device mesh (parallel/)"),
-        (config.btz is not None, "BTZ (ops/btz.py)"),
         (config.render_mode not in MODES, f"render_mode {config.render_mode!r}"),
     ]
     for absent, what in missing:
@@ -360,16 +360,28 @@ class Engine:
     def _stages(self, rparams, tick_time=None):
         """The frame's stage closures (fused.frame_stages) at `rparams`."""
         cfg = self.config
-        defects = None
+        defects = hole = None
         if cfg.render_mode == "conical":
             if cfg.defect is None and cfg.defect_source is None:
                 raise ValueError("render_mode='conical' requires config.defect or "
                                  "config.defect_source")
             defects = self._defects
+        if cfg.render_mode == "btz":
+            if cfg.btz is None:
+                raise ValueError("render_mode='btz' requires config.btz")
+            hole = self._btz_hole()
         return fused.frame_stages(self.model, self.materials, self._state, self.objects,
                                   cfg.width, cfg.height, rparams, cfg.render_mode,
                                   cfg.physics.h, tick_time, aloof=self._aloof,
-                                  present=self.present, defects=defects, wl3d=cfg.wl3d)
+                                  present=self.present, defects=defects, wl3d=cfg.wl3d,
+                                  hole=hole)
+
+    def _btz_hole(self) -> btz.BTZBlackHole:
+        """The BTZBlackHole of config.btz, ((cx, cy), mass, ads_l[, spin]),
+        as device tensors."""
+        (center, mass, ads_l), spin = self.config.btz[:3], self.config.btz[3:]
+        return btz.BTZBlackHole.create(center, mass, ads_l, spin[0] if spin else 0.0,
+                                       device=self.device)
 
     def _defects(self, t=None, cam=None, particles=None, buf=None, max_age: int = 0):
         """The ConicalDefect tuple: config.defect, a single ((cx, cy),
@@ -476,7 +488,8 @@ class Engine:
     def render(self) -> torch.Tensor:
         """The current frame, (H, W, 3) f32 ((max(16, H // 8), num_rays, 3)
         in retina mode), rendered eagerly; sets `last_diag`.  The conical
-        mode raises ValueError without config.defect or defect_source."""
+        mode raises ValueError without config.defect or defect_source, the
+        btz mode without config.btz."""
         stages = self._stages(self._render_params())
         img, counters = stages["render"]()
         self.last_diag = fused.unpack(counters, stages["render"])[1]
@@ -509,12 +522,12 @@ class Engine:
         """The fused frame for `rparams`: steps, pushes and render, captured
         as CUDA graphs at its first call on a CUDA device.  Kept by a key of
         what its closures bake in (the JAX key's fields that the port has,
-        the defect geometry and the worldline3d view among them, with the
-        view size and physics); at most _FUSED_CACHE_MAX, evicted first in,
+        the defect and BTZ geometry and the worldline3d view among them,
+        with the view size and physics); at most _FUSED_CACHE_MAX, evicted first in,
         first out.  Each entry pins the materials, so a recycled id cannot
         alias a stale frame."""
         cfg = self.config
-        key = (rparams, cfg.render_mode, cfg.steps_per_frame, cfg.wl3d, cfg.defect,
+        key = (rparams, cfg.render_mode, cfg.steps_per_frame, cfg.wl3d, cfg.btz, cfg.defect,
                cfg.defect_vel, cfg.defect_retarded, cfg.defect_source, cfg.defect_G,
                self.model, id(self.materials), id(self._aloof), cfg.width, cfg.height,
                cfg.physics)

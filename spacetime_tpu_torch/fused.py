@@ -33,7 +33,10 @@ The stages (`frame_stages`), in the order a frame runs them:
     back; the retina mode has none).  The conical mode computes its
     defects inside the stage from the device clock (the JAX frame's
     in-graph `t_end`), so a replay places them at its own frame's time;
-    matter-sourced ones read the particles and the ring there.
+    matter-sourced ones read the particles and the ring there.  The btz
+    mode renders around a hole whose tensors the Engine made once for the
+    frame (Engine._btz_hole); the Engine keys its fused frames on
+    config.btz, so new geometry makes a new frame.
 
 `FusedFrame` runs that schedule.  On the CPU it calls the stages in turn;
 the tier-1 tests hold that path to the JAX fused frame.  On CUDA its first
@@ -60,7 +63,7 @@ import torch
 
 from . import kernels
 from .camera import Camera
-from .ops import curved, points_cuda, raytrace, rasterize, worldline3d
+from .ops import btz, curved, points_cuda, raytrace, rasterize, worldline3d
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .ops.rk4 import StepAux
@@ -138,11 +141,11 @@ def same_layout(a, b) -> bool:
 
 def frame_stages(model, materials, state: FrameState, objects, width: int, height: int,
                  params, mode: str, h: float, tick_time: Optional[Callable[[], float]] = None,
-                 aloof=None, present=None, defects=None, wl3d=None):
+                 aloof=None, present=None, defects=None, wl3d=None, hole=None):
     """{stage name: closure} of one frame: 'step' (first tick), 'step_more'
     (later ticks), 'worldline' and 'render' (see the module docstring).
-    `mode` is 'retarded', 'instant', 'points', 'retina', 'conical' or
-    'worldline3d'; instant renders with opaque=False, retarded=False, as the
+    `mode` is 'retarded', 'instant', 'points', 'retina', 'conical', 'btz'
+    or 'worldline3d'; instant renders with opaque=False, retarded=False, as the
     JAX Engine does.  With `tick_time` (eager frames only: its value is
     baked into a capture) each push takes the clock from it instead, f32 of
     the host time it returns, as the JAX Engine's eager path pushes its host
@@ -150,7 +153,8 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
     before each push, which stores the slots of `present` (default: the
     active ones).  The conical mode takes `defects(t, cam, particles, buf,
     max_age)` -> ConicalDefect tuple (Engine._defects), called in the
-    render stage with the device clock; worldline3d takes its view
+    render stage with the device clock; btz takes its `hole`
+    (ops/btz.BTZBlackHole, device tensors); worldline3d takes its view
     parameters `wl3d` (ops/worldline3d.Worldline3DParams)."""
     h32 = float(np.float32(h))
     cam = camera_of(state.frame_in)
@@ -209,6 +213,11 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
             render.defects = ds
             return with_diag(*curved.render_retarded_conical_with_diag(
                 state.buf, state.particles.object_index, objects, cam, ds, width, height,
+                params, planar=True))
+    elif mode == "btz":
+        def render():
+            return with_diag(*btz.render_btz_with_diag(
+                state.buf, state.particles.object_index, objects, cam, hole, width, height,
                 params, planar=True))
     elif mode == "retina":
         def render():

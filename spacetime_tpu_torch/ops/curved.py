@@ -61,7 +61,7 @@ from .raytrace import (
     PairData, RenderDiag, RenderParams, _assemble_image, _band_pairs, _build_view_tables,
     _cell_blocks, _cell_pixel_coords, _compact_pairs_to_budget, _field_at,
     _occupancy_cells, _occupancy_xy, _ray_hit_xy, _retina, _segment_data,
-    camera_doppler_factor_xy, doppler_factor_xy, shade_channels,
+    camera_doppler_factor_xy, doppler_factor_xy, floored_mod, shade_channels,
 )
 from .worldline import WorldlineBuffer, newest_time
 
@@ -129,10 +129,7 @@ def _route2_theta(px, py, cam: Camera, defect: ConicalDefect):
     cx, cy = defect.center[0], defect.center[1]
     phi_c = torch.atan2(cam.pos[1] - cy, cam.pos[0] - cx)
     d = torch.atan2(py - cy, px - cx) - phi_c
-    x = d + math.pi
-    r = torch.fmod(x, _TWO_PI)
-    r = torch.where((r != 0) & (r < 0), r + _TWO_PI, r)
-    d = r - math.pi
+    d = floored_mod(d + math.pi, _TWO_PI) - math.pi
     alpha = _TWO_PI - defect.deficit
     return torch.where(d >= 0, -alpha, alpha)
 

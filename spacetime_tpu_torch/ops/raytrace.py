@@ -41,7 +41,7 @@ without the view cull, a ray march over every pair that keeps the winner's
 shading fields, and aberration and Doppler shading, as a 1D strip.
 `render_views` renders B cameras from one ring.
 
-The curved renderers (ops/curved.py) reuse steps 1-4 with their own cone
+The curved renderers (ops/curved.py, ops/btz.py) reuse steps 1-4 with their own cone
 metric (`_band_pairs`' `route_lengths`) and replace step 5 by a dense
 per-cell route pass: `_build_view_tables` pads each cell's CSR run to
 bin_capacity rows (the JAX package's `_splat_vslot` table, in the same
@@ -75,8 +75,9 @@ _DQ = 64  # splat-key distance-quantization levels (nearest-k bin retention)
 
 @dataclasses.dataclass(frozen=True)
 class RenderParams:
-    """Static renderer configuration (the JAX package's fields that the flat
-    retarded path reads; same names, same defaults)."""
+    """Static renderer configuration (the JAX package's fields that the port's
+    renderers read; same names, same defaults).  It is the fused frame's
+    key, so every field is part of it."""
 
     dt: float = 0.005  # history tick spacing (= PhysicsParams.h when pushed every step)
     rho: float = 0.0026  # particle render radius
@@ -105,6 +106,13 @@ class RenderParams:
     ambient: float = 0.15  # fraction of unshifted base color mixed in
     absorbed_dim: float = 0.35  # brightness of matter hidden behind other matter
     shadow: float = 0.78  # background brightness in occluded regions
+    # the btz mode only (ops/btz.py): also the routes reflected once off the
+    # AdS boundary; `btz_windings` extra turns around the hole per route
+    # family; the full rotating-metric solve (ops/btz_exact.py) instead of
+    # the slow-rotation model
+    btz_reflections: bool = False
+    btz_windings: int = 0
+    btz_exact_spin: bool = False
 
     @property
     def reach(self) -> float:
@@ -162,6 +170,14 @@ def camera_doppler_factor_xy(cvx, cvy, nx, ny):
     """Moving-observer factor."""
     g = _gamma_xy(cvx, cvy)
     return g * (1.0 - (cvx * nx + cvy * ny) / C2)
+
+
+def floored_mod(x, m: float):
+    """x mod m (m > 0) as JAX's jnp.mod computes it: the floored remainder
+    in [0, m), by fmod (which truncates toward zero) and JAX's sign fix.
+    torch.remainder computes x - floor(x / m) m, rounded otherwise."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & (r < 0), r + m, r)
 
 
 def _hat(x):

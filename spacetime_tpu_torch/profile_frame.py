@@ -3,6 +3,7 @@
     python3 -m spacetime_tpu_torch.profile_frame
     python3 -m spacetime_tpu_torch.profile_frame --scene refdemo
     python3 -m spacetime_tpu_torch.profile_frame --scene conical_defect
+    python3 -m spacetime_tpu_torch.profile_frame --scene btz_hole
 
 `--scene refdemo` profiles the reference demo's retarded frame
 (headline.build_refdemo) instead, by the same protocol.  `--scene
@@ -13,7 +14,15 @@ from the state the eager ones left, and the conical render splits into the
 band search of each route (route 1, the Euclidean chord, on the band
 kernel; route 2 of each defect on the plain sweep), the pair compaction,
 the view tables, the route-2 images, the retina march (one per route), the
-route pass and, for matter-sourced defects, the sourced defects.
+route pass and, for matter-sourced defects, the sourced defects.  `--scene
+btz_hole` or `--scene btz_extremal` profiles that BTZ config's Engine
+frame the same way, its render split into the band sweep + pairs of each
+route (every route on the plain sweep), the pair compaction, the view
+tables, the bearing retina, the routes' optics at every pixel and the
+route pass (over its blocks of view cells).  A config on the exact
+rotating-metric solver (`btz_exact_spin`, as btz_extremal) makes a frame of
+over half a million launches: it warms EXACT_SOLVER_FRAMES[0] frames, times
+EXACT_SOLVER_FRAMES[1] and traces EXACT_SOLVER_FRAMES[2].
 
 Runs the headline frame (headline.py) eagerly WARM_FRAMES times, which
 takes the discs into contact, then WALL_FRAMES frames timed on the host
@@ -45,6 +54,8 @@ import torch
 from .utils.profiling import attribute, traced_events
 
 WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES = 185, 10, 5
+EXACT_SOLVER_FRAMES = (10, 3, 1)
+ENGINE_SCENES = ("conical_defect", "selfgravity", "btz_hole", "btz_extremal")
 
 
 @contextlib.contextmanager
@@ -52,7 +63,7 @@ def named_ranges():
     """Wrap the frame's sub-stages in `record_function` ranges for the
     duration of the block (each is looked up through its module at call
     time, so replacing the module attribute reaches every caller)."""
-    from .ops import curved, forces, forces_cuda, grid, gravity, raytrace, render_cuda
+    from .ops import btz, curved, forces, forces_cuda, grid, gravity, raytrace, render_cuda
 
     def band_label(args, kwargs):
         return ("band + pairs, route 1" if kwargs.get("route_lengths") is None
@@ -78,6 +89,12 @@ def named_ranges():
         (curved, "_retina", "retina march"),
         (curved, "_route_pass_block", "route pass"),
         (gravity, "source_defects", "sourced defects"),
+        (btz, "_route_pairs", lambda args, kwargs: f"band sweep + pairs, route {args[9]}"),
+        (btz, "_compact_pairs_to_budget", "pair compaction"),
+        (btz, "_build_view_tables", "view tables"),
+        (btz, "_btz_retina", "bearing retina"),
+        (btz, "_pixel_optics", "route optics (all pixels)"),
+        (btz, "_route_pass_block", "route pass"),
     )
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
 
@@ -110,25 +127,27 @@ def report(title: str, res: dict, wall_ms: float) -> None:
           f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
 
 
-def _profile(title: str, run_one, ranges: bool) -> None:
-    """WALL_FRAMES frames of `run_one` on the host clock, then PROFILE_FRAMES
-    traced (inside named_ranges with `ranges`), and the report."""
+def _profile(title: str, run_one, ranges: bool, wall_frames: int = WALL_FRAMES,
+             profile_frames: int = PROFILE_FRAMES) -> None:
+    """`wall_frames` frames of `run_one` on the host clock, then
+    `profile_frames` traced (inside named_ranges with `ranges`), and the
+    report."""
     from . import kernels
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(WALL_FRAMES):
+    for _ in range(wall_frames):
         run_one()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / WALL_FRAMES * 1e3
+    wall_ms = (time.perf_counter() - t0) / wall_frames * 1e3
 
     def traced():
         with named_ranges() if ranges else contextlib.nullcontext():
-            for _ in range(PROFILE_FRAMES):
+            for _ in range(profile_frames):
                 run_one()
             torch.cuda.synchronize()
 
-    res = attribute(traced_events(traced, kernels.BUILD_DIR), PROFILE_FRAMES)
+    res = attribute(traced_events(traced, kernels.BUILD_DIR), profile_frames)
     if not res["by_range"]:
         raise RuntimeError(f"{title}: the trace holds no device activity")
     report(title, res, wall_ms)
@@ -138,24 +157,31 @@ def profile_engine(name: str, device) -> int:
     """The named config's Engine frame: WARM_FRAMES stage-timing (eager)
     frames, then the eager and the fused frames profiled in turn, with the
     adaptation frozen where the warm-up left it (every timed frame runs at
-    one render-params key)."""
+    one render-params key); a config on the exact solver by
+    EXACT_SOLVER_FRAMES instead."""
     import dataclasses
 
     from .engine import Engine
     from .utils.config import get_config
 
     cfg = get_config(name)
+    warm, wall, prof = (EXACT_SOLVER_FRAMES if cfg.render.btz_exact_spin
+                        else (WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES))
     eng = Engine(dataclasses.replace(cfg, stage_timing=True), device=device)
-    for _ in range(WARM_FRAMES):
+    for _ in range(warm):
         eng.run_frame()
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS if getattr(eng, f)}
-    print(f"{name}: boosts after {WARM_FRAMES} frames {boosts}, frozen from here on")
+    print(f"{name}: boosts after {warm} frames {boosts}, frozen from here on")
     eng.config = dataclasses.replace(cfg, stage_timing=True, diag_every=0)
-    first = WARM_FRAMES + 1
-    _profile(f"{name}: eager frames {first}-{first + WALL_FRAMES - 1}", eng.run_frame, True)
+    _profile(f"{name}: eager frames {warm + 1}-{warm + wall}", eng.run_frame, True, wall, prof)
     eng.config = dataclasses.replace(cfg, diag_every=0)  # fused from here on
+    t0 = time.perf_counter()
     eng.run_frame()  # the eager frame the capture follows, and the capture
-    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, False)
+    torch.cuda.synchronize()
+    print(f"{name}: the first fused frame (eager run and capture) took "
+          f"{time.perf_counter() - t0:.2f} s")
+    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, False,
+             wall, prof)
     return 0
 
 
@@ -163,7 +189,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="spacetime_tpu_torch.profile_frame", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scene", default="headline",
-                    choices=["headline", "refdemo", "conical_defect", "selfgravity"])
+                    choices=["headline", "refdemo", *ENGINE_SCENES])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: CUDA is not available; this tool needs an NVIDIA GPU",
@@ -176,7 +202,7 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     kernels.library()
-    if args.scene in ("conical_defect", "selfgravity"):
+    if args.scene in ENGINE_SCENES:
         return profile_engine(args.scene, device)
     build = headline.build_refdemo if args.scene == "refdemo" else headline.build
     model, p, objects, buf, cam, params = build(device)

@@ -3,11 +3,10 @@
 
 `SceneSpec` and `EngineConfig` keep the JAX field names and defaults;
 `render` holds the port's RenderParams and `wl3d` the port's
-Worldline3DParams.  The BTZ field is kept so configs read the same; the
-Engine refuses it until BTZ is ported.
+Worldline3DParams.
 
-The registry keeps every name of the JAX package.  Ten named configs are
-built field for field as the JAX functions build them; every other name
+The registry keeps every name of the JAX package.  Fifteen named configs
+are built field for field as the JAX functions build them; `png_demo`
 raises NotImplementedError naming what it waits for; an unknown name
 raises KeyError.
 """
@@ -53,7 +52,7 @@ class EngineConfig:
     cam_vel: Tuple[float, float] = (0.0, 0.0)
     cam_accel: Tuple[float, float] = (0.0, 0.0)  # Rindler-style proper acceleration
     max_fps: float = 72.0  # frame pacing target (realtime pacing is not ported yet)
-    # retarded | instant | points | retina | conical | worldline3d (btz not ported)
+    # retarded | instant | points | retina | conical | btz | worldline3d
     render_mode: str = "retarded"
     steps_per_frame: int = 1
     # conical-defect mass(es) for the conical mode: a single
@@ -70,7 +69,7 @@ class EngineConfig:
     # derives 8 pi defect_G energy.  Appended after the `defect` entries
     defect_source: Optional[Tuple] = None
     defect_G: float = 0.0  # 2+1D gravitational coupling for derived deficits
-    # not ported yet (the Engine raises when set): BTZ
+    # the btz mode's hole (ops/btz.py): ((cx, cy), mass, ads_l[, spin])
     btz: Optional[Tuple] = None
     # view parameters of the worldline3d mode
     wl3d: Worldline3DParams = Worldline3DParams()
@@ -244,6 +243,59 @@ def config_conical_defect() -> EngineConfig:
     )
 
 
+def config_btz_hole() -> EngineConfig:
+    """A BTZ black hole (ops/btz.py): closed-form null geodesics,
+    gravitational time delay, double images and the black horizon disc;
+    two 3,000-particle discs passing it, 512x512."""
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                _blob(3000, (0.25, 0.50), (0.0, 0.3), BLUE),
+                _blob(3000, (0.75, 0.50), (0.0, -0.3), RED),
+            )
+        ),
+        width=512,
+        height=512,
+        history=512,
+        cam_pos=(0.5, 0.08),
+        render_mode="btz",
+        # ads_l of the scene's scale keeps the lapse f = r^2/l^2 - M of order
+        # 1 where the bodies live; r_h = 0.45 sqrt(0.03) = 0.078
+        btz=((0.5, 0.5), 0.03, 0.45),
+    )
+
+
+def config_btz_reflected() -> EngineConfig:
+    """btz_hole with the routes reflected off the AdS boundary: echo images
+    ~230-450 ticks late, so the history reaches 768."""
+    base = config_btz_hole()
+    return dataclasses.replace(
+        base, render=dataclasses.replace(base.render, btz_reflections=True), history=768)
+
+
+def config_btz_spinning() -> EngineConfig:
+    """btz_hole rotating at J = 0.004 (~30% of the extremal M l): the
+    slow-rotation drag splits the double images in time."""
+    return dataclasses.replace(config_btz_hole(), btz=((0.5, 0.5), 0.03, 0.45, 0.004))
+
+
+def config_btz_extremal() -> EngineConfig:
+    """btz_hole near extremality (J = 0.012, 89% of M l) with the exact
+    rotating-metric solve (ops/btz_exact.py)."""
+    base = config_btz_hole()
+    return dataclasses.replace(
+        base, btz=((0.5, 0.5), 0.03, 0.45, 0.012),
+        render=dataclasses.replace(base.render, btz_exact_spin=True))
+
+
+def config_btz_photon_ring() -> EngineConfig:
+    """btz_hole with winding-1 routes (images that circle the hole once,
+    ~700-850 ticks late), so the history reaches 1024."""
+    base = config_btz_hole()
+    return dataclasses.replace(
+        base, render=dataclasses.replace(base.render, btz_windings=1), history=1024)
+
+
 def config_worldline3d() -> EngineConfig:
     """The worldline ring of a two-body collision drawn as an (x, y, t)
     block seen side-on (ops/worldline3d.py); shell_only draws the boundary
@@ -296,15 +348,14 @@ def _waits_for(name: str, what: str):
     return config
 
 
-_BTZ = "the btz render mode (ops/btz.py)"
 CONFIGS = {
     "single_blob": config_single_blob,
     "worldline3d": config_worldline3d,
-    "btz_hole": _waits_for("btz_hole", _BTZ),
-    "btz_reflected": _waits_for("btz_reflected", _BTZ),
-    "btz_spinning": _waits_for("btz_spinning", _BTZ),
-    "btz_extremal": _waits_for("btz_extremal", _BTZ + " with the exact solver (ops/btz_exact.py)"),
-    "btz_photon_ring": _waits_for("btz_photon_ring", _BTZ),
+    "btz_hole": config_btz_hole,
+    "btz_reflected": config_btz_reflected,
+    "btz_spinning": config_btz_spinning,
+    "btz_extremal": config_btz_extremal,
+    "btz_photon_ring": config_btz_photon_ring,
     "png_demo": _waits_for("png_demo",
                            "PNG import that needs no pillow (the port does not depend on it)"),
     "two_body_collision": config_two_body_collision,

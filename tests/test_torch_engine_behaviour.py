@@ -19,7 +19,8 @@ from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec, get_config
 
 PORTED = ("single_blob", "two_body_collision", "flagship_1080p", "accelerated_camera",
           "rindler_horizon", "boosted_observer", "plastic_collision", "conical_defect",
-          "selfgravity", "worldline3d")
+          "selfgravity", "worldline3d", "btz_hole", "btz_reflected", "btz_spinning",
+          "btz_extremal", "btz_photon_ring")
 
 
 def _tiny(**kw):
@@ -162,13 +163,21 @@ def test_conserved_quantities():
 
 
 @pytest.mark.parametrize("change,what", [
-    (dict(render_mode="btz"), "render_mode"),
     (dict(render_mode="warp"), "render_mode"),
-    (dict(btz=((0.5, 0.5), 0.03, 0.45)), "BTZ"),
 ])
 def test_unported_engine_features_raise(change, what):
     with pytest.raises(NotImplementedError, match=what):
         Engine(_tiny(**change), device="cpu")
+
+
+@pytest.mark.parametrize("frame", ["render", "fused"])
+def test_btz_mode_without_a_hole_raises(frame):
+    """render_mode='btz' without config.btz raises ValueError in render()
+    and in the fused frame, as the JAX Engine does."""
+    eng = Engine(_tiny(render_mode="btz"), device="cpu")
+    assert eng._can_fuse()
+    with pytest.raises(ValueError, match="requires config.btz"):
+        eng.render() if frame == "render" else eng.run_frame()
 
 
 def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch):
