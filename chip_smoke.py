@@ -116,7 +116,28 @@ just after:
     that state, and a black pixel inside the horizon disc; for
     btz_extremal the exact solver's fallback share over the final ring's
     route-0 sweep points is printed.  Shrunk btz_hole and btz_extremal
-    Engines join the GPU-vs-CPU set.
+    Engines join the GPU-vs-CPU set;
+  * the I/O phase (io_phase), each path with its launch counts reset just
+    before it: (a) `png_demo` (two PNG bodies read by the port's own PNG
+    reader) through the CLI with `--out DIR --every 10` for IO_PNG_FRAMES
+    fused frames: the 6 PNGs read back by utils/png.py equal the on-frame
+    images quantized to uint8, with the FrameSink's path (native or
+    Python) printed and 4 collision, 1 band and 1 pixel launch a frame; (b)
+    `flagship_1080p` through the CLI with `--serve 0` (the stats overlay
+    on): a loopback client (every socket with a timeout) reads one JPEG
+    part (SOI, EOI, size), posts `d` down and up (the camera's pan equals
+    the host CameraController's for the same keys), `o` (camera-frame
+    pixel launches follow) and `q`, which ends the run before its frame
+    limit, with the StreamSink's path printed; (c) `bench --record` then
+    `--replay` of `flagship_1080p` over IO_REPLAY_FRAMES frames of the
+    bench's scripted keys: final particles, ring and last image bit-equal
+    between the two Engines, their captures and fps printed; (d)
+    `--realtime` on `png_demo` at a live max_fps of IO_REALTIME_FPS:
+    IO_REALTIME_FRAMES frames take at least IO_REALTIME_FRAMES / fps
+    (less 10%); (e) `bench --scene capacity --frame` (2^20 particles,
+    headline.build_capacity): steps/s, the frame's ms and device ms by
+    stage, every drop counter and the kernels' launches, then the band and
+    pixel kernels against plain on its final state.
 
 Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
 keeps the host's enqueue out of the reading (a device spin covers it);
@@ -178,6 +199,11 @@ SMALL_EXTREMAL_FRAMES = 3  # the shrunk btz_extremal, GPU vs CPU
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
 BIG_BIN_CAPACITY = 1536  # a staged slice past 48 KB of shared memory
+IO_PNG_FRAMES, IO_EVERY = 60, 10  # png_demo through --out: frames 0, 10, ..., 50
+IO_SERVE_LIMIT = 40  # the served run's --frames; its client's q ends it at frame 15
+IO_REPLAY_FRAMES = 30
+IO_REALTIME_FRAMES, IO_REALTIME_FPS = 15, 30.0
+IO_TIMEOUT = 5.0  # seconds, every client socket of the served run
 # flagship_1080p zooms on the cell ladder's rungs 16 (its own), 8, 24, 32, 48
 LADDER_ZOOMS = (1.2, 2.4, 0.6, 0.4, 0.25)
 
@@ -1211,6 +1237,10 @@ def graph_vs_eager(eng, frames=REFDEMO_COMPARE_FRAMES):
                                            defects=defects, wl3d=cfg.wl3d, hole=hole)
     order = fused.schedule(cfg.steps_per_frame)
     graph, eager = fused.FusedFrame(stages(a), order, eng.device), stages(b)
+    # a capture instantiates its graph in the driver's memory, outside
+    # PyTorch's cache (btz_extremal's 541,170 nodes beside the Engine's own):
+    # the blocks the earlier phases left cached go back to the driver first
+    torch.cuda.empty_cache()
     unequal = []
     for i in range(frames):
         (ig, cg), (ie, ce) = graph(), fused.run_stages(eager, order)
@@ -1504,6 +1534,268 @@ def check_euler(device):
         raise AssertionError("euler on the card disagrees with the CPU path")
 
 
+def _io_launches(fn):
+    """(fn()'s result, the launch counts it made), the counts reset just
+    before it."""
+    from spacetime_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launches)
+
+
+def io_png_demo(tmp):
+    """(a): png_demo through the CLI with --out; returns its launches."""
+    import os
+
+    from spacetime_tpu_torch import cli
+    from spacetime_tpu_torch.utils import png
+
+    out = os.path.join(tmp, "png_demo")
+    seen = {}
+    argv = ["--config", "png_demo", "--frames", str(IO_PNG_FRAMES), "--out", out, "--every",
+            str(IO_EVERY)]
+    t0 = time.perf_counter()
+    (eng, _, summary), counts = _io_launches(lambda: cli.run(
+        argv, on_frame=lambda i, img: seen.update({i: img}) if i % IO_EVERY == 0 else None))
+    wall = time.perf_counter() - t0
+    names = sorted(os.listdir(out))
+    want = [f"frame_{i:08d}.png" for i in range(0, IO_PNG_FRAMES, IO_EVERY)]
+    unequal = [i for i in seen
+               if not np.array_equal(png.read_png(os.path.join(out, f"frame_{i:08d}.png")),
+                                     (np.clip(seen[i].cpu().numpy(), 0.0, 1.0) * 255.0)
+                                     .astype(np.uint8))]
+    lit = float((seen[max(seen)].min(dim=-1).values < 0.9).float().mean())
+    print(f"io (a) png_demo --out --every {IO_EVERY}: {len(names)} PNGs {names[0]}..{names[-1]} "
+          f"({summary['sinks']['out']} FrameSink), read back unequal at frames {unequal or 'none'}"
+          f"; {int(eng.particles.active.sum())} particles, lit share {lit:.4f}; launches "
+          f"{counts}; graphs {eng.graph_stats}; {wall:.2f} s")
+    if names != want or unequal or lit <= 0.0:
+        raise AssertionError(f"png_demo frames: {names}, unequal at {unequal}, lit {lit}")
+    if counts != {**{k: 0 for k in counts}, "collision": 4 * IO_PNG_FRAMES,
+                  "band": IO_PNG_FRAMES, "pixel_pass": IO_PNG_FRAMES}:
+        raise AssertionError(f"png_demo launches {counts}")
+    return counts
+
+
+def _http(port, target, stream=False):
+    """GET `target` on loopback: the status, or the first JPEG part of a
+    multipart stream."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=IO_TIMEOUT)
+    try:
+        c.request("GET", target)
+        r = c.getresponse()
+        if not stream:
+            r.read()
+            return r.status
+        if r.fp.readline().strip() != b"--spacetimeframe":
+            raise AssertionError("stream part has no boundary")
+        length = None
+        while (line := r.fp.readline().strip()):
+            k, v = line.decode().split(":", 1)
+            if k.strip().lower() == "content-length":
+                length = int(v)
+        return r.fp.read(length)
+    finally:
+        c.close()
+
+
+def io_serve():
+    """(b): flagship_1080p through the CLI with --serve 0, steered by a
+    loopback client; returns its launches."""
+    from spacetime_tpu_torch import cli, kernels
+    from spacetime_tpu_torch.camera import CameraController
+
+    eng, args = cli.build(["--config", "flagship_1080p", "--frames", str(IO_SERVE_LIMIT),
+                           "--serve", "0"])
+    sinks = cli.Sinks(args, eng)
+    # the client acts inside frame i's callback; the Engine polls what it
+    # posted at the start of frame i + 1
+    posts = {3: ("d", 1), 8: ("d", 0), 10: ("o", 1), 14: ("q", 1)}
+    got = {}
+
+    def client(i, img):
+        port = sinks.stream.port
+        if i == 2:
+            got["jpeg"] = _http(port, "/stream", stream=True)
+        if i in posts:
+            key, down = posts[i]
+            got.setdefault("status", []).append(_http(port, f"/key?d={down}&k={key}"))
+        if i == 10:
+            got["before_o"] = dict(kernels.launches)
+            got["frame"] = img
+
+    pos0, zoom0 = eng._cam_pos.copy(), eng._cam_zoom
+    t0 = time.perf_counter()
+    summary, counts = _io_launches(lambda: cli.drive(eng, args, sinks, on_frame=client))
+    wall = time.perf_counter() - t0
+    # the same keys on the host: right held in frames 4-8
+    ctl, pos, zoom = CameraController(), pos0, zoom0
+    for _ in range(5):
+        pos, zoom = ctl.update(pos, zoom, {"right": True},
+                               eng.config.physics.h * eng.config.steps_per_frame)
+    cam = eng.camera.pos.cpu().numpy()
+    jpeg = got["jpeg"]
+    after = counts["pixel_pass_camera_frame"] - got["before_o"]["pixel_pass_camera_frame"]
+    print(f"io (b) flagship_1080p --serve 0 ({summary['sinks']['serve']} StreamSink): first "
+          f"part {len(jpeg)} bytes, SOI {jpeg[:2].hex()} EOI {jpeg[-2:].hex()}; key posts "
+          f"{got['status']}; camera x {pos0[0]:.6f} -> {cam[0]:.6f} (host controller "
+          f"{pos[0]:.6f}); camera_frame {eng.config.render.camera_frame}, camera-frame "
+          f"launches after o {after}; q ended the run at frame {eng.frame} of "
+          f"{IO_SERVE_LIMIT}; launches {counts}; graphs {eng.graph_stats}; {wall:.2f} s")
+    if jpeg[:2] != b"\xff\xd8" or jpeg[-2:] != b"\xff\xd9" or len(jpeg) < 5_000:
+        raise AssertionError("the served part is not a whole JPEG frame")
+    if got["status"] != [204] * 4 or not np.array_equal(cam, pos) or cam[0] <= pos0[0]:
+        raise AssertionError(f"served keys: {got['status']}, camera {cam} vs host {pos}")
+    if eng.frame != 15 or not eng.config.render.camera_frame or after != eng.frame - 11:
+        raise AssertionError(f"served run: frame {eng.frame}, camera-frame launches {after}")
+    return counts, got["frame"]
+
+
+def io_sink_costs(img, tmp):
+    """The host time of FrameSink.submit and StreamSink.submit on the
+    frame `img` (a served 1080p frame) on each path the sink has here,
+    the Python one forced too; the FrameSink's close (its drain) apart."""
+    import os
+
+    from spacetime_tpu_torch.utils import framesink, streamsink
+
+    arr = framesink.quantize(img)  # as the CLI's sinks get it
+    h, w, _ = arr.shape
+    for path in ("native", "python"):
+        saved = framesink._load, streamsink._load
+        if path == "python":
+            framesink._load = streamsink._load = lambda: None
+        try:
+            fs = framesink.FrameSink(os.path.join(tmp, f"costs_{path}"), w, h)
+            ss = streamsink.StreamSink(0, w, h)
+            if (fs.native, ss.native) == (False, False) and path == "native":
+                fs.close()
+                ss.close()
+                continue
+            t = []
+            for i in range(8):
+                t0 = time.perf_counter()
+                fs.submit(i, arr)
+                t.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            fs_native = fs.native
+            fs.close()
+            drain = time.perf_counter() - t0
+            u = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                ss.submit(arr)
+                u.append(time.perf_counter() - t0)
+            ss_native = ss.native
+            ss.close()
+        finally:
+            framesink._load, streamsink._load = saved
+        print(f"  sink host cost at {w}x{h} ({path} paths asked; FrameSink native {fs_native}, "
+              f"StreamSink native {ss_native}): FrameSink.submit median "
+              f"{np.median(t) * 1e3:.3f} ms (max {max(t) * 1e3:.3f}), close after 8 frames "
+              f"{drain * 1e3:.1f} ms; StreamSink.submit median {np.median(u) * 1e3:.3f} ms "
+              f"(max {max(u) * 1e3:.3f})")
+
+
+def io_replay(tmp):
+    """(c): bench --record then --replay of flagship_1080p, bit-equal;
+    returns the launches of both."""
+    import os
+
+    from spacetime_tpu_torch import bench
+
+    path = os.path.join(tmp, "session.jsonl")
+    (rec, rperf, rimg), rcounts = _io_launches(
+        lambda: bench.record_session("flagship_1080p", IO_REPLAY_FRAMES, path))
+    (rep, pperf, pimg), pcounts = _io_launches(lambda: bench.replay_session(path))
+    unequal = _state_diff(rec._state, rep._state)
+    if not torch.equal(rimg, pimg):
+        unequal.append("image")
+    print(f"io (c) flagship_1080p record / replay, {IO_REPLAY_FRAMES} frames of the bench's "
+          f"scripted keys: recording {rperf['fps_avg']:.2f} fps (graphs {rec.graph_stats}), "
+          f"replay {pperf['fps_avg']:.2f} fps (graphs {rep.graph_stats}) on {card_line()}; "
+          f"zoom {float(rec.camera.zoom):.6f} / {float(rep.camera.zoom):.6f}; differ in "
+          f"{unequal or 'nothing'}; launches {rcounts} / {pcounts}")
+    if unequal:
+        raise AssertionError(f"replay differs from the recording in {unequal}")
+    return {k: rcounts[k] + pcounts[k] for k in rcounts}
+
+
+def io_realtime():
+    """(d): png_demo with --realtime at a live max_fps of IO_REALTIME_FPS."""
+    from spacetime_tpu_torch import cli
+
+    eng, args = cli.build(["--config", "png_demo", "--frames", str(IO_REALTIME_FRAMES),
+                           "--realtime"])
+    eng.hotswap["max_fps"] = IO_REALTIME_FPS
+    stamps = []
+    t0 = time.perf_counter()
+    _, counts = _io_launches(lambda: cli.drive(eng, args, cli.Sinks(args, eng),
+                                               on_frame=lambda i, img: stamps.append(
+                                                   time.perf_counter())))
+    wall = time.perf_counter() - t0
+    gaps = np.diff(stamps)
+    need = IO_REALTIME_FRAMES / IO_REALTIME_FPS
+    print(f"io (d) png_demo --realtime at max_fps {IO_REALTIME_FPS}: {IO_REALTIME_FRAMES} "
+          f"frames in {wall:.3f} s (at least {0.9 * need:.3f}); frame gaps after the first "
+          f"{gaps[1:].min():.4f}-{gaps[1:].max():.4f} s; launches {counts}")
+    # each frame is padded to 1 / fps from its start, so the gap from one
+    # frame's callback to the next holds a whole budget after the first
+    if wall < 0.9 * need or gaps[1:].min() < 0.9 / IO_REALTIME_FPS:
+        raise AssertionError("--realtime did not pace the frames")
+    return counts
+
+
+def io_capacity():
+    """(e): the capacity row with its frame, then band and pixel kernels
+    against plain on its final state; returns its launches and checks."""
+    from spacetime_tpu_torch import bench, fused, headline
+
+    t0 = time.perf_counter()
+    (row, state, objects, params), counts = _io_launches(lambda: bench.capacity_rows(True))
+    wall = time.perf_counter() - t0
+    print(f"io (e) capacity (2^20): {json.dumps(row)}")
+    print(f"  launches {counts}; {wall:.2f} s")
+    if row["particles"] != 1 << 20 or not np.isfinite(row["frame_ms"]):
+        raise AssertionError(f"capacity row: {row}")
+    cam = fused.camera_of(state.frame_in)
+    band = check_band(state.buf, cam, params, "capacity, after its frames")
+    pix = check_pixel(state.particles, objects, state.buf, cam, params,
+                      headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT,
+                      "capacity, after its frames")
+    return counts, band[0], pix[0]
+
+
+def io_phase():
+    """Phases (a)-(e) (see the module docstring): {path: launches}, the
+    band and pixel errors at 2^20."""
+    import shutil
+    import tempfile
+
+    from spacetime_tpu_torch.utils import native
+
+    print(f"io phase: device memory at its start {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    try:
+        launches = {"png_demo": io_png_demo(tmp)}
+        launches["serve"], frame = io_serve()
+        io_sink_costs(frame, tmp)
+        launches["record_replay"] = io_replay(tmp)
+        launches["realtime"] = io_realtime()
+        launches["capacity"], band_err, pix_err = io_capacity()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"io phase: {time.perf_counter() - t0:.2f} s; native sink builds failed: "
+          f"{native.build_errors or 'none'}")
+    return launches, band_err, pix_err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1627,6 +1919,11 @@ def main() -> int:
         f"{name} {r[3]:.2f} s (frame median {r[2]:.4f} ms)" for name, r in btz_runs.items())
         + f", together {sum(r[3] for r in btz_runs.values()):.2f} s")
 
+    # the paths of this slice: I/O and tooling
+    io_launches, io_band_err, io_pix_err = io_phase()
+    band_err = max(band_err, io_band_err)
+    pix_err = max(pix_err, io_pix_err)
+
     record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1636,7 +1933,7 @@ def main() -> int:
     collision = record("collision", "collision.cu", "spacetime_tpu/ops/forces_pallas.py:52",
                        counts["collision"], coll_err, coll_ms, coll_plain_ms, coll_bnd)
     collision["launches_btz"] = {name: r[0] for name, r in btz_runs.items()}
-    print(json.dumps({"kernels": [
+    rows = [
         collision,
         record("pixel_pass", "pixel_pass.cu", "spacetime_tpu/ops/render_pallas.py:57",
                counts["pixel_pass"], pix_err, pix_ms, pix_plain_ms, pix_bound),
@@ -1650,7 +1947,12 @@ def main() -> int:
         record("pixel_pass_camera_frame", "pixel_pass.cu",
                "spacetime_tpu/ops/render_pallas.py:110",
                boosted_counts["pixel_pass_camera_frame"], cf_err, cf_ms, cf_plain_ms, cf_bnd),
-    ]}))
+    ]
+    # the I/O phase's launches by path, beside each kernel's main-path count
+    for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
+                               "collision_exclude", "pixel_pass_camera_frame")):
+        row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
+    print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,12 +60,18 @@ render-present and physics-inactive, written after each step and before
 each push at the tick's time), conical defects (static, moving, retarded
 and matter-sourced), the BTZ hole (slow-rotation or exact spin, reflected
 and winding routes) and the worldline3d view run as in the JAX package.
+So do the live settings `hotswap` (max_fps, read by `run(realtime=True)`
+and changed by `viewer.apply_key`), the `recorder` (utils/replay.py), which
+logs each frame's inputs before they apply, `run`'s `key_source` (key
+events through `viewer.apply_key`; `quit` ends the loop) and `save_png`
+(utils/png.py's writer, no pillow).
 Not ported yet (it raises NotImplementedError): a mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import time
@@ -119,6 +125,51 @@ def build_scene(spec: SceneSpec, device=None):
     return sb.build(spec.capacity, device=device)
 
 
+def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: int = 0):
+    """The ConicalDefect tuple of `cfg` on `device`: cfg.defect, a single
+    ((cx, cy), deficit) spec or a tuple of them, moved by cfg.defect_vel to
+    time `t`, then the matter-sourced cfg.defect_source entries
+    (ops/gravity.py) of `particles` and `buf`.  With cfg.defect_retarded
+    each moving defect sits where the camera's past light cone meets its
+    linear track c0 + v t_r: the t_r <= t root of |c(t_r) - cam| = t - t_r;
+    sourced ones sit at their retarded centroid.  With tensors `t` and
+    `cam` no value is read back to the host."""
+    sourced = ()
+    if cfg.defect_source:
+        sourced = gravity.source_defects(cfg.defect_source, particles, buf, cam,
+                                         cfg.physics.h, cfg.defect_G, cfg.defect_retarded,
+                                         max_age=max_age)
+    if cfg.defect is None:
+        return sourced
+    spec = cfg.defect
+    # one spec ((cx, cy), deficit) has a number at spec[0][0]; a tuple a tuple
+    specs = tuple(spec) if isinstance(spec[0][0], (tuple, list)) else (spec,)
+    vels = cfg.defect_vel or ((0.0, 0.0),) * len(specs)
+    if len(vels) != len(specs):
+        raise ValueError(f"defect_vel has {len(vels)} entries for {len(specs)} defects — "
+                         "provide one (vx, vy) per defect")
+    out = []
+    for ((cx, cy), deficit), (vx, vy) in zip(specs, vels):
+        if vx * vx + vy * vy >= 1.0:
+            # the retarded-time quadratic divides by v^2 - 1 and its root
+            # choice assumes |v| < c
+            raise ValueError(f"defect velocity ({vx}, {vy}) is not below c")
+        if cfg.defect_retarded and (vx != 0.0 or vy != 0.0):
+            qx = cx - cam.pos[0]
+            qy = cy - cam.pos[1]
+            a = vx * vx + vy * vy - 1.0
+            b = 2.0 * (qx * vx + qy * vy + t)
+            c_ = qx * qx + qy * qy - t * t
+            # a < 0: the t_r <= t root is (-b + sqrt(D)) / 2a
+            disc = torch.sqrt(torch.clamp(b * b - 4.0 * a * c_, min=0.0))
+            t_r = (-b + disc) / (2.0 * a)
+            center = (cx + vx * t_r, cy + vy * t_r)
+        else:
+            center = (cx + vx * t, cy + vy * t)
+        out.append(curved.ConicalDefect.create(center, deficit, device=device))
+    return tuple(out) + sourced
+
+
 def _refuse_unported(config: EngineConfig, mesh) -> None:
     missing = [
         (mesh is not None, "a device mesh (parallel/)"),
@@ -167,6 +218,10 @@ class Engine:
         self.time = 0.0
         self.frame = 0
         self.paused = False
+        # live-tweakable runtime settings (the reference's HotswapConfig),
+        # changed at run time without touching the frozen config
+        self.hotswap = {"max_fps": float(config.max_fps)}
+        self.recorder = None  # a utils.replay.ReplayRecorder logging each frame's inputs
         self._stats = StatsWindow()
         self._pending = None  # (StageClock or None, frame seconds) not yet in _stats
         self._prev_end = None  # CUDA event at the end of the previous frame
@@ -365,7 +420,11 @@ class Engine:
             if cfg.defect is None and cfg.defect_source is None:
                 raise ValueError("render_mode='conical' requires config.defect or "
                                  "config.defect_source")
-            defects = self._defects
+            # bound to the config, not to the Engine: the fused frame that
+            # keeps this function lives in the Engine's own cache, and a
+            # reference back to the Engine would hold its device memory
+            # (ring, graph pools) past its last use, until a cycle collection
+            defects = functools.partial(conical_defects, cfg, self.device)
         if cfg.render_mode == "btz":
             if cfg.btz is None:
                 raise ValueError("render_mode='btz' requires config.btz")
@@ -384,54 +443,13 @@ class Engine:
                                        device=self.device)
 
     def _defects(self, t=None, cam=None, particles=None, buf=None, max_age: int = 0):
-        """The ConicalDefect tuple: config.defect, a single ((cx, cy),
-        deficit) spec or a tuple of them, moved by config.defect_vel to time
-        `t` (default: the host clock `time`; the render stage passes the
-        device clock), then the matter-sourced config.defect_source entries
-        (ops/gravity.py).  With config.defect_retarded each moving defect
-        sits where the camera's past light cone meets its linear track
-        c0 + v t_r: the t_r <= t root of |c(t_r) - cam| = t - t_r; sourced
-        ones sit at their retarded centroid.  With tensors `t` and `cam` no
-        value is read back to the host."""
-        cfg = self.config
-        t = self.time if t is None else t
-        cam = self.camera if cam is None else cam
-        particles = self.particles if particles is None else particles
-        buf = self.worldline if buf is None else buf
-        sourced = ()
-        if cfg.defect_source:
-            sourced = gravity.source_defects(cfg.defect_source, particles, buf, cam,
-                                             cfg.physics.h, cfg.defect_G, cfg.defect_retarded,
-                                             max_age=max_age)
-        if cfg.defect is None:
-            return sourced
-        spec = cfg.defect
-        # one spec ((cx, cy), deficit) has a number at spec[0][0]; a tuple a tuple
-        specs = tuple(spec) if isinstance(spec[0][0], (tuple, list)) else (spec,)
-        vels = cfg.defect_vel or ((0.0, 0.0),) * len(specs)
-        if len(vels) != len(specs):
-            raise ValueError(f"defect_vel has {len(vels)} entries for {len(specs)} defects — "
-                             "provide one (vx, vy) per defect")
-        out = []
-        for ((cx, cy), deficit), (vx, vy) in zip(specs, vels):
-            if vx * vx + vy * vy >= 1.0:
-                # the retarded-time quadratic divides by v^2 - 1 and its root
-                # choice assumes |v| < c
-                raise ValueError(f"defect velocity ({vx}, {vy}) is not below c")
-            if cfg.defect_retarded and (vx != 0.0 or vy != 0.0):
-                qx = cx - cam.pos[0]
-                qy = cy - cam.pos[1]
-                a = vx * vx + vy * vy - 1.0
-                b = 2.0 * (qx * vx + qy * vy + t)
-                c_ = qx * qx + qy * qy - t * t
-                # a < 0: the t_r <= t root is (-b + sqrt(D)) / 2a
-                disc = torch.sqrt(torch.clamp(b * b - 4.0 * a * c_, min=0.0))
-                t_r = (-b + disc) / (2.0 * a)
-                center = (cx + vx * t_r, cy + vy * t_r)
-            else:
-                center = (cx + vx * t, cy + vy * t)
-            out.append(curved.ConicalDefect.create(center, deficit, device=self.device))
-        return tuple(out) + sourced
+        """conical_defects of the config at time `t` (default: the host
+        clock `time`; the render stage passes the device clock), the camera
+        `cam` and the state (default: the Engine's own)."""
+        return conical_defects(self.config, self.device, self.time if t is None else t,
+                               self.camera if cam is None else cam,
+                               self.particles if particles is None else particles,
+                               self.worldline if buf is None else buf, max_age)
 
     def _tick(self) -> float:
         """An eager tick's host clock: `time` advanced by h (the JAX eager
@@ -558,6 +576,8 @@ class Engine:
         t0 = time.perf_counter()
         cfg = self.config
         frame_dt = cfg.physics.h * cfg.steps_per_frame
+        if self.recorder is not None:
+            self.recorder.record(self.frame, keys, self.hotswap)
         if keys:
             pos, zoom = self.controller.update(self._cam_pos, self._cam_zoom, keys, frame_dt)
             self._cam_pos, self._cam_zoom = pos, zoom
@@ -717,13 +737,37 @@ class Engine:
             self.log.warning("%d %s at the adaptation ceiling: %s", count, what, consequence)
 
     def run(self, n_frames: int,
-            on_frame: Optional[Callable[[int, torch.Tensor], None]] = None) -> Dict[str, float]:
+            on_frame: Optional[Callable[[int, torch.Tensor], None]] = None,
+            realtime: bool = False,
+            key_source: Optional[Callable[[], list]] = None) -> Dict[str, float]:
         """Headless loop of `n_frames`; returns the stats summary, with
-        `drops`: each drop counter summed over every frame this Engine ran."""
+        `drops`: each drop counter summed over every frame this Engine ran.
+
+        `realtime` paces each frame to the LIVE `hotswap["max_fps"]`.
+        `key_source() -> [(key_name, down), ...]` is polled before each frame
+        and routed through viewer.apply_key; a `quit` key ends the loop, and
+        `p` (pause) acts once, as an edge."""
+        keys: dict = {}
         for i in range(n_frames):
-            img = self.run_frame()
+            start = time.perf_counter()
+            if key_source is not None:
+                from . import viewer
+
+                for key, down in key_source():
+                    viewer.apply_key(keys, self, key, down)
+                if keys.get("quit"):
+                    break
+                img = self.run_frame(keys=dict(keys))
+                keys.pop("p", None)
+            else:
+                img = self.run_frame()
             if on_frame is not None:
                 on_frame(i, img)
+            if realtime:
+                budget = 1.0 / max(self.hotswap["max_fps"], 1e-3)
+                elapsed = time.perf_counter() - start
+                if elapsed < budget:
+                    time.sleep(budget - elapsed)
         return {**self.stats.summary(),
                 "drops": dict(zip(fused.DROP_FIELDS, self._drops.tolist()))}
 
@@ -756,6 +800,7 @@ class Engine:
 
         meta = {"time": self.time, "frame": self.frame,
                 "config_fingerprint": self._config_fingerprint(),
+                "hotswap": dict(self.hotswap),
                 "paused": bool(self.paused)}
         for f in self._ADAPT_FIELDS:
             meta[f] = int(getattr(self, f))
@@ -781,5 +826,16 @@ class Engine:
         for f in self._ADAPT_FIELDS:
             if f in meta:
                 setattr(self, f, int(meta[f]))
+        if "hotswap" in meta:
+            self.hotswap.update(meta["hotswap"])
         if "paused" in meta:
             self.paused = bool(meta["paused"])
+
+
+def save_png(path: str, img) -> None:
+    """Write an (H, W, 3) [0, 1] image (tensor or array) as PNG, quantized
+    as the JAX package's save_png does."""
+    from .utils import png
+
+    arr = img.detach().cpu().numpy() if isinstance(img, torch.Tensor) else np.asarray(img)
+    png.write_png(path, (np.clip(arr, 0.0, 1.0) * 255.0).astype(np.uint8))

@@ -15,6 +15,11 @@ lattice-padded discs of 57,980 particles each, 116,178 active at capacity
 `build_refdemo()` is the same scene's retarded frame, the one
 `tools/refdemo.py` builds for the JAX benches: a T=1024 ring (4.9 GB) and
 its render params, with rank compaction (`segments`) and `splat_cells=4`.
+
+`build_capacity()` is `tools/bench_1m.py`'s capacity scene: two 1024 x 512
+lattice-padded box bodies closing at 0.05c each, exactly 2^20 particles
+(the reference's MAX_PARTICLES), a grid of 768 cells, a T=128 ring (4.3
+GB) and a 960x540 retarded render watching the contact interface.
 """
 
 from __future__ import annotations
@@ -28,6 +33,11 @@ from .ops import worldline as wl
 from .utils.config import BLUE, RED, EngineConfig, SceneSpec
 
 WIDTH, HEIGHT, HISTORY = 1920, 1080, 1024
+# tools/bench_1m.py: the capacity frame's view and ring, and its grid (the
+# scene spans 1024 * 0.0035 = 3.58 ls; 768 cells of 0.005 ls cover 3.84)
+CAPACITY_WIDTH, CAPACITY_HEIGHT, CAPACITY_HISTORY = 960, 540, 128
+CAPACITY_BOX = (1024, 512)
+CAPACITY_GRID_DIM = 768
 
 
 def build(device):
@@ -107,3 +117,35 @@ def build_refdemo(device, history: int = HISTORY):
                               0.0, model.params.h)
     cam = Camera.create(pos=cfg.cam_pos, zoom=cfg.cam_zoom, device=device)
     return model, particles, objects, buf, cam, refdemo_params(model.params.h)
+
+
+def build_capacity(device, history: int = CAPACITY_HISTORY):
+    """(model, particles, objects, buf, cam, params) of the capacity scene
+    on `device` (`tools/bench_1m.py:33-104`): two CAPACITY_BOX box bodies,
+    the blue at (0, 0) moving +y at 0.05c, the red at (0, 1.85) moving -y,
+    capacity 2^20 exactly (box bodies have no lattice padding); the model
+    with grid_dim CAPACITY_GRID_DIM; a `history`-tick ring prefilled
+    inertially; the camera at (1.79, 1.82), zoom 0.9; and bench_1m's render
+    params (4096 rays, pair budget 131072, bin capacity 128, 16 px cells,
+    band 4, the 2x2 splat, retina budget 16384, the whole ring swept).  The
+    JAX bench's `wmax` and `split_windows` are TPU knobs with no
+    counterpart here."""
+    sb = scene.SceneBuilder()
+    sb.add(scene.mask_to_softbody(scene.box_mask(*CAPACITY_BOX), 0, (0.0, 0.0), (0.0, 0.05),
+                                  lattice_pad=True), base_color=(0.25, 0.35, 1.0))
+    sb.add(scene.mask_to_softbody(scene.box_mask(*CAPACITY_BOX), 1, (0.0, 1.85), (0.0, -0.05),
+                                  lattice_pad=True), base_color=(1.0, 0.3, 0.25))
+    particles, objects = sb.build(device=device)
+    offsets = forces.derive_spring_offsets(particles.neighbors.cpu().numpy())
+    model = SoftbodyModel(particles.capacity, offsets, device=device)
+    model.grid_dim = CAPACITY_GRID_DIM
+    buf = wl.create(history, particles.capacity, device=device)
+    buf = wl.prefill_inertial(buf, particles.pos, particles.vel, particles.active,
+                              0.0, model.params.h)
+    cam = Camera.create(pos=(1.79, 1.82), zoom=0.9, device=device)
+    params = raytrace.RenderParams(
+        dt=model.params.h, num_rays=4096, pair_budget=131072, bin_capacity=128, cell_px=16,
+        occlusion_downsample=2, ray_chunk=8192, band=4, splat_cells=4, retina_budget=16384,
+        max_age=0,
+    )
+    return model, particles, objects, buf, cam, params

@@ -14,6 +14,7 @@ import numpy as np
 
 from . import constants
 from .state import Objects, Particles, concat_particle_arrays, make_objects, pack_particles
+from .utils.png import read_png
 
 # Neighbor slot offsets in slot order: immediate left/up/right/down, then
 # diagonal tl/tr/bl/br
@@ -126,13 +127,10 @@ def image_to_softbody(
     starting_ground_vel: Sequence[float],
     lattice_pad: bool = False,
 ) -> dict:
-    """PNG (or (H, W, 3) array) -> softbody; non-black pixels become particles."""
-    if isinstance(path_or_array, np.ndarray):
-        rgb = path_or_array
-    else:
-        from PIL import Image  # only PNG import needs pillow
-
-        rgb = np.asarray(Image.open(path_or_array).convert("RGB"))
+    """PNG (or (H, W, 3) array) -> softbody; non-black pixels become
+    particles.  The PNG is read by `read_png` (utils/png.py: zlib and
+    struct, no pillow), which gives what pillow's `convert("RGB")` gives."""
+    rgb = path_or_array if isinstance(path_or_array, np.ndarray) else read_png(path_or_array)
     mask = np.any(rgb != 0, axis=-1)
     return mask_to_softbody(
         mask, object_index, ground_pos_offset, starting_ground_vel,

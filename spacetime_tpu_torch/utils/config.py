@@ -5,15 +5,16 @@
 `render` holds the port's RenderParams and `wl3d` the port's
 Worldline3DParams.
 
-The registry keeps every name of the JAX package.  Fifteen named configs
-are built field for field as the JAX functions build them; `png_demo`
-raises NotImplementedError naming what it waits for; an unknown name
-raises KeyError.
+The registry keeps every name of the JAX package, and every named config is
+built field for field as the JAX function builds it (`png_demo`'s image
+paths are resolved from this package, so they equal JAX's after
+`os.path.realpath`); an unknown name raises KeyError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 from ..constants import DEFAULT_PARAMS, PhysicsParams
@@ -25,7 +26,7 @@ from ..ops.worldline3d import Worldline3DParams
 class SceneSpec:
     """Scene description: bodies = (kind, arg, offset, vel, rgb) with kind in
     {"disc" (arg = particle count), "box" (arg = (w_px, h_px)),
-     "image" (arg = PNG path; needs pillow)}."""
+     "image" (arg = PNG path, read by utils/png.py)}."""
 
     bodies: Tuple[tuple, ...]
     capacity: Optional[int] = None
@@ -51,7 +52,7 @@ class EngineConfig:
     cam_zoom: float = 1.0
     cam_vel: Tuple[float, float] = (0.0, 0.0)
     cam_accel: Tuple[float, float] = (0.0, 0.0)  # Rindler-style proper acceleration
-    max_fps: float = 72.0  # frame pacing target (realtime pacing is not ported yet)
+    max_fps: float = 72.0  # frame pacing target (Engine.hotswap, run(realtime=True))
     # retarded | instant | points | retina | conical | btz | worldline3d
     render_mode: str = "retarded"
     steps_per_frame: int = 1
@@ -341,11 +342,27 @@ def config_selfgravity() -> EngineConfig:
     )
 
 
-def _waits_for(name: str, what: str):
-    def config() -> EngineConfig:
-        raise NotImplementedError(
-            f"config {name!r} waits for {what}, not ported to spacetime_tpu_torch yet")
-    return config
+def config_png_demo() -> EngineConfig:
+    """The reference's demo path: two PNG blobs imported by
+    image_to_softbody on a collision course (reference
+    src/twoplusone/mod.rs:86-113 loads testimg4/testimg5 the same way; the
+    fixtures are small procedural stand-in blobs), 384x384."""
+    fx = os.path.join(os.path.dirname(__file__), "..", "..", "assets", "fixtures")
+    return EngineConfig(
+        scene=SceneSpec(
+            bodies=(
+                ("image", os.path.join(fx, "blob_a.png"), (0.25, 0.30), (0.12, 0.12), BLUE),
+                ("image", os.path.join(fx, "blob_b.png"), (0.62, 0.58), (-0.12, -0.12), RED),
+            )
+        ),
+        width=384,
+        height=384,
+        history=384,
+        cam_pos=(0.55, 0.55),
+        cam_zoom=0.9,
+        # pre-sized bins (mid-size views run dense)
+        render=RenderParams(bin_capacity=128),
+    )
 
 
 CONFIGS = {
@@ -356,8 +373,7 @@ CONFIGS = {
     "btz_spinning": config_btz_spinning,
     "btz_extremal": config_btz_extremal,
     "btz_photon_ring": config_btz_photon_ring,
-    "png_demo": _waits_for("png_demo",
-                           "PNG import that needs no pillow (the port does not depend on it)"),
+    "png_demo": config_png_demo,
     "two_body_collision": config_two_body_collision,
     "flagship_1080p": config_flagship_1080p,
     "accelerated_camera": config_accelerated_camera,

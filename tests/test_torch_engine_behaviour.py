@@ -5,6 +5,7 @@ configs (held to the JAX ones field for field) and the CLI."""
 
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -20,7 +21,7 @@ from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec, get_config
 PORTED = ("single_blob", "two_body_collision", "flagship_1080p", "accelerated_camera",
           "rindler_horizon", "boosted_observer", "plastic_collision", "conical_defect",
           "selfgravity", "worldline3d", "btz_hole", "btz_reflected", "btz_spinning",
-          "btz_extremal", "btz_photon_ring")
+          "btz_extremal", "btz_photon_ring", "png_demo")
 
 
 def _tiny(**kw):
@@ -208,6 +209,15 @@ def test_mesh_and_aloof_raise():
 # --------------------------------------------------------------------------
 
 
+def _real_paths(scene):
+    """The SceneSpec as a dict, each "image" body's PNG path resolved (the
+    two packages reach the fixtures from their own directories)."""
+    d = dataclasses.asdict(scene)
+    d["bodies"] = tuple((kind, os.path.realpath(arg) if kind == "image" else arg, *rest)
+                        for kind, arg, *rest in d["bodies"])
+    return d
+
+
 @pytest.mark.parametrize("name", PORTED)
 def test_ported_configs_match_jax(name):
     ours, ref = get_config(name), jconfig.get_config(name)
@@ -217,21 +227,18 @@ def test_ported_configs_match_jax(name):
         if f.name == "render":
             for g in dataclasses.fields(a):
                 assert getattr(a, g.name) == getattr(b, g.name), (name, g.name)
+        elif f.name == "scene":
+            assert _real_paths(a) == _real_paths(b), name
         elif dataclasses.is_dataclass(a):
             assert dataclasses.asdict(a) == dataclasses.asdict(b), (name, f.name)
         else:
             assert a == b, (name, f.name)
-
-
-@pytest.mark.parametrize("name", sorted(set(jconfig.CONFIGS) - set(PORTED)))
-def test_unported_configs_raise(name):
-    assert name in config.CONFIGS
-    with pytest.raises(NotImplementedError, match="waits for"):
-        get_config(name)
+    if name == "png_demo":
+        assert all(os.path.isfile(body[1]) for body in ours.scene.bodies)
 
 
 def test_registry_keeps_every_name_and_unknown_raises():
-    assert set(config.CONFIGS) == set(jconfig.CONFIGS)
+    assert set(config.CONFIGS) == set(jconfig.CONFIGS) == set(PORTED)
     with pytest.raises(KeyError):
         get_config("nope")
 

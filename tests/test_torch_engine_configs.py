@@ -1,8 +1,9 @@
 """The port's Engine on the paths this slice opened, against the JAX Engine
 on the CPU: `plastic_collision` (materials, damping, plastic creep),
 `boosted_observer` (the camera-frame view) and a `lattice_pad=False` scene
-(the row-gather physics), each shrunk to small discs and a 48x48 view and
-run for a few frames; then what the Engine keeps of creep state (the
+(the row-gather physics), each shrunk to small discs and a 48x48 view, and
+`png_demo` (its PNG bodies at full size, a 48x48 view and a 32-tick ring),
+each run for a few frames; then what the Engine keeps of creep state (the
 checkpoint, particles passed in) and the CLI on the two named configs.
 The JAX side runs as its own tests run it on the CPU (the fused frame, XLA
 physics and render paths).
@@ -31,6 +32,22 @@ FRAMES = 8
 POS_ATOL = 1e-5
 PIXEL_TOL, PIXEL_SHARE = 1e-3, 1e-3
 BLUE, RED = config.BLUE, config.RED
+# png_demo's two 2,332-particle PNG bodies sum their springs in another f32
+# order than JAX's XLA path: positions part by 1 ulp (6e-8) from frame 2,
+# and at frame 8 one cone crossing on the band's edge counts in one package
+# only (126 against 127 pairs, the images equal); every other counter exact
+PAIRS_SLACK = {"png_demo": 1}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The Engines here run thousands of small torch ops; beside the
+    suite's other workers each op's intra-op thread team waits on busy
+    cores.  One thread a worker keeps their time that of the work."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 # per case: the named config it shrinks, its bodies, and config overrides.
 # plastic: two 50-particle discs touching within two frames at the config's
@@ -55,6 +72,9 @@ CASES = {
                 ("disc", 450, (0.52, 0.452), (-0.1, 0.0), RED)),
         scene_kw=dict(lattice_pad=False),
         cfg_kw=dict(cam_pos=(0.4613, 0.4437), cam_zoom=0.3, history=32)),
+    # the config's own two PNG bodies (4,664 particles, read by each
+    # package's PNG import), cut to a 48x48 view of a 32-tick ring
+    "png_demo": dict(bodies=None, scene_kw={}, cfg_kw=dict(history=32)),
 }
 
 
@@ -64,7 +84,8 @@ def _tiny(mod, rp, case):
     render = dataclasses.replace(base.render, num_rays=256)
     if case == "lattice_pad_false":
         base = dataclasses.replace(base, materials=None)
-    scene = mod.SceneSpec(bodies=c["bodies"], capacity=None, **c["scene_kw"])
+    scene = base.scene if c["bodies"] is None else mod.SceneSpec(
+        bodies=c["bodies"], capacity=None, **c["scene_kw"])
     return dataclasses.replace(base, scene=scene, render=render, width=48, height=48,
                                **c["cfg_kw"])
 
@@ -99,7 +120,9 @@ def test_engine_config_frames_match_jax(runs, case):
         assert np.mean(np.abs(img - jimg).max(axis=-1) > PIXEL_TOL) <= PIXEL_SHARE
     assert (imgs[-1].min(-1) < 0.9).any()  # matter in view
     for name in ("pairs_used", "band_truncated", "bin_dropped", "cell_too_small"):
-        assert int(getattr(pe.last_diag, name)) == int(getattr(je.last_diag, name)), name
+        slack = PAIRS_SLACK.get(case, 0) if name == "pairs_used" else 0
+        assert abs(int(getattr(pe.last_diag, name)) - int(getattr(je.last_diag, name))) <= slack, \
+            name
 
 
 def test_engine_plastic_creep_state_matches_jax(runs):
