@@ -137,7 +137,30 @@ just after:
     (less 10%); (e) `bench --scene capacity --frame` (2^20 particles,
     headline.build_capacity): steps/s, the frame's ms and device ms by
     stage, every drop counter and the kernels' launches, then the band and
-    pixel kernels against plain on its final state.
+    pixel kernels against plain on its final state;
+  * the mesh phase (mesh_phase): a one-rank NCCL process group (TCP store
+    on a free loopback port) and `Engine(flagship_1080p, mesh=...)` for
+    MESH_FRAMES fused frames, its collectives (the step's gathers and
+    reduce-scatters, the pair and image gathers, the counter all-reduces)
+    captured in its CUDA graphs: 4 collision, 1 band and 1 pixel launch a
+    frame; its last image bit-equal to the single-device Engine's after
+    the same frames (else held to the pixel gate), its state bit-equal and
+    its drop counters equal to the single-device run's, its graphs
+    bit-equal to its stages run eagerly from its final state, and the
+    collectives of one eager mesh frame counted and printed (calls and
+    bytes by kind); then the same against one device for flagship_1080p
+    in points mode (MESH_FRAMES frames, the points kernel's winner and
+    resolve passes around a MIN all-reduce: 1 points launch a frame) and
+    conical_defect (MESH_CONICAL_FRAMES); the group is destroyed before
+    the result line;
+  * the kernels' mesh launches against their whole launches, exact: the
+    collision kernel over 2 and 4 ranges of sorted rows summed (headline,
+    after the main path, both variants), the pixel kernel over 2 and 4
+    bands of cell rows (headline and boosted_observer's camera-frame
+    branch), and the points kernel's winner pass over 2 and 4 particle
+    blocks, MIN-reduced and resolved (the refdemo points state); each
+    share's launch time is printed beside the whole launch's, and the JSON
+    line carries them as `shard_ms`.
 
 Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
 keeps the host's enqueue out of the reading (a device spin covers it);
@@ -204,6 +227,12 @@ IO_SERVE_LIMIT = 40  # the served run's --frames; its client's q ends it at fram
 IO_REPLAY_FRAMES = 30
 IO_REALTIME_FRAMES, IO_REALTIME_FPS = 15, 30.0
 IO_TIMEOUT = 5.0  # seconds, every client socket of the served run
+MESH_FRAMES = 60  # flagship_1080p on a one-rank NCCL mesh (retarded, then points)
+MESH_CONICAL_FRAMES = 20  # conical_defect on that mesh
+# kernel name -> (whole launch ms, {parts: [ms of each share's launch]}),
+# filled by the share checks for the JSON line
+SHARD_MS = {}
+SHARES = (2, 4)  # ranks a kernel's work is split over in the share checks
 # flagship_1080p zooms on the cell ladder's rungs 16 (its own), 8, 24, 32, 48
 LADDER_ZOOMS = (1.2, 2.4, 0.6, 0.4, 0.25)
 
@@ -807,6 +836,8 @@ def engine_points(device):
         raise AssertionError("points kernel image differs from the plain renderer")
     if not clean:
         raise AssertionError("a points render left winner slots or mask bits set")
+    whole_ms, blocks, resolve_ms = check_points_blocks(eng)
+    SHARD_MS["points"] = (whole_ms, {**blocks, "resolve": resolve_ms})
     return launches, err, ms, plain_ms, bnd, library_ms
 
 
@@ -1234,7 +1265,8 @@ def graph_vs_eager(eng, frames=REFDEMO_COMPARE_FRAMES):
     stages = lambda st: fused.frame_stages(eng.model, eng.materials, st, eng.objects, cfg.width,
                                            cfg.height, params, cfg.render_mode, cfg.physics.h,
                                            aloof=eng._aloof, present=eng.present,
-                                           defects=defects, wl3d=cfg.wl3d, hole=hole)
+                                           defects=defects, wl3d=cfg.wl3d, hole=hole,
+                                           mesh=eng.mesh, object_index=eng._object_index)
     order = fused.schedule(cfg.steps_per_frame)
     graph, eager = fused.FusedFrame(stages(a), order, eng.device), stages(b)
     # a capture instantiates its graph in the driver's memory, outside
@@ -1796,6 +1828,212 @@ def io_phase():
     return launches, band_err, pix_err
 
 
+def _shares(n: int, parts: int):
+    """(first, count) of each of `parts` ranks' shares of n rows, as a mesh
+    splits them (parallel/comm.block)."""
+    from spacetime_tpu_torch.parallel import comm
+
+    return [comm.block(n, r, parts) for r in range(parts)]
+
+
+def check_collision_shares(particles, model, exclude=False):
+    """The collision kernel over SHARES ranges of sorted rows (a mesh
+    rank's launch) at RK4 stage 3's inputs of a path's final state: the
+    shares' forces summed equal the whole launch's exactly (each particle
+    has one nonzero contributor), and each share's launch is timed.
+    Returns {parts: [ms of each share]}."""
+    from spacetime_tpu_torch.ops import forces_cuda
+
+    P = model.params
+    act = particles.active
+    nbr = particles.neighbors.contiguous() if exclude else None
+    order, stages = collision_inputs(particles, model)
+    moved, disp = stages[3]
+    run = lambda rows=None: forces_cuda.collision_forces(  # noqa: E731
+        moved, act, order, P.collision_distance, P.collision_repulsion_coefficient, disp,
+        neighbors=nbr, rows=rows)
+    whole, whole_ms = run(), cuda_ms(run)
+    out = {}
+    for parts in SHARES:
+        ranges = _shares(particles.capacity, parts)
+        got = [run(r) for r in ranges]
+        total = got[0]
+        for g in got[1:]:
+            total = total + g
+        if not torch.equal(total, whole):
+            raise AssertionError(f"collision over {parts} row ranges differs from the whole "
+                                 f"launch by {(total - whole).abs().max().item():.3e}")
+        out[parts] = [cuda_ms(lambda r=r: run(r)) for r in ranges]
+    name = "collision_exclude" if exclude else "collision"
+    print(f"{name} row ranges (headline, after the main path, stage 3): summed shares "
+          f"bit-equal to the whole launch for {list(SHARES)} ranges; whole {whole_ms:.4f} ms, "
+          f"shares (ms) {out}")
+    return whole_ms, out
+
+
+def check_pixel_bands(particles, objects, buf, cam, params, width, height, when):
+    """The pixel kernel over SHARES bands of view-cell rows (a mesh rank's
+    launch) on a path's CSR: the bands stacked equal the whole image
+    exactly; each band's launch is timed.  Returns (whole ms, {parts: [ms
+    of each band]})."""
+    from spacetime_tpu_torch.ops import render_cuda
+
+    inputs, _ = pixel_inputs(particles, objects, buf, cam, params, width, height)
+    run = lambda rows=None: render_cuda.pixel_pass(inputs, params, width=width,  # noqa: E731
+                                                   height=height, rows=rows)
+    whole, whole_ms = run(), cuda_ms(run)
+    k, hc = params.cell_px, inputs.hc_img
+    out = {}
+    for parts in SHARES:
+        per = -(-hc // parts)
+        bands = [(row0, count, per * k) for row0, count in _shares(hc, parts)]
+        img = torch.cat([run(b) for b in bands], dim=1)[:, :height]
+        if not torch.equal(img, whole):
+            raise AssertionError(f"pixel kernel over {parts} cell-row bands ({when}) differs "
+                                 "from the whole launch")
+        out[parts] = [cuda_ms(lambda b=b: run(b)) for b in bands]
+    print(f"pixel cell-row bands ({when}; camera_frame {params.camera_frame}): stacked bands "
+          f"bit-equal to the whole image for {list(SHARES)} bands; whole {whole_ms:.4f} ms, "
+          f"bands (ms) {out}")
+    return whole_ms, out
+
+
+def check_points_blocks(eng):
+    """The points kernel's winner pass over SHARES particle blocks with
+    global indices (a mesh rank's launch), the planes MIN-reduced and
+    resolved, against the whole render, exactly; each block's winner pass
+    and the resolve pass are timed.  Returns (whole ms, {parts: [ms of
+    each block's pass]}, resolve ms)."""
+    from spacetime_tpu_torch.ops import points_cuda
+
+    p, cfg, cam = eng.particles, eng.config, eng.camera
+    w, h = cfg.width, cfg.height
+    whole_run = lambda: points_cuda.render_points(p, eng.objects, cam, w, h)  # noqa: E731
+    whole, whole_ms = whole_run(), cuda_ms(whole_run)
+    out, resolve_ms = {}, None
+    for parts in SHARES:
+        if p.capacity % parts:
+            raise AssertionError(f"capacity {p.capacity} does not split into {parts} blocks")
+        b = p.capacity // parts
+        blocks = [dataclasses.replace(p, pos=p.pos[r * b:(r + 1) * b].contiguous(),
+                                      active=p.active[r * b:(r + 1) * b].contiguous())
+                  for r in range(parts)]
+        win = lambda r: points_cuda.points_winners(blocks[r], cam, w, h, r * b)  # noqa: E731
+        merged = torch.stack([win(r) for r in range(parts)]).amin(0)
+        resolve = lambda: points_cuda.points_resolve(merged, p.object_index,  # noqa: E731
+                                                     eng.objects, w, h)
+        if not torch.equal(resolve(), whole):
+            raise AssertionError(f"points over {parts} blocks, MIN-reduced, differ from the "
+                                 "whole render")
+        out[parts] = [cuda_ms(lambda r=r: win(r)) for r in range(parts)]
+        resolve_ms = cuda_ms(resolve)
+    print(f"points blocks (refdemo, final state): winner planes MIN-reduced and resolved "
+          f"bit-equal to the whole render for {list(SHARES)} blocks; whole {whole_ms:.4f} ms, "
+          f"winner passes (ms) {out}, resolve of a merged plane {resolve_ms:.4f} ms")
+    return whole_ms, out, resolve_ms
+
+
+def _mesh_vs_single(cfg, mesh, device, frames, expect):
+    """`cfg` for `frames` fused frames on one device, then on `mesh`, each
+    Engine from its own scene build: the mesh run's launches (`expect`
+    per frame), its graphs, its last image against the single run's
+    (bit-equal, else the pixel gate), its state and its drops (equal).
+    Returns (mesh Engine, its launches, its summary, the single summary)."""
+    from spacetime_tpu_torch import kernels
+    from spacetime_tpu_torch.engine import Engine
+
+    ref, last = {}, {}
+    single = Engine(cfg, device=device)
+    single_summary = single.run(frames, on_frame=lambda i, img: ref.__setitem__("img", img))
+    kernels.reset_launch_counts()
+    meshed = Engine(cfg, mesh=mesh)
+    t0 = time.perf_counter()
+    summary = meshed.run(frames, on_frame=lambda i, img: last.__setitem__("img", img))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    want = {k: expect.get(k, 0) * frames for k in counts}
+    g = meshed.graph_stats
+    img, ref_img = last["img"], ref["img"]
+    same = torch.equal(img, ref_img)
+    share = ((img - ref_img).abs().amax(dim=-1) > PIXEL_TOL).float().mean().item()
+    state_same = all(torch.equal(getattr(meshed.particles, f.name),
+                                 getattr(single.particles, f.name))
+                     for f in dataclasses.fields(meshed.particles)
+                     if getattr(meshed.particles, f.name) is not None)
+    print(f"mesh phase ({cfg.name}, {cfg.render_mode}, one-rank NCCL group, {frames} fused "
+          f"frames): {wall:.2f} s wall; launches {counts}; graphs {g}; last image bit-equal "
+          f"to the single-device Engine's: {same} (pixel share > {PIXEL_TOL:g}: {share:.2e}); "
+          f"state bit-equal: {state_same}; drops {summary['drops']} (single device "
+          f"{single_summary['drops']}); frame median {summary['frame_median_ms']:.4f} ms "
+          f"(single device {single_summary['frame_median_ms']:.4f} ms)")
+    if counts != want:
+        raise AssertionError(f"mesh engine launches {counts}, expected {want}")
+    if not 1 <= g["captures"] <= 8 or g["captures"] + g["replays"] != frames:
+        raise AssertionError(f"mesh engine graphs {g} over {frames} frames")
+    if not same and share > PIXEL_SHARE:
+        raise AssertionError(f"mesh image differs from the single-device one on {share:.2e} of "
+                             "pixels")
+    if not state_same or summary["drops"] != single_summary["drops"]:
+        raise AssertionError(f"mesh state differs, or its drops {summary['drops']} differ from "
+                             f"the single device's {single_summary['drops']}")
+    if not torch.isfinite(img).all() or _lit(img, meshed._render_params()) <= 0.0:
+        raise AssertionError("mesh image not finite or shows no matter")
+    return meshed, counts, summary, single_summary
+
+
+def mesh_phase(device):
+    """The Engine on a one-rank NCCL mesh (see the module docstring):
+    flagship_1080p in retarded mode for MESH_FRAMES frames (then graph vs
+    eager from its final state, and the collectives of one eager frame
+    counted), in points mode for MESH_FRAMES, and conical_defect for
+    MESH_CONICAL_FRAMES.  Returns the launches summed over the three mesh
+    runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from spacetime_tpu_torch.mesh_run import collectives_of_one_frame
+    from spacetime_tpu_torch.parallel import mesh as mesh_mod
+    from spacetime_tpu_torch.utils.config import get_config
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, device_id=device)
+    try:
+        mesh = mesh_mod.make_mesh()
+        cfg = get_config("flagship_1080p")
+        meshed, counts, _, _ = _mesh_vs_single(cfg, mesh, device, MESH_FRAMES,
+                                               {"collision": 4, "band": 1, "pixel_pass": 1})
+        unequal = graph_vs_eager(meshed)
+        del meshed
+        # the collectives of one eager mesh frame (the graphs replay the same)
+        by_kind = collectives_of_one_frame(cfg, mesh)
+        print(f"  flagship_1080p on the mesh: graph vs eager from the final state differs in "
+              f"{unequal or 'nothing'}; collectives of one frame: "
+              f"{sum(c for c, _ in by_kind.values())} calls, "
+              f"{sum(b for _, b in by_kind.values())} bytes; by kind [calls, bytes] {by_kind}")
+        if unequal:
+            raise AssertionError(f"mesh graphs differ from eager in {unequal}")
+        total = dict(counts)
+        for c, mode, frames, expect in (
+                (dataclasses.replace(cfg, render_mode="points"), "points", MESH_FRAMES,
+                 {"collision": 4, "points": 1}),
+                (get_config("conical_defect"), "conical", MESH_CONICAL_FRAMES,
+                 {"collision": 4, "band": 1})):
+            meshed, c_counts, _, _ = _mesh_vs_single(c, mesh, device, frames, expect)
+            del meshed
+            for k, v in c_counts.items():
+                total[k] += v
+        print(f"  mesh phase: {time.perf_counter() - t0:.2f} s")
+        return total
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU",
@@ -1828,6 +2066,11 @@ def main() -> int:
                           dataclasses.replace(params, bin_capacity=BIG_BIN_CAPACITY),
                           headline.WIDTH, headline.HEIGHT, "headline, after the main path")[0]
     coll_err2, coll_ms, coll_plain_ms, coll_bnd = time_collision(particles, model)
+    SHARD_MS["collision"] = check_collision_shares(particles, model)
+    SHARD_MS["collision_exclude_bonds"] = check_collision_shares(particles, model, exclude=True)
+    SHARD_MS["pixel_pass"] = check_pixel_bands(particles, objects, buf, cam, params,
+                                               headline.WIDTH, headline.HEIGHT,
+                                               "headline, after the main path")
     coll_err = max(coll_err, coll_err2)
     del model, particles, objects, buf
     graph_ms, eager_ms = check_graph_vs_eager(device)
@@ -1867,6 +2110,9 @@ def main() -> int:
         BOOSTED_FRAMES, {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1},
         drops="gate")
     boosted_errs = check_engine_kernels(eng)
+    SHARD_MS["pixel_pass_camera_frame"] = check_pixel_bands(
+        eng.particles, eng.objects, eng.worldline, eng.camera, eng._render_params(),
+        eng.config.width, eng.config.height, "engine boosted_observer, final state")
     cf_err, cf_ms, cf_plain_ms, cf_bnd = boosted_errs["pixel_pass"]
     band_err = max(band_err, boosted_errs["band"][0])
     big_cf_err = check_pixel(
@@ -1924,6 +2170,9 @@ def main() -> int:
     band_err = max(band_err, io_band_err)
     pix_err = max(pix_err, io_pix_err)
 
+    # the path of this slice: the Engine on a one-rank NCCL mesh
+    mesh_counts = mesh_phase(device)
+
     record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",
         "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1948,10 +2197,16 @@ def main() -> int:
                "spacetime_tpu/ops/render_pallas.py:110",
                boosted_counts["pixel_pass_camera_frame"], cf_err, cf_ms, cf_plain_ms, cf_bnd),
     ]
-    # the I/O phase's launches by path, beside each kernel's main-path count
+    # the I/O phase's launches by path and the mesh phase's, beside each
+    # kernel's main-path count; the share launches' times beside the whole
+    # launch's (the band kernel runs unchanged on a rank's ring columns)
     for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
                                "collision_exclude", "pixel_pass_camera_frame")):
         row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
+        row["launches_mesh"] = mesh_counts[key]
+        whole, shares = SHARD_MS.get(row["name"], (None, None))
+        row["shard_ms"] = None if whole is None else {"whole": whole, **{
+            str(k): v for k, v in shares.items()}}
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

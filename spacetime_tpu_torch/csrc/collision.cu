@@ -52,6 +52,12 @@
 // to overlap them.  The lanes' partial forces are summed by a __shfl_xor
 // butterfly in a fixed order: no float atomics, so the result is
 // bit-identical from run to run.
+// A launch covers the sorted rows [row0, row0 + rows): the whole order
+// (row0 0, rows n), or one rank's share of it on a mesh (the TPU kernel's
+// tile grid split across chips, forces_pallas.py:451-492), whose forces the
+// caller sums across the ranks.  A row's force is written at its particle
+// index only, so rows outside the range leave `out` as the caller filled
+// it.
 // The TPU kernel's 128-element window alignment, DMA chunking, split
 // windows and BIGPOS overscan exist to feed the TPU's DMA engine and do not
 // carry over.
@@ -88,17 +94,19 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
                                  const int* __restrict__ cell_start,
                                  const float* __restrict__ origin,
                                  const float* __restrict__ disp, int n,
-                                 int n_cells, int side, float cd, float cd2,
+                                 int row0, int rows, int n_cells, int side, float cd, float cd2,
                                  float bres, float repulsion,
                                  const int* __restrict__ neighbors,
                                  float2* __restrict__ out) {
   const int lane = threadIdx.x & (G - 1);
   // the group's sorted row; neighbouring groups hold neighbouring cells,
   // so their ranges overlap in L1
-  const int t = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int local = (blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const int t = row0 + local;
+  const bool mine = local < rows && t < n;
   int i = 0;
   float fx = 0.0f, fy = 0.0f;
-  if (t < n) {
+  if (mine) {
     i = sorted_idx[t];
     if (sorted_cell[t] < n_cells) {  // inactive particles (cell id n_cells) get no force
       const float2 p = pos[i];
@@ -162,24 +170,27 @@ __global__ void collision_kernel(const float2* __restrict__ pos,
     fx += __shfl_xor_sync(0xffffffffu, fx, o);
     fy += __shfl_xor_sync(0xffffffffu, fy, o);
   }
-  if (t < n && lane == 0) out[i] = make_float2(fx, fy);
+  if (mine && lane == 0) out[i] = make_float2(fx, fy);
 }
 
 template <bool EXCLUDE>
 int launch(const void* pos, const void* sorted_idx, const void* sorted_cell,
-           const void* cell_start, const void* origin, const void* disp, int n,
-           int n_cells, int side, float cd, float cd2, float bres, float repulsion,
+           const void* cell_start, const void* origin, const void* disp, int n, int row0,
+           int rows, int n_cells, int side, float cd, float cd2, float bres, float repulsion,
            const void* neighbors, void* out, void* stream) {
   constexpr int G = EXCLUDE ? kLanesExclude : kLanesInclude;
   static_assert(G <= 32 && (G & (G - 1)) == 0 && kThreads % 32 == 0, "launch shape");
-  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * G;
+  if (n < 0 || row0 < 0 || rows < 0 || row0 > n || rows > n - row0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long total = static_cast<long long>(rows) * G;
   const int blocks = static_cast<int>((total + kThreads - 1) / kThreads);
   if (blocks > 0) {
     collision_kernel<EXCLUDE, G><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float2*>(pos), static_cast<const int*>(sorted_idx),
         static_cast<const int*>(sorted_cell), static_cast<const int*>(cell_start),
-        static_cast<const float*>(origin), static_cast<const float*>(disp), n, n_cells, side,
+        static_cast<const float*>(origin), static_cast<const float*>(disp), n, row0, rows,
+        n_cells, side,
         cd, cd2, bres, repulsion, static_cast<const int*>(neighbors),
         static_cast<float2*>(out));
   }
@@ -191,18 +202,19 @@ int launch(const void* pos, const void* sorted_idx, const void* sorted_cell,
 extern "C" int collision_forces_launch(const void* pos, const void* sorted_idx,
                                        const void* sorted_cell,
                                        const void* cell_start, const void* origin,
-                                       const void* disp, int n, int n_cells,
-                                       int side, float cd, float cd2, float bres,
-                                       float repulsion, void* out, void* stream) {
-  return launch<false>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n,
-                       n_cells, side, cd, cd2, bres, repulsion, nullptr, out, stream);
+                                       const void* disp, int n, int row0, int rows,
+                                       int n_cells, int side, float cd, float cd2,
+                                       float bres, float repulsion, void* out,
+                                       void* stream) {
+  return launch<false>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n, row0,
+                       rows, n_cells, side, cd, cd2, bres, repulsion, nullptr, out, stream);
 }
 
 extern "C" int collision_forces_exclude_launch(
     const void* pos, const void* sorted_idx, const void* sorted_cell,
-    const void* cell_start, const void* origin, const void* disp, int n,
-    int n_cells, int side, float cd, float cd2, float bres, float repulsion,
+    const void* cell_start, const void* origin, const void* disp, int n, int row0,
+    int rows, int n_cells, int side, float cd, float cd2, float bres, float repulsion,
     const void* neighbors, void* out, void* stream) {
-  return launch<true>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n,
-                      n_cells, side, cd, cd2, bres, repulsion, neighbors, out, stream);
+  return launch<true>(pos, sorted_idx, sorted_cell, cell_start, origin, disp, n, row0,
+                      rows, n_cells, side, cd, cd2, bres, repulsion, neighbors, out, stream);
 }

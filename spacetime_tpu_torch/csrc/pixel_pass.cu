@@ -17,6 +17,12 @@
 // The planar (3, H, W) image is written directly; pixels of the partial
 // last cell row/column (1080 = 67.5 x 16) are skipped.
 //
+// A launch shades the cell rows [row0, row0 + rows) into planes of out_h
+// pixel rows whose first row is pixel row row0 * k: the whole image (row0
+// 0, rows hc_img, out_h H), or one rank's band of cell rows on a mesh (the
+// TPU kernel's cell-row split across chips, `row_off` in its scal9,
+// render_pallas.py:375-414).  Each pixel's maths is the same either way.
+//
 // CAMERA_FRAME (the boosted view, the TPU kernel's `camera_frame` branch,
 // render_pallas.py:110-118): the pixel is a point of the camera's rest
 // frame, so it is first mapped back to its ground query point by the
@@ -88,6 +94,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 
@@ -120,7 +127,7 @@ constexpr size_t kSmemOptIn = 232448;
 
 // Mirrors render_cuda.PixelParams (ctypes) field for field.
 struct PixelParams {
-  int n_cells, width, height, wc_img, k, ds, wq, cap, flags;
+  int n_cells, width, height, wc_img, k, ds, wq, cap, flags, row0, rows, out_h;
   float rho2_edge, inv_dt, two_rho, strength, amb, one_m_amb, absorbed_dim,
       shadow;
   float planck_x[3], planck_num[3];
@@ -156,8 +163,9 @@ struct Shape {
   int n_tiles;         // n_cells * tiles_per_cell
   int cell_runs;       // runs of a cell row, ceil(k / kRun)
   int img_runs;        // runs of an image row, ceil(width / kRun)
-  int bg_runs;         // height * img_runs: the background's threads
-  int mid_row;         // the cell row tiles start from, (hc_img - 1) / 2
+  int bg_runs;         // the band's pixel rows * img_runs: the background's threads
+  int mid_row;         // the cell row tiles start from, row0 + (rows - 1) / 2
+  int y0;              // the first pixel row of the band, row0 * k
   int cell_blocks, bg_blocks;
   Divisor tiles_per_cell_d, wc_img_d, cell_runs_d, img_runs_d, k_d, ds_d;
   bool vec4;  // the planes are 16-byte aligned: whole runs store as float4
@@ -429,7 +437,7 @@ __device__ void cell_tile(const float* __restrict__ entries, const float* __rest
   const int ccol = cell - crow * p.wc_img;
   const int tile_runs = min(sh.strip, k - row0) * sh.cell_runs;
   const int l = lane & (L - 1);
-  const size_t plane = static_cast<size_t>(p.width) * p.height;
+  const size_t plane = static_cast<size_t>(p.width) * p.out_h;
   int nb = 0, amin = 0, shift = 0;
   // every lane runs every pass (the staging and the shuffles need the
   // whole warp); a group past the tile's runs redoes its last run and
@@ -578,7 +586,7 @@ __device__ void cell_tile(const float* __restrict__ entries, const float* __rest
               pyw[q], r[q], o[q]);
       }
     }
-    const size_t idx = static_cast<size_t>(gy) * p.width + gx0;
+    const size_t idx = static_cast<size_t>(gy - sh.y0) * p.width + gx0;
     if (L == 1 && sh.vec4 && ok[kRun - 1] && idx % kRun == 0) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
@@ -607,8 +615,9 @@ __device__ void background(const int* __restrict__ cell_lo, const int* __restric
                            const PixelParams& p, const Shape& sh, int t,
                            float* __restrict__ out) {
   const int k = p.k;
-  const int gy = quot(t, sh.img_runs_d);
-  const int gx0 = (t - gy * sh.img_runs) * kRun;
+  const int by = quot(t, sh.img_runs_d);  // the row within the band
+  const int gy = sh.y0 + by;
+  const int gx0 = (t - by * sh.img_runs) * kRun;
   const int crow_cells = quot(gy, sh.k_d) * p.wc_img;
   const int qrow = quot(gy, sh.ds_d) * p.wq;
   // pixel gx0 + q's cell and quad columns, stepped from gx0's
@@ -635,7 +644,7 @@ __device__ void background(const int* __restrict__ cell_lo, const int* __restric
   }
   const Frame s = frame_of(scal);
   const Boost b = CF ? boost_of(s.cvx, s.cvy) : Boost{};
-  const size_t plane = static_cast<size_t>(p.width) * p.height;
+  const size_t plane = static_cast<size_t>(p.width) * p.out_h;
   float o[kRun];
   bool all = true;
 #pragma unroll
@@ -648,7 +657,7 @@ __device__ void background(const int* __restrict__ cell_lo, const int* __restric
     }
     all = all && mine[q];
   }
-  const size_t idx = static_cast<size_t>(gy) * p.width + gx0;
+  const size_t idx = static_cast<size_t>(by) * p.width + gx0;
   if (sh.vec4 && all && idx % kRun == 0) {
     const float4 v = make_float4(o[0], o[1], o[2], o[3]);
 #pragma unroll
@@ -704,7 +713,17 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
   static_assert(kRun == 4 && L >= 1 && L <= 32 && (L & (L - 1)) == 0 && kWarps >= 1,
                 "launch shape");
   if (p.n_cells < 0 || p.k < 1 || p.ds < 1 || p.wc_img < 1 || p.cap < 0 || p.width < 0 ||
-      p.height < 0) {
+      p.height < 0 || p.n_cells % p.wc_img != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hc_img = p.n_cells / p.wc_img;
+  // the band: whole cell rows of the image, and planes that hold its pixel
+  // rows (those past the image's last row are not written)
+  const long long y0 = static_cast<long long>(p.row0) * p.k;
+  const long long y1 = std::min(static_cast<long long>(p.row0 + p.rows) * p.k,
+                                static_cast<long long>(p.height));
+  if (p.row0 < 0 || p.rows < 0 || p.row0 > hc_img || p.rows > hc_img - p.row0 ||
+      p.out_h < 0 || (p.rows > 0 && y1 - y0 > p.out_h)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Shape sh;
@@ -713,9 +732,10 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
   const int strip = (32 / L) / sh.cell_runs;
   sh.strip = strip < 1 ? 1 : (strip > p.k ? p.k : strip);
   sh.tiles_per_cell = (p.k + sh.strip - 1) / sh.strip;
-  const long long n_tiles = static_cast<long long>(p.n_cells) * sh.tiles_per_cell;
+  const long long n_tiles =
+      static_cast<long long>(p.rows) * p.wc_img * sh.tiles_per_cell;
   sh.img_runs = (p.width + kRun - 1) / kRun;
-  const long long bg_runs = static_cast<long long>(p.height) * sh.img_runs;
+  const long long bg_runs = (y1 > y0 ? y1 - y0 : 0) * sh.img_runs;
   const size_t per_warp = slice_bytes(p.cap);
   // tile and run indices, and the threads' (block, thread) index, stay ints
   const long long lim = INT_MAX - 1024;
@@ -746,10 +766,11 @@ int launch(const PixelParams& p, const float* entries, const int* cell_lo,
       opted = smem;
     }
   }
-  const size_t plane = static_cast<size_t>(p.width) * p.height;
+  const size_t plane = static_cast<size_t>(p.width) * p.out_h;
   sh.vec4 = plane % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int threads = warps * 32;
-  sh.mid_row = (p.n_cells / p.wc_img - 1) / 2;
+  sh.mid_row = p.row0 + (p.rows - 1) / 2;
+  sh.y0 = static_cast<int>(y0);
   sh.cell_blocks = (sh.n_tiles + warps - 1) / warps;
   sh.bg_blocks = (sh.bg_runs + threads - 1) / threads;
   const int blocks = sh.cell_blocks + sh.bg_blocks;

@@ -37,6 +37,14 @@
 // and only the touched winner slots.  Nothing fills or reads the whole
 // 8.3 MB winner buffer in a render.  On an NVIDIA H100 80GB HBM3 at 700 W
 // a render reads 0.0118 ms against a 0.0080 ms bound (PERF.md, section 6).
+//
+// On a mesh (ops/points_cuda.py render_points_mesh) the two passes split:
+// each rank runs the winner pass over its block of particles with their
+// GLOBAL indices (`index0` + i) into a winner plane of its own filled with
+// kEmpty, and no mask; the ranks' planes are MIN-reduced (an integer
+// minimum, so the reduction is exact in any order); then
+// points_resolve_dense_kernel colours every pixel from the reduced plane
+// alone (one int4 read a run), with the replicated object index.
 // Not carried over from the TPU kernel:
 // the (8, 128) tile keys, the key sort, the per-group windows and the
 // one-hot MXU matmuls (points_pallas.py:13-25, 89-126), which exist because
@@ -58,7 +66,7 @@ __global__ void points_winner_kernel(const float2* __restrict__ pos,
                                      const uint8_t* __restrict__ active,
                                      const float* __restrict__ cam_pos,
                                      const float* __restrict__ cam_zoom, int n,
-                                     int width, int height, float larger,
+                                     int index0, int width, int height, float larger,
                                      float half_w, float half_h,
                                      int* __restrict__ winner,
                                      unsigned* __restrict__ mask) {
@@ -76,8 +84,8 @@ __global__ void points_winner_kernel(const float2* __restrict__ pos,
   if (x >= 0.0f && x < static_cast<float>(width) && y >= 0.0f &&
       y < static_cast<float>(height)) {
     const int px = static_cast<int>(y) * width + static_cast<int>(x);
-    atomicMin(&winner[px], i);
-    atomicOr(&mask[px >> 5], 1u << (px & 31));
+    atomicMin(&winner[px], index0 + i);
+    if (mask != nullptr) atomicOr(&mask[px >> 5], 1u << (px & 31));
   }
 }
 
@@ -127,6 +135,54 @@ __global__ void points_resolve_kernel(int* __restrict__ winner,
   }
 }
 
+// One thread per run of 4 pixels of a MIN-reduced winner plane: a pixel
+// whose slot holds an index gets its object's colour, the others white.
+__global__ void points_resolve_dense_kernel(const int* __restrict__ winner,
+                                            const int* __restrict__ object_index,
+                                            const float* __restrict__ base_color, int hw,
+                                            bool vec4, float* __restrict__ out) {
+  const int p0 = (blockIdx.x * blockDim.x + threadIdx.x) * kRun;
+  if (p0 >= hw) return;
+  int w[kRun];
+  if (vec4) {
+    const int4 v = *reinterpret_cast<const int4*>(winner + p0);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) w[q] = p0 + q < hw ? winner[p0 + q] : kEmpty;
+  }
+  float c[3][kRun];
+#pragma unroll
+  for (int q = 0; q < kRun; ++q) {
+    c[0][q] = c[1][q] = c[2][q] = 1.0f;
+    if (w[q] != kEmpty) {
+      const float* col = base_color + 3 * object_index[w[q]];
+      c[0][q] = col[0];
+      c[1][q] = col[1];
+      c[2][q] = col[2];
+    }
+  }
+  const size_t plane = static_cast<size_t>(hw);
+  if (vec4) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      *reinterpret_cast<float4*>(out + ch * plane + p0) =
+          make_float4(c[ch][0], c[ch][1], c[ch][2], c[ch][3]);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < kRun; ++q) {
+      if (p0 + q < hw) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) out[ch * plane + p0 + q] = c[ch][q];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int points_launch(const void* pos, const void* active,
@@ -141,7 +197,7 @@ extern "C" int points_launch(const void* pos, const void* active,
     points_winner_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
         static_cast<const float2*>(pos), static_cast<const uint8_t*>(active),
         static_cast<const float*>(cam_pos), static_cast<const float*>(cam_zoom),
-        n, width, height, larger, 0.5f * (width - 1), 0.5f * (height - 1),
+        n, 0, width, height, larger, 0.5f * (width - 1), 0.5f * (height - 1),
         static_cast<int*>(winner), static_cast<unsigned*>(mask));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -164,6 +220,46 @@ extern "C" int points_launch(const void* pos, const void* active,
         static_cast<const int*>(object_index), static_cast<const float*>(base_color), hw, vec4,
         static_cast<float*>(out));
     if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mesh's winner pass: particles [0, n) of this rank's block, numbered
+// index0 + i, into `winner` (H * W slots, all kEmpty before the call).
+extern "C" int points_winner_launch(const void* pos, const void* active,
+                                    const void* cam_pos, const void* cam_zoom, int n,
+                                    int index0, int width, int height, void* winner,
+                                    void* stream) {
+  const float larger = static_cast<float>(width > height ? width : height);
+  if (n < 0 || index0 < 0 || width < 0 || height < 0 ||
+      static_cast<long long>(index0) + n >= kEmpty) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    points_winner_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float2*>(pos), static_cast<const uint8_t*>(active),
+        static_cast<const float*>(cam_pos), static_cast<const float*>(cam_zoom), n, index0,
+        width, height, larger, 0.5f * (width - 1), 0.5f * (height - 1),
+        static_cast<int*>(winner), nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The mesh's resolve pass over a MIN-reduced winner plane.
+extern "C" int points_resolve_dense_launch(const void* winner, const void* object_index,
+                                           const void* base_color, int width, int height,
+                                           void* out, void* stream) {
+  if (width < 0 || height < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int hw = width * height;
+  if (hw > 0) {
+    const int runs = (hw + kRun - 1) / kRun;
+    const bool vec4 = hw % kRun == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(winner) % 16 == 0;
+    points_resolve_dense_kernel<<<(runs + kThreads - 1) / kThreads, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(winner), static_cast<const int*>(object_index),
+        static_cast<const float*>(base_color), hw, vec4, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

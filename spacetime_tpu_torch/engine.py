@@ -65,7 +65,19 @@ and changed by `viewer.apply_key`), the `recorder` (utils/replay.py), which
 logs each frame's inputs before they apply, `run`'s `key_source` (key
 events through `viewer.apply_key`; `quit` ends the loop) and `save_png`
 (utils/png.py's writer, no pillow).
-Not ported yet (it raises NotImplementedError): a mesh.
+
+On a mesh (`Engine(config, mesh=parallel.mesh.make_mesh())`, one process a
+rank; the JAX Engine's `mesh=`) the state takes the JAX layout
+(parallel/sharding.py): `particles` and `worldline` are this rank's block
+of the particle axis (the scene built whole on every rank, padded to a
+multiple of the world size, then cut: `_shard_state`), the camera, the
+clock and the ring's cursor replicated.  The frame is the same fused frame
+with the collectives inside its stages (captured into its CUDA graphs on
+NCCL); every rank gets the whole image and the same diagnostics, so every
+rank adapts its budgets alike.  A checkpoint holds the whole unpadded
+state (rank 0 writes it) and loads on a mesh or on one device alike.  Every
+mode and `render_views` run on a mesh; aloof bodies raise
+NotImplementedError there.
 """
 
 from __future__ import annotations
@@ -89,6 +101,8 @@ from .models.softbody import SoftbodyModel
 from .ops import btz, curved, forces, gravity, materials as materials_ops, raytrace
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
+from .ops.rk4 import StepAux
+from .parallel import multihost, sharding
 from .state import Objects, Particles, pack_particles, with_rest_len
 from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
@@ -125,7 +139,8 @@ def build_scene(spec: SceneSpec, device=None):
     return sb.build(spec.capacity, device=device)
 
 
-def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: int = 0):
+def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: int = 0,
+                    mesh=None):
     """The ConicalDefect tuple of `cfg` on `device`: cfg.defect, a single
     ((cx, cy), deficit) spec or a tuple of them, moved by cfg.defect_vel to
     time `t`, then the matter-sourced cfg.defect_source entries
@@ -133,12 +148,13 @@ def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: 
     each moving defect sits where the camera's past light cone meets its
     linear track c0 + v t_r: the t_r <= t root of |c(t_r) - cam| = t - t_r;
     sourced ones sit at their retarded centroid.  With tensors `t` and
-    `cam` no value is read back to the host."""
+    `cam` no value is read back to the host.  On a `mesh` the state is this
+    rank's share (the sourced centroids' sums all-reduced)."""
     sourced = ()
     if cfg.defect_source:
         sourced = gravity.source_defects(cfg.defect_source, particles, buf, cam,
                                          cfg.physics.h, cfg.defect_G, cfg.defect_retarded,
-                                         max_age=max_age)
+                                         max_age=max_age, mesh=mesh)
     if cfg.defect is None:
         return sourced
     spec = cfg.defect
@@ -170,10 +186,11 @@ def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: 
     return tuple(out) + sourced
 
 
-def _refuse_unported(config: EngineConfig, mesh) -> None:
+def _refuse_unported(config: EngineConfig, mesh, aloof_bodies=()) -> None:
+    on_mesh = mesh is not None
     missing = [
-        (mesh is not None, "a device mesh (parallel/)"),
         (config.render_mode not in MODES, f"render_mode {config.render_mode!r}"),
+        (on_mesh and bool(aloof_bodies), "aloof bodies on a device mesh"),
     ]
     for absent, what in missing:
         if absent:
@@ -181,14 +198,21 @@ def _refuse_unported(config: EngineConfig, mesh) -> None:
 
 
 class Engine:
-    """Owns the state on one device and drives the frame loop.  `device`
-    None means cuda:0 and raises without CUDA; pass "cpu" for the CPU."""
+    """Owns the state on one device (or this rank's share of it on a
+    `mesh`) and drives the frame loop.  `device` None means cuda:0 and
+    raises without CUDA; pass "cpu" for the CPU.  With `mesh` the device is
+    the mesh's, and `particles` (if given) is the whole scene."""
 
     def __init__(self, config: EngineConfig, particles: Optional[Particles] = None,
                  objects: Optional[Objects] = None, device=None, aloof_bodies=(),
                  mesh=None):
-        _refuse_unported(config, mesh)
+        _refuse_unported(config, mesh, aloof_bodies)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = device_mod.resolve(device)
+        self.mesh = mesh
         self.log = logmod.initialize()
         self.config = config
         if particles is None:
@@ -198,12 +222,19 @@ class Engine:
         self._aloof = None  # their injection (aloofbody.Injection)
         if self.aloof_bodies:
             particles = self._reserve_aloof_slots(particles)
+        self._n_full = particles.capacity  # the capacity, before any mesh padding
         particles = fused.owned(particles.to(self.device))  # updated in place
         self.objects = objects.to(self.device)
+        self._object_index = None  # the replicated global object index (mesh points view)
+        if mesh is not None:
+            # the global scene padded to the world size; the physics reads
+            # global offsets and material planes, the state is cut below
+            particles = sharding.pad_particles(particles, mesh.size)
+            self._object_index = particles.object_index
         # None for an irregular bond graph: the row-gather physics
         offsets = forces.derive_spring_offsets(particles.neighbors.cpu().numpy())
         self.model = SoftbodyModel(particles.capacity, offsets, config.physics,
-                                   device=self.device)
+                                   device=self.device, mesh=mesh)
         # per-particle material planes (None when everything is default)
         self.materials = None
         if config.materials is not None:
@@ -214,6 +245,8 @@ class Engine:
             # plastic creep needs the per-bond rest-length state; an evolved
             # one passed in (or loaded from a checkpoint) is kept as it is
             particles = with_rest_len(particles, config.physics.rest_lengths())
+        if mesh is not None:
+            particles = sharding.shard_particles(particles, mesh)
         self.controller = CameraController()
         self.time = 0.0
         self.frame = 0
@@ -424,7 +457,7 @@ class Engine:
             # keeps this function lives in the Engine's own cache, and a
             # reference back to the Engine would hold its device memory
             # (ring, graph pools) past its last use, until a cycle collection
-            defects = functools.partial(conical_defects, cfg, self.device)
+            defects = functools.partial(conical_defects, cfg, self.device, mesh=self.mesh)
         if cfg.render_mode == "btz":
             if cfg.btz is None:
                 raise ValueError("render_mode='btz' requires config.btz")
@@ -433,7 +466,7 @@ class Engine:
                                   cfg.width, cfg.height, rparams, cfg.render_mode,
                                   cfg.physics.h, tick_time, aloof=self._aloof,
                                   present=self.present, defects=defects, wl3d=cfg.wl3d,
-                                  hole=hole)
+                                  hole=hole, mesh=self.mesh, object_index=self._object_index)
 
     def _btz_hole(self) -> btz.BTZBlackHole:
         """The BTZBlackHole of config.btz, ((cx, cy), mass, ads_l[, spin]),
@@ -449,13 +482,25 @@ class Engine:
         return conical_defects(self.config, self.device, self.time if t is None else t,
                                self.camera if cam is None else cam,
                                self.particles if particles is None else particles,
-                               self.worldline if buf is None else buf, max_age)
+                               self.worldline if buf is None else buf, max_age, self.mesh)
 
     def _tick(self) -> float:
         """An eager tick's host clock: `time` advanced by h (the JAX eager
         path's `self.time += h`)."""
         self.time += self.config.physics.h
         return self.time
+
+    def step_physics(self) -> None:
+        """`steps_per_frame` physics ticks, each pushed into the ring, with
+        no render and no camera motion, even while paused (the JAX Engine's
+        step_physics).  They run eagerly, as an eager frame's ticks do: each
+        push takes the host clock that `_tick` advances, and the ring's
+        cursor moves on the device, so the next frame (fused or not) reads
+        the state they leave.  Sets `last_aux`: the StepAux counters summed
+        over the ticks, as a frame's are."""
+        stages = self._stages(self._render_params(), tick_time=self._tick)
+        fused.run_stages(stages, fused.schedule(self.config.steps_per_frame)[:-1])
+        self.last_aux = StepAux(*self._state.aux.clone().unbind())
 
     # coarse static ladder of view-cell sizes (the JAX package's): a zoom
     # sweep lands on few distinct cell sizes
@@ -530,7 +575,7 @@ class Engine:
         p = self.particles
         return raytrace.render_views(self.worldline, p.object_index, self.objects, cams,
                                      cfg.width, cfg.height, rparams,
-                                     boundary=wl.boundary_mask(p))
+                                     boundary=wl.boundary_mask(p), mesh=self.mesh)
 
     # -- fused frame --------------------------------------------------------
 
@@ -773,10 +818,13 @@ class Engine:
 
     def conserved_quantities(self):
         """Relativistic totals (momentum/energy/KE/bonds) — see
-        utils/diagnostics.py."""
+        utils/diagnostics.py — of the whole scene (gathered on a mesh)."""
         from .utils import diagnostics
 
-        return diagnostics.totals(self.particles)
+        p = self.particles
+        if self.mesh is not None:
+            p = sharding.gather_particles(p, self.mesh)
+        return diagnostics.totals(p)
 
     # -- persistence --------------------------------------------------------
 
@@ -788,14 +836,29 @@ class Engine:
         refuse a checkpoint from another scene/config."""
         cfg = dataclasses.asdict(self.config)
         cfg.pop("stage_timing")  # how frames are timed, not what they compute
-        desc = repr((cfg, int(self.particles.capacity), int(self.worldline.capacity)))
+        # the scene's own capacity: a mesh's padding and blocks leave it alone
+        desc = repr((cfg, int(self._n_full), int(self.worldline.capacity)))
         return hashlib.sha256(desc.encode()).hexdigest()[:16]
 
     def _checkpoint_parts(self) -> dict:
-        return {"particles": self.particles, "worldline": self.worldline,
-                "camera": self.camera}
+        """The state a checkpoint holds: on a mesh the whole unpadded state,
+        gathered on every rank (a collective: every rank calls it)."""
+        p, buf = self.particles, self.worldline
+        if self.mesh is not None:
+            p, buf = sharding.gather_state(p, buf, self.mesh, self._n_full)
+        return {"particles": p, "worldline": buf, "camera": self.camera}
+
+    def _shard_state(self, particles: Particles, buf: wl.WorldlineBuffer):
+        """(particles, ring) of this rank from the whole state (identity
+        off a mesh), on the Engine's device."""
+        if self.mesh is None:
+            return particles, buf
+        return sharding.shard_state(particles, buf, self.mesh)
 
     def save_checkpoint(self, path: str) -> None:
+        """Write the state and the learned budgets to `path`.  On a mesh
+        every rank calls it: the state is gathered, rank 0 writes, and the
+        ranks wait for the file."""
         from .utils import checkpoint
 
         meta = {"time": self.time, "frame": self.frame,
@@ -804,12 +867,17 @@ class Engine:
                 "paused": bool(self.paused)}
         for f in self._ADAPT_FIELDS:
             meta[f] = int(getattr(self, f))
-        checkpoint.save(path, self._checkpoint_parts(), meta)
+        parts = self._checkpoint_parts()
+        if self.mesh is None or self.mesh.rank == 0:
+            checkpoint.save(path, parts, meta)
+        if self.mesh is not None:
+            multihost.sync(self.mesh)
 
     def load_checkpoint(self, path: str, strict: bool = True) -> None:
         """Restore state + learned adaptation budgets.  `strict` validates
         the config/scene fingerprint.  Everything is loaded and validated
-        before any field of the engine changes."""
+        before any field of the engine changes.  A checkpoint of a single
+        device loads on a mesh (every rank calls it) and back."""
         from .utils import checkpoint
 
         state, meta = checkpoint.load(path, self._checkpoint_parts())
@@ -819,7 +887,8 @@ class Engine:
                 f"checkpoint {path!r} was saved under a different engine config/scene "
                 "(fingerprint mismatch) — construct the engine with the saved run's "
                 "config, or pass strict=False")
-        self.particles, self.worldline = state["particles"], state["worldline"]
+        self.particles, self.worldline = self._shard_state(state["particles"],
+                                                           state["worldline"])
         self.time = float(meta["time"])
         self.camera = state["camera"]  # uploads the camera and the clock
         self.frame = int(meta["frame"])

@@ -30,8 +30,9 @@ The stages (`frame_stages`), in the order a frame runs them:
   * render: the planar (3, H, W) image (the retina mode's strip is
     (3, max(16, H // 8), num_rays)) and one i64 vector of counters: `aux`,
     then the render's diagnostics that are not None (`unpack` reads it
-    back; the retina mode has none).  The conical mode computes its
-    defects inside the stage from the device clock (the JAX frame's
+    back; the retina mode has none); the stage is a `RenderStage`.  The
+    conical mode computes its defects inside the stage from the device
+    clock (the JAX frame's
     in-graph `t_end`), so a replay places them at its own frame's time;
     matter-sourced ones read the particles and the ring there.  The btz
     mode renders around a hole whose tensors the Engine made once for the
@@ -141,7 +142,8 @@ def same_layout(a, b) -> bool:
 
 def frame_stages(model, materials, state: FrameState, objects, width: int, height: int,
                  params, mode: str, h: float, tick_time: Optional[Callable[[], float]] = None,
-                 aloof=None, present=None, defects=None, wl3d=None, hole=None):
+                 aloof=None, present=None, defects=None, wl3d=None, hole=None, mesh=None,
+                 object_index=None):
     """{stage name: closure} of one frame: 'step' (first tick), 'step_more'
     (later ticks), 'worldline' and 'render' (see the module docstring).
     `mode` is 'retarded', 'instant', 'points', 'retina', 'conical', 'btz'
@@ -155,7 +157,11 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
     max_age)` -> ConicalDefect tuple (Engine._defects), called in the
     render stage with the device clock; btz takes its `hole`
     (ops/btz.BTZBlackHole, device tensors); worldline3d takes its view
-    parameters `wl3d` (ops/worldline3d.Worldline3DParams)."""
+    parameters `wl3d` (ops/worldline3d.Worldline3DParams).  With `mesh`
+    (parallel.mesh.Mesh) the state is this rank's block, `model` steps on
+    the mesh, the render stage runs the renderers' mesh paths and returns
+    the whole image on every rank; the point view reads the replicated
+    `object_index`, the conical `defects` the mesh's sums."""
     h32 = float(np.float32(h))
     cam = camera_of(state.frame_in)
     clock = state.frame_in[5]
@@ -183,19 +189,24 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
         wl.push_frame(state.buf, state.particles, clock, present=present)
 
     def with_diag(img, diag):
-        """The image and the counters: aux, then the diag fields not None."""
-        render.fields = [f for f, v in zip(diag._fields, diag) if v is not None]
+        """The image, the counters (aux, then the diag fields not None) and
+        those fields' names."""
         vals = [torch.as_tensor(v).to(torch.int64).reshape(1) for v in diag if v is not None]
-        return img, torch.cat([state.aux] + vals)
+        return (img, torch.cat([state.aux] + vals),
+                [f for f, v in zip(diag._fields, diag) if v is not None])
 
     def with_points_diag(img):
         """The image and the counters of the point views: aux, then
         PointsDiag's window_truncated, always 0 (no window cap)."""
-        render.fields = ["window_truncated"]
         return img, torch.cat([state.aux, torch.zeros(1, dtype=torch.int64,
-                                                      device=state.aux.device)])
+                                                      device=state.aux.device)]), \
+            ["window_truncated"]
 
-    if mode == "points":
+    if mode == "points" and mesh is not None:
+        def render():
+            return with_points_diag(points_cuda.render_points_mesh(
+                state.particles, objects, cam, width, height, mesh, object_index))
+    elif mode == "points":
         def render():
             return with_points_diag(rasterize.render_points(
                 state.particles, objects, cam, width, height, planar=True))
@@ -204,27 +215,24 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
             return with_points_diag(worldline3d.render_worldline3d(
                 state.buf, state.particles.object_index, objects, cam, width, height, wl3d,
                 active=state.particles.active, boundary=wl.boundary_mask(state.particles),
-                planar=True))
+                planar=True, mesh=mesh))
     elif mode == "conical":
         def render():
             ds = defects(clock, cam, state.particles, state.buf, params.max_age)
-            # the defects this stage used last: after a capture, the graph's
-            # own tensors, which each replay rewrites
-            render.defects = ds
-            return with_diag(*curved.render_retarded_conical_with_diag(
+            return (*with_diag(*curved.render_retarded_conical_with_diag(
                 state.buf, state.particles.object_index, objects, cam, ds, width, height,
-                params, planar=True))
+                params, planar=True, mesh=mesh)), ds)
     elif mode == "btz":
         def render():
             return with_diag(*btz.render_btz_with_diag(
                 state.buf, state.particles.object_index, objects, cam, hole, width, height,
-                params, planar=True))
+                params, planar=True, mesh=mesh))
     elif mode == "retina":
         def render():
             img = raytrace.render_retina(state.buf, state.particles.object_index, objects, cam,
-                                         params, height=max(16, height // 8), planar=True)
-            render.fields = []
-            return img, state.aux.clone()
+                                         params, height=max(16, height // 8), planar=True,
+                                         mesh=mesh)
+            return img, state.aux.clone(), []
     else:
         if mode == "instant":
             params = dataclasses.replace(params, opaque=False, retarded=False)
@@ -232,9 +240,33 @@ def frame_stages(model, materials, state: FrameState, objects, width: int, heigh
         def render():
             return with_diag(*raytrace.render_retarded_with_diag(
                 state.buf, state.particles.object_index, objects, cam, width, height, params,
-                planar=True, boundary=wl.boundary_mask(state.particles)))
+                planar=True, boundary=wl.boundary_mask(state.particles), mesh=mesh))
     return {"step": step(True), "step_more": step(False), "worldline": push,
-            "render": render}
+            "render": RenderStage(render)}
+
+
+class RenderStage:
+    """frame_stages' render stage: a call runs `run` and returns (image,
+    counters), and keeps what it found as attributes: `fields`, the names
+    of the diagnostics after aux in the counters (`unpack` reads them), and
+    in the conical mode `defects`, the defects it used (after a capture,
+    the graph's own tensors, which each replay rewrites).  Kept on an
+    object, not on the closure: a closure that sets its own attributes
+    refers to itself, and that cycle held a dropped frame's state (its
+    ring) and its graph-pool tensors until the cyclic garbage collector
+    ran, which could then free graph memory in the middle of another
+    capture."""
+
+    def __init__(self, run: Callable[[], tuple]):
+        self.run = run
+        self.fields: Optional[List[str]] = None
+        self.defects = None
+
+    def __call__(self):
+        img, counters, self.fields, *rest = self.run()
+        if rest:
+            self.defects = rest[0]
+        return img, counters
 
 
 def schedule(steps_per_frame: int, ticks: bool = True) -> List[Tuple[str, str]]:
@@ -248,7 +280,7 @@ def schedule(steps_per_frame: int, ticks: bool = True) -> List[Tuple[str, str]]:
 
 
 def unpack(counters: torch.Tensor, render) -> tuple:
-    """(StepAux, diag) as views of the counter vector of the render closure
+    """(StepAux, diag) as views of the counter vector of the render stage
     `render` (of frame_stages; its `fields` names the diagnostics it
     packed): PointsDiag for the point and worldline3d views, None for the
     retina mode, else RenderDiag, whose fields the renderer left None stay
@@ -270,7 +302,7 @@ DROP_FIELDS = ("grid_overflow", "window_truncated", "band_truncated", "bin_dropp
 
 def drop_counts(counters: torch.Tensor, render) -> torch.Tensor:
     """(len(DROP_FIELDS),) i64 on the counters' device, in DROP_FIELDS
-    order: the drop counters of a counter vector that the render closure
+    order: the drop counters of a counter vector that the render stage
     `render` packed (see unpack), by name; one the vector holds twice (the
     point view's window_truncated, in StepAux and PointsDiag) summed, one it
     does not hold 0.  Device work only: the index is made once a closure."""

@@ -139,11 +139,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.collision_forces_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf, cf, vp, vp,
     ]
     lib.collision_forces_launch.restype = ci
     lib.collision_forces_exclude_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, ci, ci, ci, cf, cf, cf, cf, vp, vp, vp,
+        vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, cf, cf, cf, vp, vp, vp,
     ]
     lib.collision_forces_exclude_launch.restype = ci
     lib.pixel_pass_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp]
@@ -154,6 +154,10 @@ def library() -> ctypes.CDLL:
     lib.band_window_launch.restype = ci
     lib.points_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp]
     lib.points_launch.restype = ci
+    lib.points_winner_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp, vp]
+    lib.points_winner_launch.restype = ci
+    lib.points_resolve_dense_launch.argtypes = [vp, vp, vp, ci, ci, vp, vp]
+    lib.points_resolve_dense_launch.restype = ci
     _lib = lib
     return lib
 

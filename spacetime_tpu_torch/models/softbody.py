@@ -9,7 +9,9 @@ shifted rule; without them (`spring_offsets=None`, any bond graph) it takes
 the row-gather physics and the collision kernel's bond-excluding variant.
 The collision kernel runs exactly when the particles are CUDA tensors
 (ops/forces_cuda.py).  `integrator` is "rk4" (four force evaluations a
-step) or "euler" (one; ops/rk4.py).
+step) or "euler" (one; ops/rk4.py).  With `mesh` (parallel.mesh.Mesh) the
+particles a step takes and returns are this rank's block, `capacity` the
+global (padded) one (the JAX model's `shard`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class SoftbodyModel(nn.Module):
     `spring_offsets` (forces.derive_spring_offsets of the scene's neighbor
     table) selects the shifted-spring physics; None selects the row-gather
     physics.  `device` None means cuda:0 (device.resolve: raises without
-    CUDA).
+    CUDA); with a `mesh`, the mesh's device.
     """
 
     def __init__(
@@ -51,10 +53,12 @@ class SoftbodyModel(nn.Module):
         params: PhysicsParams = DEFAULT_PARAMS,
         device=None,
         integrator: str = "rk4",
+        mesh=None,
     ):
         super().__init__()
-        device = device_mod.resolve(device)
+        device = device_mod.resolve(mesh.device if mesh is not None else device)
         self.capacity = capacity
+        self.mesh = mesh
         self.params = params
         self.grid_dim = GRID_DIM
         self.integrator = integrator
@@ -74,7 +78,7 @@ class SoftbodyModel(nn.Module):
         return rk4_ops.physics_step(
             particles, self.params, self.rest_lengths, self.grid_dim,
             self.spring_offsets, self.bin_resolution, materials=materials,
-            integrator=self.integrator,
+            integrator=self.integrator, mesh=self.mesh,
         )
 
     def step_n(self, particles: Particles, n_steps: int, materials=None

@@ -51,7 +51,9 @@ A frame (`render_btz_with_diag`):
 Everything is plain torch on every device: the JAX package runs it as XLA,
 with no Pallas kernel.  `RenderDiag.segment_dropped` is the sum over the
 routes (the JAX package drops it).  `render_btz_brute` is the exhaustive
-oracle of tests.
+oracle of tests.  On a mesh (`mesh`, parallel/) step 1 runs on this rank's
+ring columns and each route's pairs are all-gathered with its counters
+all-reduced (`raytrace._gather_pairs`); steps 2-5 run replicated.
 
 Modelling limits, as the JAX package documents them: the physics runs in
 the flat chart (keep bodies at r >> r_h); images use coordinate time; the
@@ -70,6 +72,7 @@ from ..state import Objects
 from .raytrace import (
     _BIG, _F_AX, _F_AY, _F_BX, _F_BY, _F_CB, _F_CG, _F_CR, _F_TA, _F_VX, _F_VY, _PI,
     PairData, RenderDiag, RenderParams, _assemble_image, _band_pairs, _build_view_tables,
+    _gather_pairs,
     _cell_blocks, _cell_pixel_coords, _compact_pairs_to_budget, _field_at, _occupancy_cells,
     _occupancy_xy, _ray_angles, _segment_data, camera_doppler_factor_xy, doppler_factor_xy,
     floored_mod, shade_channels,
@@ -580,7 +583,7 @@ def _pixel_optics(pxs, pys, cam: Camera, hole: BTZBlackHole, routes, optics_fn):
 
 def _render_btz_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                      hole: BTZBlackHole, width: int, height: int, params: RenderParams,
-                     planar: bool):
+                     planar: bool, mesh=None):
     """(image, RenderDiag); see the module docstring."""
     t_now = newest_time(buf)
     use_rays = params.opaque and params.retarded
@@ -591,6 +594,8 @@ def _render_btz_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Cam
     for r in routes:
         p, trunc, segd = _route_pairs(buf, obj_index, objects, cam, t_now, width, height,
                                       params, hole, r, delay_fn)
+        if mesh is not None:
+            p, _, (trunc, segd) = _gather_pairs(mesh, p, None, (trunc, segd))
         plist.append(p)
         band_truncated = band_truncated + trunc
         if segd is not None:
@@ -626,13 +631,15 @@ def _render_btz_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Cam
 
 def render_btz_with_diag(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                          hole: BTZBlackHole, width: int, height: int, params: RenderParams,
-                         planar: bool = False):
+                         planar: bool = False, mesh=None):
     """(image, RenderDiag): the retarded-time image around the hole, (H, W,
     3) or (3, H, W) with `planar`.  retina_dropped is None (the retina
     marches the whole compacted table); segment_dropped is the sum over the
     routes with rank compaction on, else None.  The diag fields are device
-    tensors."""
-    return _render_btz_impl(buf, obj_index, objects, cam, hole, width, height, params, planar)
+    tensors.  With `mesh`, `buf` and `obj_index` are this rank's share (see
+    the module docstring)."""
+    return _render_btz_impl(buf, obj_index, objects, cam, hole, width, height, params, planar,
+                            mesh)
 
 
 def render_btz_xray(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,

@@ -35,6 +35,12 @@ Steps 2-5 are plain torch on every device, as the JAX package runs them
 in XLA.  `RenderDiag.segment_dropped` is the sum over the routes (the JAX
 package drops it).
 
+On a mesh (`mesh`, parallel/) the ring holds this rank's particle columns:
+step 1 runs on them, then each route's pair rows are all-gathered in rank
+order with its band counters all-reduced (`raytrace._gather_pairs`), so
+steps 2-5 run replicated and every rank renders the whole image (JAX runs
+the same frame GSPMD-partitioned, `spacetime_tpu/engine.py:276-297`).
+
 Multi-defect scenes (a tuple of defects) use the single-scattering
 superposition: the direct route plus one back route per defect.
 `render_conical_brute` is the exhaustive oracle of tests.
@@ -59,6 +65,7 @@ from ..state import Objects
 from .raytrace import (
     _BIG, _F_AX, _F_AY, _F_BX, _F_BY, _F_CB, _F_CG, _F_CR, _F_TA, _F_VX, _F_VY, _PI,
     PairData, RenderDiag, RenderParams, _assemble_image, _band_pairs, _build_view_tables,
+    _gather_pairs,
     _cell_blocks, _cell_pixel_coords, _compact_pairs_to_budget, _field_at,
     _occupancy_cells, _occupancy_xy, _ray_hit_xy, _retina, _segment_data,
     camera_doppler_factor_xy, doppler_factor_xy, floored_mod, shade_channels,
@@ -265,7 +272,7 @@ def _route_pass_block(vdat, vok, px, py, t_now, cam: Camera, defects, retinas,
 
 def _render_conical_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                          defect, width: int, height: int, params: RenderParams,
-                         planar: bool):
+                         planar: bool, mesh=None):
     """(image, RenderDiag); see the module docstring."""
     defects = _defect_tuple(defect)
     t_now = newest_time(buf)
@@ -280,6 +287,8 @@ def _render_conical_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam:
     for fn in [None] + [l2_of(d) for d in defects]:
         p, trunc, segd = _band_pairs(buf, obj_index, objects, cam, t_now, width, height,
                                      params, cull_hull=False, route_lengths=fn)
+        if mesh is not None:
+            p, _, (trunc, segd) = _gather_pairs(mesh, p, None, (trunc, segd))
         plist.append(p)
         band_truncated = band_truncated + trunc
         if segd is not None:
@@ -315,23 +324,24 @@ def _render_conical_impl(buf: WorldlineBuffer, obj_index, objects: Objects, cam:
 
 def render_retarded_conical_with_diag(buf: WorldlineBuffer, obj_index, objects: Objects,
                                       cam: Camera, defect, width: int, height: int,
-                                      params: RenderParams, planar: bool = False):
+                                      params: RenderParams, planar: bool = False, mesh=None):
     """(image, RenderDiag): the retarded-time image through the direct and
     every defect's back route, (H, W, 3) or (3, H, W) with `planar`.
     `defect` is a ConicalDefect or a tuple of them.  retina_dropped is None
     (each retina marches the whole compacted table); segment_dropped is
     the sum over the routes with rank compaction on, else None.  The diag
-    fields are device tensors."""
+    fields are device tensors.  With `mesh`, `buf` and `obj_index` are this
+    rank's share (see the module docstring)."""
     return _render_conical_impl(buf, obj_index, objects, cam, defect, width, height, params,
-                                planar)
+                                planar, mesh)
 
 
 def render_retarded_conical(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                             defect, width: int, height: int, params: RenderParams,
-                            planar: bool = False) -> torch.Tensor:
+                            planar: bool = False, mesh=None) -> torch.Tensor:
     """The image of render_retarded_conical_with_diag."""
     return _render_conical_impl(buf, obj_index, objects, cam, defect, width, height, params,
-                                planar)[0]
+                                planar, mesh)[0]
 
 
 def render_conical_brute(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,

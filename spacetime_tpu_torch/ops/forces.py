@@ -25,6 +25,13 @@ Two ways to read a particle's bonded partners, as in the JAX package:
 
 Per-slot contributions are summed slot by slot in slot order, as JAX's
 loop does.
+
+On a mesh (parallel/) each rank computes the rows of its own particles:
+`row0` is the global index of its first row, the neighbour table and the
+per-bond rest lengths are its block's rows, and every per-particle plane
+the bonds read (positions, velocities, material scales) is global, so a
+bond to another rank's particle reads its partner directly.  Each row's
+value is the single-device row's, bit for bit.
 """
 
 from __future__ import annotations
@@ -66,12 +73,13 @@ def spring_offsets_tensor(offsets, device="cpu") -> torch.Tensor:
     return torch.from_numpy(table).to(device)
 
 
-def _bonded_slots(neighbors, offsets):
-    """(sel, j), each (N, 8): `sel` marks slots whose bond is one of the
-    slot's offsets (the -1 sentinel never selects), `j` the bonded index
-    (clamped to 0 where the slot is empty)."""
+def _bonded_slots(neighbors, offsets, row0: int = 0):
+    """(sel, j), each (B, 8) for the B rows of `neighbors` (global rows
+    row0..): `sel` marks slots whose bond is one of the slot's offsets
+    (the -1 sentinel never selects), `j` the bonded index (clamped to 0
+    where the slot is empty)."""
     n = neighbors.shape[0]
-    iota = torch.arange(n, dtype=neighbors.dtype, device=neighbors.device)
+    iota = torch.arange(row0, row0 + n, dtype=neighbors.dtype, device=neighbors.device)
     diff = neighbors - iota[:, None]  # (N, 8)
     sel = (neighbors >= 0) & (diff[:, :, None] == offsets[None, :, :]).any(dim=2)
     return sel, neighbors.clamp(min=0).long()
@@ -90,59 +98,70 @@ def _row_slots(neighbors):
     return neighbors >= 0, neighbors.clamp(min=0).long()
 
 
-def _springs(bonded, j, px, py, rest_lengths, k, k_pp):
-    dx = px[:, None] - px[j]
-    dy = py[:, None] - py[j]
+def _own(x, row0: int, rows: int):
+    """The rows of global plane `x` that a block of `rows` rows from row0
+    owns (all of it on one device), as a column for broadcasting."""
+    return x[row0:row0 + rows, None]
+
+
+def _springs(bonded, j, px, py, rest_lengths, k, k_pp, row0=0):
+    b = bonded.shape[0]
+    dx = _own(px, row0, b) - px[j]
+    dy = _own(py, row0, b) - py[j]
     dist = torch.sqrt(dx * dx + dy * dy)
     inv = torch.where(dist > 0, 1.0 / torch.clamp(dist, min=_EPS), 0.0)
-    kk = k if k_pp is None else k * 0.5 * (k_pp[:, None] + k_pp[j])
+    kk = k if k_pp is None else k * 0.5 * (_own(k_pp, row0, b) + k_pp[j])
     rl = rest_lengths if rest_lengths.dim() == 2 else rest_lengths[None, :]
     mag = torch.where(bonded, -kk * (dist - rl) * inv, 0.0)
     return _sum_slots(mag * dx), _sum_slots(mag * dy)
 
 
-def _damping(bonded, j, px, py, vx, vy, c_pp):
-    dx = px[:, None] - px[j]
-    dy = py[:, None] - py[j]
-    dvx = vx[:, None] - vx[j]
-    dvy = vy[:, None] - vy[j]
+def _damping(bonded, j, px, py, vx, vy, c_pp, row0=0):
+    b = bonded.shape[0]
+    dx = _own(px, row0, b) - px[j]
+    dy = _own(py, row0, b) - py[j]
+    dvx = _own(vx, row0, b) - vx[j]
+    dvy = _own(vy, row0, b) - vy[j]
     inv2 = 1.0 / torch.clamp(dx * dx + dy * dy, min=_EPS)
-    cc = 0.5 * (c_pp[:, None] + c_pp[j])
+    cc = 0.5 * (_own(c_pp, row0, b) + c_pp[j])
     mag = torch.where(bonded, -cc * (dvx * dx + dvy * dy) * inv2, 0.0)
     return _sum_slots(mag * dx), _sum_slots(mag * dy)
 
 
-def _creep(bonded, j, px, py, rest_len, creep_rate, yield_strain, h):
-    dx = px[:, None] - px[j]
-    dy = py[:, None] - py[j]
+def _creep(bonded, j, px, py, rest_len, creep_rate, yield_strain, h, row0=0):
+    b = bonded.shape[0]
+    dx = _own(px, row0, b) - px[j]
+    dy = _own(py, row0, b) - py[j]
     dist = torch.sqrt(dx * dx + dy * dy)
-    c_pair = torch.minimum(creep_rate[:, None], creep_rate[j])
+    c_pair = torch.minimum(_own(creep_rate, row0, b), creep_rate[j])
     if yield_strain is None:
         y_pair = 0.0
     else:
-        y_pair = torch.maximum(yield_strain[:, None], yield_strain[j])
+        y_pair = torch.maximum(_own(yield_strain, row0, b), yield_strain[j])
     excess = torch.clamp(dist - rest_len * (1.0 + y_pair), min=0.0)
     return torch.where(bonded, rest_len + c_pair * h * excess, rest_len)
 
 
-def spring_forces_shifted(px, py, neighbors, offsets, rest_lengths, k, k_pp=None):
+def spring_forces_shifted(px, py, neighbors, offsets, rest_lengths, k, k_pp=None, row0=0):
     """Hooke spring force sum over bonded slots; returns (fx, fy).
     `rest_lengths` is (8,) per slot or (N, 8) per bond; `k_pp` (N,)
     optionally scales the stiffness per particle, the pair taking the
-    endpoint mean so forces stay equal and opposite."""
-    return _springs(*_bonded_slots(neighbors, offsets), px, py, rest_lengths, k, k_pp)
+    endpoint mean so forces stay equal and opposite.  `row0`: see the
+    module docstring (a mesh rank's rows)."""
+    return _springs(*_bonded_slots(neighbors, offsets, row0), px, py, rest_lengths, k, k_pp,
+                    row0)
 
 
-def bond_damping_shifted(px, py, vx, vy, neighbors, offsets, c_pp):
+def bond_damping_shifted(px, py, vx, vy, neighbors, offsets, c_pp, row0=0):
     """Spring-damper force along bonds, F_i = -c_ij ((v_i - v_j) . d^) d^
     with c_ij the endpoint mean of `c_pp` (symmetric, so momentum is
     conserved).  The velocities are the step's ORIGINAL ones (ops/rk4.py
     evaluates every stage against them)."""
-    return _damping(*_bonded_slots(neighbors, offsets), px, py, vx, vy, c_pp)
+    return _damping(*_bonded_slots(neighbors, offsets, row0), px, py, vx, vy, c_pp, row0)
 
 
 def creep_rest_lengths_shifted(px, py, neighbors, offsets, rest_len, creep_rate,
-                               yield_strain, h):
+                               yield_strain, h, row0=0):
     """Plastic creep: per-bond rest lengths grow toward the current length
     when stretched past the yield strain,
 
@@ -151,18 +170,19 @@ def creep_rest_lengths_shifted(px, py, neighbors, offsets, rest_len, creep_rate,
     with c_pair = min(c_i, c_j) and y_pair = max(y_i, y_j) (0 when
     `yield_strain` is None), so both reciprocal slots of a bond update to
     the same value.  Returns the new (N, 8) rest lengths."""
-    return _creep(*_bonded_slots(neighbors, offsets), px, py, rest_len, creep_rate,
-                  yield_strain, h)
+    return _creep(*_bonded_slots(neighbors, offsets, row0), px, py, rest_len, creep_rate,
+                  yield_strain, h, row0)
 
 
 def bonded_repulsion_shifted(px, py, neighbors, offsets, collision_distance,
-                             repulsion):
+                             repulsion, row0=0):
     """Repulsion contributed by BONDED neighbors — the collision kernel's own
     per-pair formula (rsqrt of dist2, constant magnitude) — for subtraction
     from the kernel's all-pairs sum."""
-    sel, j = _bonded_slots(neighbors, offsets)
-    dx = px[:, None] - px[j]
-    dy = py[:, None] - py[j]
+    sel, j = _bonded_slots(neighbors, offsets, row0)
+    b = sel.shape[0]
+    dx = _own(px, row0, b) - px[j]
+    dy = _own(py, row0, b) - py[j]
     cd2 = collision_distance * collision_distance
     dist2 = dx * dx + dy * dy
     hit = sel & (dist2 < cd2) & (dist2 > 0.0)
@@ -172,24 +192,24 @@ def bonded_repulsion_shifted(px, py, neighbors, offsets, collision_distance,
 
 
 def spring_forces_rows(px, py, neighbors, rest_lengths, k, k_pp=None, c_pp=None,
-                       vx=None, vy=None):
+                       vx=None, vy=None, row0=0):
     """Hooke springs over every valid bond slot (any bond graph); returns
     (fx, fy).  With materials it adds the pairwise-mean stiffness scale
     `k_pp` and the spring-damper force of `c_pp` against the velocities
     (vx, vy), as spring_forces_shifted and bond_damping_shifted do."""
     slots = _row_slots(neighbors)
-    fx, fy = _springs(*slots, px, py, rest_lengths, k, k_pp)
+    fx, fy = _springs(*slots, px, py, rest_lengths, k, k_pp, row0)
     if c_pp is not None:
-        dfx, dfy = _damping(*slots, px, py, vx, vy, c_pp)
+        dfx, dfy = _damping(*slots, px, py, vx, vy, c_pp, row0)
         fx, fy = fx + dfx, fy + dfy
     return fx, fy
 
 
-def creep_rest_lengths_rows(pos, neighbors, rest_len, creep_rate, yield_strain, h):
+def creep_rest_lengths_rows(pos, neighbors, rest_len, creep_rate, yield_strain, h, row0=0):
     """creep_rest_lengths_shifted over every valid bond slot (any bond
     graph)."""
     return _creep(*_row_slots(neighbors), pos[:, 0], pos[:, 1], rest_len, creep_rate,
-                  yield_strain, h)
+                  yield_strain, h, row0)
 
 
 def collision_forces(pos, cand_idx, cand_valid, neighbors, collision_distance,

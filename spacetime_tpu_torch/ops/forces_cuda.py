@@ -21,6 +21,13 @@ Two variants, as the TPU kernel's `exclude_bonds` flag has:
   * exclude (`neighbors` given): the kernel drops j = i and j in
     neighbors[i, 0..7] itself, the path of scenes without spring offsets.
 
+Both versions can cover a range of sorted rows, `rows` = (first,
+count): on a mesh (parallel/) each rank launches the kernel over its share
+of the sorted order only (the TPU kernel's tile grid split across chips),
+writing the forces of those rows' particles into an otherwise zero (N, 2)
+buffer, which one reduce-scatter sums to each particle's owner: exact,
+since each particle has one nonzero contributor.
+
 The wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches the kernel or raises.
 """
@@ -72,48 +79,62 @@ def build_cell_order(cell: torch.Tensor, origin: torch.Tensor, n_cells: int, sid
 
 def collision_forces_plain(pos: torch.Tensor, active: torch.Tensor,
                            collision_distance: float, repulsion: float,
-                           neighbors: torch.Tensor | None = None) -> torch.Tensor:
+                           neighbors: torch.Tensor | None = None,
+                           which: torch.Tensor | None = None) -> torch.Tensor:
     """Chunked brute force over all active pairs with the kernel's test and
     per-pair term — exact by construction.  Bonded pairs are included,
     unless `neighbors` is given: then j = i and j in neighbors[i] are
-    excluded, as the exclude variant does."""
+    excluded, as the exclude variant does.  With `which` (particle
+    indices) only those particles' forces are computed, the other rows
+    left 0."""
     n = pos.shape[0]
     cd2 = collision_distance * collision_distance
     px, py = pos[:, 0], pos[:, 1]
     ids = torch.arange(n, device=pos.device)
+    if which is None:
+        which = ids
     out = torch.zeros_like(pos)
-    for a in range(0, n, PLAIN_CHUNK):
-        b = min(a + PLAIN_CHUNK, n)
-        dx = px[a:b, None] - px[None, :]
-        dy = py[a:b, None] - py[None, :]
+    for a in range(0, which.shape[0], PLAIN_CHUNK):
+        i = which[a:a + PLAIN_CHUNK].long()
+        dx = px[i, None] - px[None, :]
+        dy = py[i, None] - py[None, :]
         dist2 = dx * dx + dy * dy
-        hit = (dist2 < cd2) & (dist2 > 0.0) & active[None, :] & active[a:b, None]
+        hit = (dist2 < cd2) & (dist2 > 0.0) & active[None, :] & active[i, None]
         if neighbors is not None:
-            hit = hit & (ids[None, :] != ids[a:b, None])
+            hit = hit & (ids[None, :] != i[:, None])
             for s in range(neighbors.shape[1]):
-                hit = hit & (ids[None, :] != neighbors[a:b, s, None])
+                hit = hit & (ids[None, :] != neighbors[i, s, None])
         mag = torch.where(hit, repulsion * torch.rsqrt(torch.clamp(dist2, min=1e-20)), 0.0)
-        out[a:b, 0] = torch.sum(mag * dx, dim=1)
-        out[a:b, 1] = torch.sum(mag * dy, dim=1)
+        out[i, 0] = torch.sum(mag * dx, dim=1)
+        out[i, 1] = torch.sum(mag * dy, dim=1)
     return out
 
 
 def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
                      collision_distance: float, repulsion: float,
                      disp: torch.Tensor,
-                     neighbors: torch.Tensor | None = None) -> torch.Tensor:
+                     neighbors: torch.Tensor | None = None,
+                     rows: tuple | None = None) -> torch.Tensor:
     """(N, 2) collision forces: bonded pairs included, or excluded with
     self pairs when `neighbors` ((N, 8) i32) is given.  `order` was built
     from earlier positions; `disp` ((2,) f32 on the device) bounds how far
     any active particle moved along x and along y since, so the kernel
-    widens its scan to keep the candidate set exact.  CPU tensors take the
-    plain version; CUDA tensors launch `collision_forces_launch`, or
+    widens its scan to keep the candidate set exact.  With `rows` =
+    (first, count) only the particles of the sorted rows [first, first +
+    count) get their forces, the other rows 0.  CPU tensors take the plain
+    version; CUDA tensors launch `collision_forces_launch`, or
     `collision_forces_exclude_launch` with `neighbors`."""
+    n = pos.shape[0]
+    row0, count = (0, n) if rows is None else rows
+    if not (0 <= row0 <= n and 0 <= count <= n - row0):
+        raise ValueError(f"collision_forces: sorted rows [{row0}, {row0 + count}) outside "
+                         f"[0, {n})")
     if pos.device.type == "cpu":
-        return collision_forces_plain(pos, active, collision_distance, repulsion, neighbors)
+        which = None if rows is None else order.sorted_idx[row0:row0 + count]
+        return collision_forces_plain(pos, active, collision_distance, repulsion, neighbors,
+                                      which)
     if pos.device.type != "cuda":
         raise ValueError(f"collision_forces: unsupported device {pos.device}")
-    n = pos.shape[0]
     if pos.dtype != torch.float32 or pos.shape != (n, 2) or not pos.is_contiguous():
         raise ValueError("collision_forces: pos must be contiguous (N, 2) float32")
     for name, t in (("sorted_idx", order.sorted_idx), ("sorted_cell", order.sorted_cell),
@@ -133,11 +154,12 @@ def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
         raise ValueError(f"collision_forces: neighbors must be contiguous (N, 8) int32 "
                          f"on {pos.device}")
     lib = kernels.library()
-    out = torch.empty_like(pos)
+    # a range writes only its rows' particles: the others stay 0
+    out = torch.empty_like(pos) if rows is None else torch.zeros_like(pos)
     cd2 = float(np.float32(collision_distance * collision_distance))
     args = (pos.data_ptr(), order.sorted_idx.data_ptr(), order.sorted_cell.data_ptr(),
             order.cell_start.data_ptr(), order.origin.data_ptr(), disp.data_ptr(), n,
-            order.n_cells, order.side, float(collision_distance), cd2,
+            row0, count, order.n_cells, order.side, float(collision_distance), cd2,
             float(order.bin_resolution), float(repulsion))
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     if neighbors is None:

@@ -17,6 +17,13 @@ Every ring read goes through a device index (`index_select`), never a host
 int of the cursor, and no function here reads a value back to the host:
 the fused frame captures them into a CUDA graph and replays them at each
 frame's cursor.
+
+On a mesh (`mesh`, parallel/) the particles and ring columns are this
+rank's share, and each centre-of-energy sum is one all-reduce of the
+ranks' partial sums (JAX's psums, `spacetime_tpu/parallel/sharding.py:
+168-178`): three scalars for a quasi-static centroid, three per-age rows
+(3 x A) for a retarded one.  The sums then differ from one device's by
+their order of addition, within f32 rounding.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import math
 import torch
 
 from .. import relativity
+from ..parallel import comm
 from ..state import Particles
 from .worldline import WorldlineBuffer
 
@@ -37,21 +45,23 @@ def _pick(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1).long())[0]
 
 
-def object_energy_com(particles: Particles, obj: int):
+def object_energy_com(particles: Particles, obj: int, mesh=None):
     """Energy-weighted centroid of one object's active particles: (cx, cy,
     energy), the centre of energy and the total energy sum(m0 gamma)
     (c = 1), the conical source strength.  () tensors."""
     mask = particles.active & (particles.object_index == obj)
     g = relativity.gamma_v(particles.vel)
     w = torch.where(mask, particles.rest_mass * g, 0.0)
-    tot = torch.clamp(w.sum(), min=1e-20)
-    cx = (w * particles.pos[:, 0]).sum() / tot
-    cy = (w * particles.pos[:, 1]).sum() / tot
-    return cx, cy, w.sum()
+    sums = (w.sum(), (w * particles.pos[:, 0]).sum(), (w * particles.pos[:, 1]).sum())
+    if mesh is not None:
+        sums = comm.all_reduce(torch.stack(sums), mesh).unbind()
+    en, sx, sy = sums
+    tot = torch.clamp(en, min=1e-20)
+    return sx / tot, sy / tot, en
 
 
 def com_history(buf: WorldlineBuffer, object_index, rest_mass, active, obj: int,
-                max_age: int = 0):
+                max_age: int = 0, mesh=None):
     """Per-age energy centroid track of one object from the ring planes:
     (com_x, com_y, energy, age), each (A,), ages descending A-1 .. 0 (the
     cone sweep's row order).  The weights use each age's velocities (gamma
@@ -66,21 +76,25 @@ def com_history(buf: WorldlineBuffer, object_index, rest_mass, active, obj: int,
     v2 = torch.clamp(svx * svx + svy * svy, max=1.0 - 1e-7)
     g = 1.0 / torch.sqrt(1.0 - v2)
     w = torch.where(mask[None, :], rest_mass[None, :] * g, 0.0)  # (A, N)
-    tot = w.sum(dim=1)
+    sums = (w.sum(dim=1), (w * sx).sum(dim=1), (w * sy).sum(dim=1))
+    if mesh is not None:
+        sums = comm.all_reduce(torch.stack(sums), mesh).unbind()
+    tot, wx, wy = sums
     den = torch.clamp(tot, min=1e-20)
-    com_x = (w * sx).sum(dim=1) / den
-    com_y = (w * sy).sum(dim=1) / den
+    com_x = wx / den
+    com_y = wy / den
     age = torch.arange(a_sw - 1, -1, -1, dtype=torch.int32, device=dev)
     return com_x, com_y, tot, age
 
 
 def retarded_com(buf: WorldlineBuffer, object_index, rest_mass, active, obj: int,
-                 cam_x, cam_y, dt: float, max_age: int = 0):
+                 cam_x, cam_y, dt: float, max_age: int = 0, mesh=None):
     """The object's centroid on the camera's past light cone: (cx, cy,
     energy) at the retarded time, linearly interpolated between the two
     ticks straddling |com(a) - cam| = a dt.  When the history is shorter
     than the crossing age, the oldest usable tick is returned."""
-    com_x, com_y, tot, age = com_history(buf, object_index, rest_mass, active, obj, max_age)
+    com_x, com_y, tot, age = com_history(buf, object_index, rest_mass, active, obj, max_age,
+                                         mesh)
     a_sw = age.shape[0]
     hi0 = torch.clamp(buf.frames_in_use - 1, max=a_sw - 1)
     dx = com_x - cam_x
@@ -109,11 +123,12 @@ def retarded_com(buf: WorldlineBuffer, object_index, rest_mass, active, obj: int
 
 
 def source_defects(specs, particles: Particles, buf, cam, dt: float, g_coupling: float,
-                   retarded: bool, max_age: int = 0):
+                   retarded: bool, max_age: int = 0, mesh=None):
     """The ConicalDefect tuple of matter-sourced specs (config.defect_source:
     (object_index, deficit) pairs; deficit None derives 8 pi G energy from
     `g_coupling`).  With `retarded` (and a ring) each defect sits at its
-    retarded centroid."""
+    retarded centroid.  With `mesh` the state is this rank's share and the
+    sums are all-reduced (see the module docstring)."""
     from .curved import ConicalDefect
 
     out = []
@@ -121,9 +136,9 @@ def source_defects(specs, particles: Particles, buf, cam, dt: float, g_coupling:
         if retarded and buf is not None:
             cx, cy, en = retarded_com(buf, particles.object_index, particles.rest_mass,
                                       particles.active, int(obj), cam.pos[0], cam.pos[1], dt,
-                                      max_age)
+                                      max_age, mesh)
         else:
-            cx, cy, en = object_energy_com(particles, int(obj))
+            cx, cy, en = object_energy_com(particles, int(obj), mesh)
         d = EIGHT_PI * g_coupling * en if deficit is None else deficit
         out.append(ConicalDefect.create((cx, cy), d, device=cx.device))
     return tuple(out)

@@ -52,6 +52,15 @@ of cells (`ROUTE_PASS_ELEMENTS`).
 Steps 1 (on the Euclidean route) and 5 have CUDA kernels; the compaction,
 retina, splat, the route pass and the retina mode's march are plain torch
 on every device (in the JAX package they are XLA, not Pallas).
+
+On a mesh (`mesh`, parallel/; the JAX render under GSPMD,
+`spacetime_tpu/ops/raytrace.py:196-199, 1612-1613, 1671`) the ring holds
+this rank's particle columns.  Step 1 runs on them, then one all-gather of
+the pair rows in rank order (`_gather_pairs`, never a ring plane) and one
+all-reduce of the band counters rebuild the single-device pair layout, so
+steps 2-4 run replicated and give every rank the same CSR and the same
+diagnostics.  Each rank shades its band of view-cell rows in step 5, and
+one all-gather assembles the image (`_mesh_pixel_pass`).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ import torch
 
 from ..camera import Camera, pixel_centers
 from ..constants import C2
+from ..parallel import comm
 from ..state import Objects
 from . import band_cuda, boost, render_cuda
 from .worldline import WorldlineBuffer, newest_time, row_at_age
@@ -739,6 +749,46 @@ def _retina_quads(s_first, cam, width, height, params: RenderParams, geom):
 
 
 # ---------------------------------------------------------------------------
+# Mesh: the pair gather and the banded pixel pass
+# ---------------------------------------------------------------------------
+
+
+def _gather_pairs(mesh, pairs: PairData, first_mask=None, counters=()):
+    """Every rank's pair rows in rank order, as the single-device pair
+    layout (particle-major), by one all-gather of the 10 fields, the
+    validity and `first_mask` (per pair row, or None) packed as f32
+    columns; and `counters` (() i64 tensors, None kept) summed over the
+    ranks by one all-reduce.  Returns (PairData, first_mask, counters)."""
+    cols = [pairs.pdata, pairs.pair_valid[:, None].to(torch.float32)]
+    if first_mask is not None:
+        cols.append(first_mask[:, None].to(torch.float32))
+    g = comm.all_gather(torch.cat(cols, dim=1), mesh)
+    valid = g[:, 10] > 0.5
+    out = PairData(pdata=g[:, :10].contiguous(), pair_valid=valid, n_pairs=valid.sum())
+    fm = g[:, 11] > 0.5 if first_mask is not None else None
+    live = [c for c in counters if c is not None]
+    if live:
+        summed = iter(comm.all_reduce(torch.stack([c.to(torch.int64) for c in live]),
+                                      mesh).unbind())
+        counters = tuple(None if c is None else next(summed) for c in counters)
+    return out, fm, counters
+
+
+def _mesh_pixel_pass(inputs, params, width: int, height: int, mesh):
+    """(3, H, W): this rank shades its share of the view-cell rows
+    (ceil(hc_img / size) a rank, in rank order) with the pixel pass, and
+    one all-gather of the equal-sized bands assembles the image on every
+    rank."""
+    k = params.cell_px
+    per = -(-inputs.hc_img // mesh.size)
+    row0, count = comm.block(inputs.hc_img, mesh.rank, mesh.size)
+    band = render_cuda.pixel_pass(inputs, params, width=width, height=height, rows=(row0, count, per * k))
+    g = comm.all_gather(band.reshape(1, -1), mesh)
+    img = g.reshape(mesh.size, 3, per * k, width).transpose(0, 1)
+    return img.reshape(3, mesh.size * per * k, width)[:, :height].contiguous()
+
+
+# ---------------------------------------------------------------------------
 # Renderers
 # ---------------------------------------------------------------------------
 
@@ -758,9 +808,11 @@ class PixelInputs(NamedTuple):
 
 def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
                        objects: Objects, cam: Camera, width: int, height: int,
-                       params: RenderParams, boundary=None):
+                       params: RenderParams, boundary=None, mesh=None):
     """Steps 1-4 of the frame (see the module docstring).  Returns
-    (PixelInputs, RenderDiag); the diag fields are device tensors."""
+    (PixelInputs, RenderDiag); the diag fields are device tensors.  With
+    `mesh`, `buf`, `obj_index` and `boundary` are this rank's columns and
+    rows, and the result is every rank's the same."""
     t_now = newest_time(buf)
     use_rays = params.opaque and params.retarded
     if params.camera_frame and not params.retarded:
@@ -772,18 +824,26 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
     retina_dropped = None
     segment_dropped = None
     if not params.retarded:
-        pairs = rpairs = _instant_pairs(buf, obj_index, objects, params)
+        pairs = _instant_pairs(buf, obj_index, objects, params)
+        if mesh is not None:
+            pairs = _gather_pairs(mesh, pairs)[0]
+        rpairs = pairs
         band_truncated = torch.zeros((), dtype=torch.int64, device=pairs.pdata.device)
     else:
         pairs_raw, band_truncated, segment_dropped = _band_pairs(
             buf, obj_index, objects, cam, t_now, width, height, params)
-        rows = pairs_raw.pdata.shape[0]
+        rows = pairs_raw.pdata.shape[0] * (1 if mesh is None else mesh.size)
+        rmask = None
         if use_rays and boundary is not None and 0 < params.retina_budget < rows:
             # boundary pairs at the buffer front; the retina reads a prefix.
             # A particle owns `segments` rows with rank compaction, else `band`
             n = boundary.shape[0]
             k_rows = params.segments if 0 < params.segments < params.band else params.band
             rmask = boundary[:, None].expand(n, k_rows).reshape(-1)
+        if mesh is not None:
+            pairs_raw, rmask, (band_truncated, segment_dropped) = _gather_pairs(
+                mesh, pairs_raw, rmask, (band_truncated, segment_dropped))
+        if rmask is not None:
             pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
             rb = min(params.retina_budget, pairs.pdata.shape[0])
             n_r = torch.clamp(n_b, max=rb)
@@ -830,37 +890,43 @@ def render_retarded_with_diag(
     params: RenderParams,
     planar: bool = False,
     boundary=None,
+    mesh=None,
 ):
     """(image, RenderDiag).  The image is (H, W, 3), or (3, H, W) with
     `planar`.  `boundary` ((N,) bool, e.g. worldline.boundary_mask) enables
     the boundary-only occlusion retina when params.retina_budget > 0.
-    RenderDiag fields are device tensors (no host sync)."""
+    RenderDiag fields are device tensors (no host sync).  With `mesh` the
+    ring, `obj_index` and `boundary` are this rank's share, and every rank
+    gets the whole image and the same diagnostics."""
     inputs, diag = prepare_pixel_pass(
-        buf, obj_index, objects, cam, width, height, params, boundary
+        buf, obj_index, objects, cam, width, height, params, boundary, mesh
     )
-    img = render_cuda.pixel_pass(inputs, params, width=width, height=height)
+    if mesh is None:
+        img = render_cuda.pixel_pass(inputs, params, width=width, height=height)
+    else:
+        img = _mesh_pixel_pass(inputs, params, width, height, mesh)
     return (img if planar else img.permute(1, 2, 0)), diag
 
 
 def render_retarded(buf, obj_index, objects, cam, width, height, params,
-                    planar=False, boundary=None):
+                    planar=False, boundary=None, mesh=None):
     """The retarded-time image; see render_retarded_with_diag."""
     img, _ = render_retarded_with_diag(
-        buf, obj_index, objects, cam, width, height, params, planar, boundary
+        buf, obj_index, objects, cam, width, height, params, planar, boundary, mesh
     )
     return img
 
 
 def render_views(buf, obj_index, objects, cams: Camera, width, height, params,
-                 planar=False, boundary=None):
+                 planar=False, boundary=None, mesh=None):
     """B observers of one ring: `cams` is a batched Camera (camera.
     stack_cameras; each field has a leading B axis).  Each view is
-    render_retarded's image; returns (B, H, W, 3), or (B, 3, H, W) with
-    `planar`."""
+    render_retarded's image (on a `mesh`, its mesh path); returns (B, H,
+    W, 3), or (B, 3, H, W) with `planar`."""
     views = [
         render_retarded(buf, obj_index, objects,
                         Camera(pos=cams.pos[b], zoom=cams.zoom[b], vel=cams.vel[b]),
-                        width, height, params, planar, boundary)
+                        width, height, params, planar, boundary, mesh)
         for b in range(cams.pos.shape[0])
     ]
     return torch.stack(views)
@@ -889,7 +955,7 @@ def _aberrated_directions(theta, cvx, cvy):
 
 
 def render_retina(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
-                  params: RenderParams, height: int = 64, planar: bool = False):
+                  params: RenderParams, height: int = 64, planar: bool = False, mesh=None):
     """The observer's own field of view: a 360-degree 1D retina strip of
     params.num_rays camera-frame arrival angles, with aberration (a moving
     observer sees the forward view compressed) and Doppler shading; the
@@ -900,7 +966,9 @@ def render_retina(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera
     march runs over them in chunks of params.ray_chunk and keeps, per ray,
     the first hit's arclength and the winning pair's velocity and colour
     (the lowest pair index among equal arclengths, as the JAX scan's
-    first-in-chunk pick and strict improvement across chunks give)."""
+    first-in-chunk pick and strict improvement across chunks give).  On a
+    `mesh` the band search runs on this rank's ring columns and one
+    all-gather of the pairs makes the march replicated."""
     dt, rho = params.dt, params.rho
     t_now = newest_time(buf)
     n_rays = params.num_rays
@@ -909,6 +977,8 @@ def render_retina(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera
     dhx, dhy = _aberrated_directions(theta, cvx, cvy)
 
     pairs = _band_pairs_nocull(buf, obj_index, objects, cam, t_now, params)
+    if mesh is not None:
+        pairs = _gather_pairs(mesh, pairs)[0]
     pd = pairs.pdata
     s_first = torch.full((n_rays,), _BIG, dtype=torch.float32, device=pd.device)
     win = torch.zeros((n_rays, 5), dtype=torch.float32, device=pd.device)  # vx vy r g b

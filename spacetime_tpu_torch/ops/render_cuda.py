@@ -14,7 +14,13 @@ of splat entries built by ops/raytrace.py (`PixelInputs`):
   * scal (8,) f32 on the device: t_now, camera x, y, vx, vy, the world
     position x0, y0 of pixel (0, 0) and the pixel size;
 
-and return the planar (3, H, W) image.  With `params.camera_frame` each
+and return the planar (3, H, W) image.  With `rows` = (first, count,
+out_h) both shade only the view-cell rows [first, first + count) into
+(3, out_h, W) planes whose row 0 is pixel row first * cell_px (rows past
+the image or the range are left unwritten): a mesh rank's band of the
+image (the TPU kernel's cell-row split, `row_off` in its scal9,
+render_pallas.py:375-414), each pixel the same as in the whole image.
+With `params.camera_frame` each
 pixel is first unwarped to its ground query point (`boost.unwarp_xy`, the
 TPU kernel's `camera_frame` branch, render_pallas.py:110-118).  The wrapper takes the plain version
 only for CPU tensors; for CUDA tensors it launches the kernel or raises.
@@ -42,7 +48,8 @@ class PixelParams(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_int)
-        for name in ("n_cells", "width", "height", "wc_img", "k", "ds", "wq", "cap", "flags")
+        for name in ("n_cells", "width", "height", "wc_img", "k", "ds", "wq", "cap", "flags",
+                     "row0", "rows", "out_h")
     ] + [
         (name, ctypes.c_float)
         for name in ("rho2_edge", "inv_dt", "two_rho", "strength", "amb",
@@ -61,25 +68,36 @@ def _edge_constants(params):
     return float(np.nextafter(rho2, np.float32(np.inf))), _f32(1.0 / params.dt)
 
 
-def pixel_pass_plain(inputs, params, *, width, height):
+def _band(rows, hc_img: int, height: int):
+    """(first cell row, cell rows, pixel rows of the output planes) of a
+    `rows` argument, the whole image for None; checked against the image."""
+    row0, count, out_h = (0, hc_img, height) if rows is None else rows
+    if not (0 <= row0 <= hc_img and 0 <= count <= hc_img - row0 and out_h >= 0):
+        raise ValueError(f"pixel_pass: cell rows {rows} outside the image's {hc_img}")
+    return row0, count, out_h
+
+
+def pixel_pass_plain(inputs, params, *, width, height, rows=None):
     """The kernel's maths over chunks of cells: the CSR gathered into a
     padded (cells, bin_capacity, 10) table, the winner taken by argmin
-    (the first minimum in entry order, the kernel's tie rule)."""
+    (the first minimum in entry order, the kernel's tie rule).  `rows`:
+    see the module docstring."""
     from . import raytrace as rt  # raytrace imports this module
 
     entries, cell_lo, cell_hi, sfq, scal, wc_img, hc_img, ds = inputs
     k, cap = params.cell_px, params.bin_capacity
     dev = entries.device
+    row0, count, out_h = _band(rows, hc_img, height)
     rho2_edge, inv_dt = _edge_constants(params)
     t_now, cxm, cym, cvx, cvy, x0, y0, ps = scal.unbind()
-    n_cells = wc_img * hc_img
     wp = wc_img * k
-    out = torch.empty((3, hc_img * k * wp), dtype=torch.float32, device=dev)
+    out = torch.zeros((3, max(count * k, out_h) * wp), dtype=torch.float32, device=dev)
     sub = torch.arange(k * k, device=dev)
     slots = torch.arange(cap, device=dev)
     last = max(entries.shape[0] - 1, 0)
-    for a in range(0, n_cells, PLAIN_CELL_CHUNK):
-        cells = torch.arange(a, min(a + PLAIN_CELL_CHUNK, n_cells), device=dev)
+    first_cell, end_cell = row0 * wc_img, (row0 + count) * wc_img
+    for a in range(first_cell, end_cell, PLAIN_CELL_CHUNK):
+        cells = torch.arange(a, min(a + PLAIN_CELL_CHUNK, end_cell), device=dev)
         lo = cell_lo[cells].long()
         idx = lo[:, None] + slots[None, :]  # (C, cap)
         ok = idx < cell_hi[cells, None]
@@ -118,22 +136,25 @@ def pixel_pass_plain(inputs, params, *, width, height):
             shaded = [torch.where(blocked, s * params.absorbed_dim, s) for s in shaded]
         else:
             bg = torch.ones_like(r)
-        flat = (gy * wp + gx).reshape(-1)
+        flat = ((gy - row0 * k) * wp + gx).reshape(-1)
         for c, s in enumerate(shaded):
             out[c, flat] = torch.where(occupied, s, bg).reshape(-1)
-    return out.reshape(3, hc_img * k, wp)[:, :height, :width].contiguous()
+    return out.reshape(3, -1, wp)[:, :out_h, :width].contiguous()
 
 
-def pixel_pass(inputs, params, *, width, height):
-    """(3, H, W) pixel pass of `inputs` (raytrace.PixelInputs); CPU tensors
-    take the plain version, CUDA tensors launch `pixel_pass_launch`."""
+def pixel_pass(inputs, params, *, width, height, rows=None):
+    """(3, H, W) pixel pass of `inputs` (raytrace.PixelInputs), or with
+    `rows` = (first, count, out_h) the band (3, out_h, W) of those cell
+    rows (see the module docstring); CPU tensors take the plain version,
+    CUDA tensors launch `pixel_pass_launch`."""
     entries, cell_lo, cell_hi, sfq, scal, wc_img, hc_img, ds = inputs
     if entries.device.type == "cpu":
-        return pixel_pass_plain(inputs, params, width=width, height=height)
+        return pixel_pass_plain(inputs, params, width=width, height=height, rows=rows)
     if entries.device.type != "cuda":
         raise ValueError(f"pixel_pass: unsupported device {entries.device}")
     k, cap = params.cell_px, params.bin_capacity
     n_cells = wc_img * hc_img
+    row0, count, out_h = _band(rows, hc_img, height)
     dev = entries.device
 
     def need(t, name, dtype, shape):
@@ -168,7 +189,7 @@ def pixel_pass(inputs, params, *, width, height):
     planck = [planck_constants(lam, params.spectral_temp) for lam in _LAMBDA_RGB]
     p = PixelParams(
         n_cells=n_cells, width=width, height=height, wc_img=wc_img, k=k, ds=ds,
-        wq=wq, cap=cap, flags=flags, rho2_edge=rho2_edge, inv_dt=inv_dt,
+        wq=wq, cap=cap, flags=flags, row0=row0, rows=count, out_h=out_h, rho2_edge=rho2_edge, inv_dt=inv_dt,
         two_rho=_f32(2.0 * params.rho), strength=_f32(params.doppler_strength),
         amb=_f32(params.ambient), one_m_amb=_f32(1.0 - params.ambient),
         absorbed_dim=_f32(params.absorbed_dim), shadow=_f32(params.shadow),
@@ -176,7 +197,7 @@ def pixel_pass(inputs, params, *, width, height):
         planck_num=(ctypes.c_float * 3)(*(num for _, num in planck)),
     )
     lib = kernels.library()
-    out = torch.empty((3, height, width), dtype=torch.float32, device=dev)
+    out = torch.empty((3, out_h, width), dtype=torch.float32, device=dev)
     status = lib.pixel_pass_launch(
         entries.data_ptr(), cell_lo.data_ptr(), cell_hi.data_ptr(),
         sfq.data_ptr() if sfq is not None else None, scal.data_ptr(),

@@ -33,6 +33,20 @@ contact that forms during the step is missed.
 `integrator="euler"` is the reference's deprecated Euler path: one force
 evaluation at the start positions, the position advanced with the OLD
 velocity, no speed clamp, no bond breaking and no creep (bonds_broken 0).
+
+On a mesh (`mesh`, parallel/; the JAX step under GSPMD,
+`spacetime_tpu/ops/rk4.py:217, 279`) the particles are this rank's block.
+Each force evaluation reads the global positions: at the first, one
+all-gather brings every rank's positions, velocities and active flags
+(and, for the row-gather physics, its bond rows, whose int32 bits ride in
+the same f32 buffer); at each later one, one all-gather of the stage's
+positions.  Every rank builds the same cell order from them (JAX
+replicates its sorted planes), launches the collision kernel over its
+share of the sorted rows, and one reduce-scatter sums the forces to their
+owners.  Springs, damping, bond breaking and creep run on the block's
+rows against the global planes, and one all-reduce sums the StepAux
+counters.  Each particle's result is the single-device step's, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import torch
 
 from .. import relativity
 from ..constants import PhysicsParams
+from ..parallel import comm
 from ..state import Particles
 from . import forces as forces_ops
 from . import forces_cuda
@@ -71,30 +86,33 @@ def _advance(pos0, vel0, forces, rest_mass, h_scale):
     return new_pos, new_vel
 
 
-def _break(bonded, j, pos, neighbors, threshold, break_scale):
-    dx = pos[:, None, 0] - pos[j, 0]
-    dy = pos[:, None, 1] - pos[j, 1]
+def _break(bonded, j, pos, neighbors, threshold, break_scale, row0=0):
+    own = slice(row0, row0 + bonded.shape[0])
+    dx = pos[own, None, 0] - pos[j, 0]
+    dy = pos[own, None, 1] - pos[j, 1]
     dist = torch.sqrt(dx * dx + dy * dy)
     thr = threshold
     if break_scale is not None:
-        thr = threshold * torch.minimum(break_scale[:, None], break_scale[j])
+        thr = threshold * torch.minimum(break_scale[own, None], break_scale[j])
     broke = bonded & (dist > thr)
     return torch.where(broke, -1, neighbors), broke.sum(dtype=torch.int32)
 
 
-def break_bonds(pos, neighbors, threshold, break_scale=None):
+def break_bonds(pos, neighbors, threshold, break_scale=None, row0=0):
     """Symmetric bond breaking from `pos` over every valid slot (any bond
     graph).  `break_scale` (N,) optionally scales the threshold per
     particle; the pair takes the endpoint MIN, so both endpoints agree.
-    Returns (neighbors, bonds_broken)."""
-    return _break(*forces_ops._row_slots(neighbors), pos, neighbors, threshold, break_scale)
+    On a mesh `neighbors` holds the rows from global row `row0` and `pos`
+    and `break_scale` are global.  Returns (neighbors, bonds_broken)."""
+    return _break(*forces_ops._row_slots(neighbors), pos, neighbors, threshold, break_scale,
+                  row0)
 
 
-def break_bonds_shifted(pos, neighbors, offsets, threshold, break_scale=None):
+def break_bonds_shifted(pos, neighbors, offsets, threshold, break_scale=None, row0=0):
     """break_bonds with the bonded partners read by the shifted rule of
     ops/forces.py.  Returns (neighbors, bonds_broken)."""
-    return _break(*forces_ops._bonded_slots(neighbors, offsets), pos, neighbors, threshold,
-                  break_scale)
+    return _break(*forces_ops._bonded_slots(neighbors, offsets, row0), pos, neighbors,
+                  threshold, break_scale, row0)
 
 
 def physics_step(
@@ -106,13 +124,16 @@ def physics_step(
     bin_resolution: float,
     materials=None,
     integrator: str = "rk4",
+    mesh=None,
 ) -> tuple[Particles, StepAux]:
-    """Cell sort + RK4 (or Euler, `integrator="euler"`) for one frame.  `spring_offsets` is the (8, D) table
-    of forces.spring_offsets_tensor, or None for the row-gather physics;
-    `bin_resolution` (>= the collision distance) sets the collision
-    binning, whose grid dim rescales so the live extent stays
-    grid_dim * grid_resolution.  `materials` is an optional
-    ops.materials.ParticleMaterials."""
+    """Cell sort + RK4 (or Euler, `integrator="euler"`) for one frame.
+    `spring_offsets` is the (8, D) table of forces.spring_offsets_tensor,
+    or None for the row-gather physics; `bin_resolution` (>= the collision
+    distance) sets the collision binning, whose grid dim rescales so the
+    live extent stays grid_dim * grid_resolution.  `materials` is an
+    optional ops.materials.ParticleMaterials (global planes on a mesh).
+    With `mesh` (parallel.mesh.Mesh) `particles` is this rank's block (see
+    the module docstring)."""
     if integrator not in ("rk4", "euler"):
         raise ValueError(f"unknown integrator: {integrator}")
     h = params.h
@@ -124,48 +145,73 @@ def physics_step(
     act = active[:, None]
     if bin_resolution < params.collision_distance - 1e-9:
         raise ValueError("bin_resolution below collision_distance breaks window coverage")
+    rows = spring_offsets is None
+    # the global planes every rank reads (this device's own on one device)
+    if mesh is None:
+        row0, gather = 0, (lambda x: x)
+        gpos0, gvel0, gact = pos0, vel0, active
+        # the exclude variant reads the bond table as (N, 8) int32 rows
+        gnbr = nbr.contiguous() if rows else None
+        coll_rows = None
+    else:
+        row0 = mesh.rank * pos0.shape[0]
+        gather = lambda x: comm.all_gather(x, mesh)  # noqa: E731
+        cols = [pos0, vel0, active[:, None].to(torch.float32)]
+        if rows:
+            cols.append(nbr.contiguous().view(torch.float32))  # the int32 bits ride along
+        g = gather(torch.cat(cols, dim=1))
+        gpos0, gvel0, gact = g[:, 0:2].contiguous(), g[:, 2:4], g[:, 4] > 0.5
+        gnbr = g[:, 5:13].contiguous().view(torch.int32) if rows else None
+        coll_rows = comm.block(g.shape[0], mesh.rank, mesh.size)
     bdim = max(1, int(round(grid_dim * params.grid_resolution / bin_resolution)))
-    cell, origin = grid_ops.cell_ids(pos0, active, bin_resolution, bdim)
+    cell, origin = grid_ops.cell_ids(gpos0, gact, bin_resolution, bdim)
     order = forces_cuda.build_cell_order(cell, origin, (bdim + 2) ** 2, bdim + 2,
                                          bin_resolution)
     cd = params.collision_distance
     rep = params.collision_repulsion_coefficient
     k_pp = materials.k_scale if materials is not None else None
     c_pp = materials.damping if materials is not None else None
-    rows = spring_offsets is None
-    # the exclude variant reads the bond table as (N, 8) int32 rows
-    nbr_rows = nbr.contiguous() if rows else None
+    gact_col = gact[:, None]
 
-    def F(pos):
+    def F(gpos):
+        """This block's forces at the global positions `gpos`."""
         # how far any particle moved along x and along y since the cells
         # were built
-        disp = torch.where(act, (pos - pos0).abs(), 0.0).amax(dim=0)
-        coll = forces_cuda.collision_forces(pos, active, order, cd, rep, disp,
-                                            neighbors=nbr_rows)
-        px, py = pos[:, 0], pos[:, 1]
+        disp = torch.where(gact_col, (gpos - gpos0).abs(), 0.0).amax(dim=0)
+        coll = forces_cuda.collision_forces(gpos, gact, order, cd, rep, disp,
+                                            neighbors=gnbr, rows=coll_rows)
+        if mesh is not None:
+            coll = comm.reduce_scatter(coll, mesh)
+        px, py = gpos[:, 0], gpos[:, 1]
         if rows:
             sfx, sfy = forces_ops.spring_forces_rows(
                 px, py, nbr, rest_lengths, params.k, k_pp=k_pp, c_pp=c_pp,
-                vx=vel0[:, 0] if c_pp is not None else None,
-                vy=vel0[:, 1] if c_pp is not None else None,
+                vx=gvel0[:, 0] if c_pp is not None else None,
+                vy=gvel0[:, 1] if c_pp is not None else None, row0=row0,
             )
         else:
             sfx, sfy = forces_ops.spring_forces_shifted(
-                px, py, nbr, spring_offsets, rest_lengths, params.k, k_pp=k_pp
+                px, py, nbr, spring_offsets, rest_lengths, params.k, k_pp=k_pp, row0=row0
             )
             bfx, bfy = forces_ops.bonded_repulsion_shifted(
-                px, py, nbr, spring_offsets, cd, rep
+                px, py, nbr, spring_offsets, cd, rep, row0=row0
             )
             sfx, sfy = sfx - bfx, sfy - bfy
             if c_pp is not None:
                 dfx, dfy = forces_ops.bond_damping_shifted(
-                    px, py, vel0[:, 0], vel0[:, 1], nbr, spring_offsets, c_pp
+                    px, py, gvel0[:, 0], gvel0[:, 1], nbr, spring_offsets, c_pp, row0=row0
                 )
                 sfx, sfy = sfx + dfx, sfy + dfy
         return coll + torch.stack([sfx, sfy], dim=-1)
 
+    def summed(aux: StepAux) -> StepAux:
+        """The counters summed over the mesh's ranks (one all-reduce)."""
+        if mesh is None:
+            return aux
+        return StepAux(*comm.all_reduce(torch.stack(list(aux)), mesh).unbind())
+
     zero = torch.zeros((), dtype=torch.int32, device=pos0.device)
-    f0 = F(pos0)
+    f0 = F(gpos0)
     if integrator == "euler":
         acc = relativity.r_acc(f0, vel0, m)
         new = dataclasses.replace(
@@ -173,13 +219,14 @@ def physics_step(
             pos=torch.where(act, pos0 + vel0 * h, pos0),
             vel=torch.where(act, vel0 + acc * h, vel0),
         )
-        return new, StepAux(grid_overflow=zero, bonds_broken=zero, window_truncated=zero)
+        return new, summed(StepAux(grid_overflow=zero, bonds_broken=zero,
+                                   window_truncated=zero))
     p1, _ = _advance(pos0, vel0, f0, m, h / 2.0)
-    f1 = F(p1)
+    f1 = F(gather(p1))
     p2, _ = _advance(pos0, vel0, f1, m, h / 2.0)
-    f2 = F(p2)
+    f2 = F(gather(p2))
     p3, _ = _advance(pos0, vel0, f2, m, h)
-    f3 = F(p3)
+    f3 = F(gather(p3))
     facc = f0 + 2.0 * f1 + 2.0 * f2 + f3
     acc = relativity.r_acc(facc, vel0, m)
     vel = vel0 + acc * (h / 6.0)
@@ -191,11 +238,12 @@ def physics_step(
     brk_pp = materials.break_scale if materials is not None else None
     if rows:
         new_neighbors, n_broken = break_bonds(
-            pos0, nbr, params.bond_break_threshold, break_scale=brk_pp
+            gpos0, nbr, params.bond_break_threshold, break_scale=brk_pp, row0=row0
         )
     else:
         new_neighbors, n_broken = break_bonds_shifted(
-            pos0, nbr, spring_offsets, params.bond_break_threshold, break_scale=brk_pp
+            gpos0, nbr, spring_offsets, params.bond_break_threshold, break_scale=brk_pp,
+            row0=row0
         )
 
     # plastic creep (a stage-4 state update, like bond breaking): bonds
@@ -210,11 +258,11 @@ def physics_step(
             "before stepping")
     elif creep and rows:
         new_rest = forces_ops.creep_rest_lengths_rows(
-            pos0, nbr, new_rest, materials.creep_rate, materials.yield_strain, h)
+            gpos0, nbr, new_rest, materials.creep_rate, materials.yield_strain, h, row0=row0)
     elif creep:
         new_rest = forces_ops.creep_rest_lengths_shifted(
-            pos0[:, 0], pos0[:, 1], nbr, spring_offsets, new_rest, materials.creep_rate,
-            materials.yield_strain, h)
+            gpos0[:, 0], gpos0[:, 1], nbr, spring_offsets, new_rest, materials.creep_rate,
+            materials.yield_strain, h, row0=row0)
 
     new = dataclasses.replace(
         particles,
@@ -223,5 +271,5 @@ def physics_step(
         neighbors=new_neighbors,
         rest_len=new_rest,
     )
-    return new, StepAux(grid_overflow=zero, bonds_broken=n_broken,
-                        window_truncated=zero)
+    return new, summed(StepAux(grid_overflow=zero, bonds_broken=n_broken,
+                               window_truncated=zero))

@@ -10,6 +10,12 @@ by the device cursor); hidden-surface removal is one
 with _BG, so the winner carries its own colour.  Samples fade toward the
 white background with lookback.  All of it is plain torch on every device,
 as the JAX package runs it in XLA.
+
+On a mesh (`mesh`, parallel/; `spacetime_tpu/parallel/sharding.py:196-203`)
+the ring holds this rank's particle columns: the depth range is one MIN
+all-reduce of (d_lo, -d_hi), and each rank's scatter-min plane is merged
+by one MIN all-reduce, exact in any order, so every rank gets the
+single-device image.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..camera import Camera
+from ..parallel import comm
 from ..state import Objects
 from .worldline import WorldlineBuffer
 
@@ -56,11 +63,13 @@ def render_worldline3d(buf: WorldlineBuffer, object_index: torch.Tensor, objects
                        cam: Camera, width: int, height: int, params: Worldline3DParams,
                        active: Optional[torch.Tensor] = None,
                        boundary: Optional[torch.Tensor] = None,
-                       planar: bool = False) -> torch.Tensor:
+                       planar: bool = False, mesh=None) -> torch.Tensor:
     """(H, W, 3) f32 image in [0, 1], or (3, H, W) with `planar`: the
     spacetime block seen side-on.  `cam.pos` / `cam.zoom` pan and scale
     the spatial axes as in the 2D modes; `boundary` ((N,) bool) selects
-    the shell samples when params.shell_only."""
+    the shell samples when params.shell_only.  With `mesh` the ring,
+    `object_index`, `active` and `boundary` are this rank's share (see
+    the module docstring)."""
     t_cap = buf.capacity
     dev = buf.pos_x.device
     a_all = t_cap if params.max_age <= 0 else min(params.max_age, t_cap)
@@ -110,6 +119,9 @@ def render_worldline3d(buf: WorldlineBuffer, object_index: torch.Tensor, objects
     # would clamp at low elevation and let packed colour decide occlusion)
     d_lo = torch.where(inside, depth, _ON_SCREEN_SENTINEL).amin()
     d_hi = torch.where(inside, depth, -_ON_SCREEN_SENTINEL).amax()
+    if mesh is not None:
+        d_lo, neg_hi = comm.all_reduce(torch.stack([d_lo, -d_hi]), mesh, "min").unbind()
+        d_hi = -neg_hi
     span = torch.clamp(d_hi - d_lo, min=1e-6)
     dq = torch.clamp(torch.round((depth - d_lo) / span * 4095.0), 0.0, 4095.0).to(torch.int32)
 
@@ -127,6 +139,8 @@ def render_worldline3d(buf: WorldlineBuffer, object_index: torch.Tensor, objects
     flat.scatter_reduce_(0, lin.reshape(-1).long(), packed.reshape(-1), "amin",
                          include_self=True)
     flat = flat[:width * height]
+    if mesh is not None:
+        flat = comm.all_reduce(flat.contiguous(), mesh, "min")
 
     hit = flat < _BG
     img = torch.stack([torch.where(hit, ((flat >> s) & 31).to(torch.float32) / 31.0, 1.0)

@@ -1,9 +1,10 @@
-"""Special-relativity helpers (c = 1 units) used by the ported slice.
+"""Special-relativity helpers (c = 1 units).
 
 Counterpart of `spacetime_tpu/relativity.py`: `gamma` and `r_acc` drive the
 RK4 step; the Doppler factors drive the renderer's shading; the mass,
-momentum and energy feed utils/diagnostics.py.  Functions take `(..., 2)`
-tensors and broadcast.
+momentum and energy feed utils/diagnostics.py; `velocity_addition_2d` and
+`aberrate_direction` compose velocities and map camera-frame rays to the
+ground frame.  Functions take `(..., 2)` tensors and broadcast.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import torch
 
 from .constants import C2
+
+_EPS = 1e-12
 
 
 def gamma(speed: torch.Tensor) -> torch.Tensor:
@@ -49,6 +52,30 @@ def r_acc(force: torch.Tensor, vel: torch.Tensor, rest_mass: torch.Tensor) -> to
     vdotf = torch.sum(vel * force, dim=-1, keepdim=True)
     g = gamma_v(vel)[..., None]
     return (force - vdotf * vel / C2) / (rest_mass[..., None] * g)
+
+
+def velocity_addition_2d(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Relativistic composition of 2D velocities: the velocity of a particle
+    moving at `u` in a frame that itself moves at `v` (both in the final
+    frame's coordinates), by the longitudinal and transverse addition
+    formulas on u's parts along and across v; `u` itself where v = 0."""
+    v_sq = torch.sum(v * v, dim=-1, keepdim=True)
+    safe_v_sq = torch.clamp(v_sq, min=_EPS)
+    u_par = (torch.sum(u * v, dim=-1, keepdim=True) / safe_v_sq) * v
+    u_perp = u - u_par
+    g = gamma(torch.sqrt(v_sq[..., 0]))[..., None]
+    denom = 1.0 + torch.sum(u * v, dim=-1, keepdim=True) / C2
+    out = (u_par + v + u_perp / g) / denom
+    return torch.where(v_sq > _EPS, out, u)
+
+
+def aberrate_direction(d_hat: torch.Tensor, cam_vel: torch.Tensor) -> torch.Tensor:
+    """A unit ray direction of the camera's rest frame mapped into the
+    ground frame for a camera moving at `cam_vel` (relativistic
+    aberration): the photon's velocity composed with the camera's, then
+    normalized."""
+    d = velocity_addition_2d(d_hat * 1.0, cam_vel)
+    return d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True), min=_EPS)
 
 
 def doppler_factor(source_vel: torch.Tensor, n_hat: torch.Tensor) -> torch.Tensor:

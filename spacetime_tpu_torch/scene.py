@@ -13,6 +13,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from . import constants
+from . import device as device_mod
 from .state import Objects, Particles, concat_particle_arrays, make_objects, pack_particles
 from .utils.png import read_png
 
@@ -194,3 +195,27 @@ class SceneBuilder:
         )
         objects = make_objects(constants.MAX_OBJECTS, self.object_specs, device=device)
         return particles, objects
+
+
+def two_blob_collision_scene(radius_px: int = 135, capacity: Optional[int] = None,
+                             device=None) -> Tuple[Particles, Objects]:
+    """The reference's demo scene: two blobs on a collision course at 0.14c
+    closing speed (the first at (0, 0) moving (0.1, 0.1), the second at
+    (1.2, 0.8) moving (-0.1, -0.1)), here procedural discs of radius
+    `radius_px`, blue and red.  `device` None means cuda:0 (raises without
+    CUDA)."""
+    sb = SceneBuilder()
+    sb.add(disc_softbody(radius_px, 0, (0.0, 0.0), (0.1, 0.1)), base_color=(0.0, 0.0, 1.0))
+    sb.add(disc_softbody(radius_px, 1, (1.2, 0.8), (-0.1, -0.1)), base_color=(1.0, 0.0, 0.0))
+    return sb.build(capacity, device=device_mod.resolve(device))
+
+
+def single_blob_scene(count: int = 4000, capacity: Optional[int] = None, vel=(0.1, 0.1),
+                      device=None) -> Tuple[Particles, Objects]:
+    """One blue disc of about `count` particles at (0.3, 0.3) moving `vel`
+    (the default count is the reference's small fast test image's, 3,965
+    particles).  `device` None means cuda:0 (raises without CUDA)."""
+    sb = SceneBuilder()
+    sb.add(disc_softbody(radius_for_count(count), 0, (0.3, 0.3), vel),
+           base_color=(0.0, 0.0, 1.0))
+    return sb.build(capacity, device=device_mod.resolve(device))

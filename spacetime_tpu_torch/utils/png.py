@@ -1,12 +1,19 @@
 """PNG reading and writing on `zlib` and `struct` alone (no pillow).
 
-`read_png` decodes what `scene.image_to_softbody` imports: 8-bit,
-non-interlaced PNGs of colour types 0 (gray), 2 (RGB), 3 (palette, with
-its PLTE and an optional tRNS), 4 (gray + alpha) and 6 (RGBA), any number
+`read_png` decodes what `scene.image_to_softbody` imports: PNGs of every
+legal colour type and bit depth — 0 (gray: 1, 2, 4, 8, 16), 2 (RGB: 8,
+16), 3 (palette: 1, 2, 4, 8, with its PLTE and an optional tRNS), 4 (gray +
+alpha: 8, 16) and 6 (RGBA: 8, 16) — plain or Adam7-interlaced, any number
 of IDAT chunks and all five scanline filters.  The result is (H, W, 3)
-uint8, as pillow's `convert("RGB")` gives it: gray replicated to three
-channels, alpha (and a palette's tRNS) dropped.  Interlaced images and bit
-depths other than 8 raise ValueError naming what is not supported.
+uint8, as pillow's `convert("RGB")` gives it:
+
+  * gray replicated to three channels; 1-, 2- and 4-bit gray scaled to
+    0..255 (x 255, 85, 17); 16-bit gray clipped to 255 (pillow reads it
+    as mode I;16, whose RGB conversion clips);
+  * 16-bit RGB, RGBA and gray + alpha reduced to their high bytes;
+  * sub-byte samples unpacked most significant bit first, each scanline
+    padded to a whole byte;
+  * alpha (and a palette's tRNS) dropped.
 
 `encode_png` / `write_png` write (H, W, 3) uint8 frames as 8-bit RGB with
 filter 0 on every row (what the frame sinks and `Engine.save_png` use).
@@ -21,6 +28,11 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# the bit depths the PNG specification allows for each colour type
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7: (x0, y0, dx, dy) of each of the seven passes
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
@@ -60,7 +72,8 @@ def _average_row(line: bytearray, prev: bytes, bpp: int) -> None:
 
 
 def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """The (height, stride) bytes of the image from the filtered scanlines."""
+    """The (height, stride) bytes of one (sub)image from its filtered
+    scanlines, which `raw` starts with."""
     if len(raw) < height * (stride + 1):
         raise ValueError("PNG image data is shorter than its header says")
     rows = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(height, stride + 1)
@@ -90,6 +103,42 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+def _samples(raw: bytes, width: int, height: int, depth: int, channels: int):
+    """((height, width, channels) samples of one (sub)image, as uint16 for
+    16-bit images and uint8 otherwise; the bytes it took from `raw`)."""
+    if width == 0 or height == 0:
+        return np.zeros((height, width, channels), np.uint8), 0
+    bits = width * channels * depth
+    stride = (bits + 7) // 8
+    rows = _unfilter(raw, height, stride, max(1, channels * depth // 8))
+    if depth == 16:
+        px = rows.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        px = rows
+    else:
+        # MSB first: sample s of a row is bits [s * depth, (s + 1) * depth)
+        b = np.unpackbits(rows, axis=1)[:, :bits].reshape(height, -1, depth)
+        px = np.zeros(b.shape[:2], np.uint8)
+        for k in range(depth):
+            px = (px << 1) | b[:, :, k]
+    return px.reshape(height, width, channels), height * (stride + 1)
+
+
+def _deinterlace(raw: bytes, width: int, height: int, depth: int, channels: int):
+    """The full image's samples from the seven Adam7 passes, each a
+    filtered subimage of its own (an empty pass has no bytes)."""
+    dtype = np.uint16 if depth == 16 else np.uint8
+    out = np.zeros((height, width, channels), dtype)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw = max(0, (width - x0 + dx - 1) // dx)
+        ph = max(0, (height - y0 + dy - 1) // dy)
+        px, used = _samples(raw[pos:], pw, ph, depth, channels)
+        out[y0::dy, x0::dx] = px
+        pos += used
+    return out
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """(H, W, 3) uint8 of PNG bytes (see the module docstring)."""
     header, idat, palette = None, [], None
@@ -105,21 +154,30 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, ctype, comp, filt, interlace = header
     if ctype not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype} is not a valid colour type")
-    if depth != 8:
-        raise ValueError(f"PNG bit depth {depth} is not supported (8-bit images only)")
-    if interlace != 0:
-        raise ValueError("interlaced (Adam7) PNG is not supported")
+    if depth not in _DEPTHS[ctype]:
+        raise ValueError(f"PNG bit depth {depth} is not valid for colour type {ctype}")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} is not a valid method")
     if comp != 0 or filt != 0:
         raise ValueError(f"PNG compression {comp} / filter method {filt} is not supported")
     channels = _CHANNELS[ctype]
-    px = _unfilter(zlib.decompress(b"".join(idat)), height, width * channels, channels)
-    px = px.reshape(height, width, channels)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        px = _deinterlace(raw, width, height, depth, channels)
+    else:
+        px = _samples(raw, width, height, depth, channels)[0]
     if ctype == 3:
         if palette is None:
             raise ValueError("palette PNG has no PLTE chunk")
         table = np.zeros((256, 3), np.uint8)  # indices past the palette read black
         table[:len(palette)] = palette
         return table[px[..., 0]]
+    if depth == 16:
+        # gray clips (pillow's I;16 to RGB); the other types keep the high byte
+        px = np.minimum(px, 255) if ctype == 0 else px >> 8
+        px = px.astype(np.uint8)
+    elif depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))  # gray 1/2/4 to 0..255
     if ctype in (0, 4):
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])

@@ -269,6 +269,17 @@ def test_aloof_capacity_grows_for_the_slots():
                                   np.asarray(je.particles.object_index))
 
 
+def test_checkpoint_fingerprint_counts_the_aloof_slots():
+    """The checkpoint fingerprint hashes the capacity with its aloof slots,
+    as JAX's does (`int(self.particles.capacity)`): Engines that differ only
+    in their aloof slots do not share one."""
+    big = [ab.AloofBody(ab.box_template(16, 16), ab.linear_trajectory((0.6, 0.5), (0, 0)))]
+    grown = Engine(_cfg(config), device="cpu", aloof_bodies=big)
+    bare = Engine(_cfg(config), device="cpu")
+    assert grown._n_full == grown.particles.capacity == 512 != bare.particles.capacity
+    assert grown._config_fingerprint() != bare._config_fingerprint()
+
+
 # --------------------------------------------------------------------------
 # Euler
 # --------------------------------------------------------------------------

@@ -200,8 +200,15 @@ def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch):
 
 
 def test_mesh_and_aloof_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(_tiny(), device="cpu", mesh=object())
+    """A mesh runs (tests/test_torch_parallel.py); aloof bodies on one are
+    not ported, and the Engine refuses them by name."""
+    from spacetime_tpu_torch.models.aloofbody import AloofBody, disc_template
+    from spacetime_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    body = AloofBody(disc_template(3), lambda t: (t, t), object_index=1)
+    with pytest.raises(NotImplementedError, match="aloof bodies on a device mesh"):
+        Engine(_tiny(), device="cpu", mesh=mesh, aloof_bodies=[body])
 
 
 # --------------------------------------------------------------------------

@@ -209,10 +209,13 @@ def test_checkpoint_round_trips_hotswap(tmp_path):
     assert again.hotswap == {"max_fps": 33.0} and again.frame == 2
 
 
-@pytest.mark.parametrize("mode,extra", [
+DROPPED_CASES = [
     ("retarded", {}), ("points", {}), ("conical", {"defect": ((0.5, 0.5), 0.5)}),
     ("conical", {"defect_source": ((0, None),), "defect_G": 1e-3}),
-    ("btz", {"btz": ((0.5, 0.5), 0.03, 0.45)}), ("worldline3d", {})])
+    ("btz", {"btz": ((0.5, 0.5), 0.03, 0.45)}), ("worldline3d", {}), ("retina", {})]
+
+
+@pytest.mark.parametrize("mode,extra", DROPPED_CASES[:-1])
 def test_a_dropped_engine_is_freed_at_once(mode, extra, monkeypatch):
     """No reference cycle holds an Engine (and with it its ring and, on the
     card, its CUDA graphs' memory) once its last reference goes: the conical
@@ -228,6 +231,28 @@ def test_a_dropped_engine_is_freed_at_once(mode, extra, monkeypatch):
     try:
         del eng
         assert ref() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("mode,extra", DROPPED_CASES)
+def test_a_dropped_engine_frees_its_ring_at_once(mode, extra):
+    """Nor does a cycle hold the frame state its fused frames' stages close
+    over (the ring; on the card, the graph-pool tensors of the conical
+    stage's defects): a render closure that set its own attributes kept
+    them until the cyclic collector ran, which could free graph memory in
+    the middle of another capture."""
+    import gc
+    import weakref
+
+    cfg = _cfg(config, render_mode=mode, width=16, height=16, history=16, **extra)
+    eng = Engine(cfg, device="cpu")
+    eng.run(2)
+    refs = [weakref.ref(eng.worldline.pos_x), weakref.ref(eng.particles.pos)]
+    gc.disable()
+    try:
+        del eng
+        assert all(r() is None for r in refs)
     finally:
         gc.enable()
 
