@@ -151,8 +151,14 @@ just after:
     bytes by kind); then the same against one device for flagship_1080p
     in points mode (MESH_FRAMES frames, the points kernel's winner and
     resolve passes around a MIN all-reduce: 1 points launch a frame) and
-    conical_defect (MESH_CONICAL_FRAMES); the group is destroyed before
-    the result line;
+    conical_defect (MESH_CONICAL_FRAMES); and flagship_1080p with
+    engine_aloof's disc (its slots reserved on the whole scene, the
+    injection writing the rank's share of them) for MESH_FRAMES frames:
+    bit-equal to the single-device aloof Engine, 4 / 1 / 1 launches a
+    frame (the bond-excluding collision variant: the repacked lattice takes
+    the row-gather physics), one capture a key, the gathered slots at
+    state_at(the device clock); the group is destroyed before the result
+    line;
   * the kernels' mesh launches against their whole launches, exact: the
     collision kernel over 2 and 4 ranges of sorted rows summed (headline,
     after the main path, both variants), the pixel kernel over 2 and 4
@@ -1933,20 +1939,21 @@ def check_points_blocks(eng):
     return whole_ms, out, resolve_ms
 
 
-def _mesh_vs_single(cfg, mesh, device, frames, expect):
-    """`cfg` for `frames` fused frames on one device, then on `mesh`, each
-    Engine from its own scene build: the mesh run's launches (`expect`
-    per frame), its graphs, its last image against the single run's
-    (bit-equal, else the pixel gate), its state and its drops (equal).
-    Returns (mesh Engine, its launches, its summary, the single summary)."""
+def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
+    """`cfg` (with `aloof_bodies`) for `frames` fused frames on one device,
+    then on `mesh`, each Engine from its own scene build: the mesh run's
+    launches (`expect` per frame), its graphs, its last image against the
+    single run's (bit-equal, else the pixel gate), its state and its drops
+    (equal).  Returns (mesh Engine, its launches, its summary, the single
+    summary)."""
     from spacetime_tpu_torch import kernels
     from spacetime_tpu_torch.engine import Engine
 
     ref, last = {}, {}
-    single = Engine(cfg, device=device)
+    single = Engine(cfg, device=device, aloof_bodies=aloof_bodies)
     single_summary = single.run(frames, on_frame=lambda i, img: ref.__setitem__("img", img))
     kernels.reset_launch_counts()
-    meshed = Engine(cfg, mesh=mesh)
+    meshed = Engine(cfg, mesh=mesh, aloof_bodies=aloof_bodies)
     t0 = time.perf_counter()
     summary = meshed.run(frames, on_frame=lambda i, img: last.__setitem__("img", img))
     torch.cuda.synchronize()
@@ -1961,8 +1968,9 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect):
                                  getattr(single.particles, f.name))
                      for f in dataclasses.fields(meshed.particles)
                      if getattr(meshed.particles, f.name) is not None)
-    print(f"mesh phase ({cfg.name}, {cfg.render_mode}, one-rank NCCL group, {frames} fused "
-          f"frames): {wall:.2f} s wall; launches {counts}; graphs {g}; last image bit-equal "
+    aloof = f" + {sum(b.num_points for b in aloof_bodies)} aloof points" if aloof_bodies else ""
+    print(f"mesh phase ({cfg.name}{aloof}, {cfg.render_mode}, one-rank NCCL group, {frames} "
+          f"fused frames): {wall:.2f} s wall; launches {counts}; graphs {g}; last image bit-equal "
           f"to the single-device Engine's: {same} (pixel share > {PIXEL_TOL:g}: {share:.2e}); "
           f"state bit-equal: {state_same}; drops {summary['drops']} (single device "
           f"{single_summary['drops']}); frame median {summary['frame_median_ms']:.4f} ms "
@@ -1982,13 +1990,43 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect):
     return meshed, counts, summary, single_summary
 
 
+def mesh_aloof(cfg, mesh, device):
+    """flagship_1080p with engine_aloof's disc on the mesh for MESH_FRAMES
+    fused frames against one device (_mesh_vs_single: bit-equal, 4 / 1 / 1
+    launches a frame), one capture a key, and the gathered slots at
+    state_at(the device clock).  Returns the mesh run's launches."""
+    from spacetime_tpu_torch.models.aloofbody import AloofBody, circular_trajectory, disc_template
+    from spacetime_tpu_torch.parallel import sharding
+
+    body = AloofBody(disc_template(20), circular_trajectory((0.7, 0.5), 0.15, 0.3),
+                     object_index=2)
+    # the repacked lattice takes the row-gather physics (engine_aloof)
+    meshed, counts, summary, single_summary = _mesh_vs_single(
+        cfg, mesh, device, MESH_FRAMES, {"collision_exclude": 4, "band": 1, "pixel_pass": 1},
+        aloof_bodies=[body])
+    lo, hi = meshed._aloof_slice
+    full = sharding.gather_particles(meshed.particles, mesh, meshed._n_full)
+    t = meshed._state.frame_in[5]
+    pos, vel = body.state_at(t)
+    at_clock = torch.equal(full.pos[lo:hi], pos) and torch.equal(full.vel[lo:hi], vel)
+    g, keys = meshed.graph_stats, len(meshed._fused_cache)
+    print(f"  aloof flagship_1080p on the mesh: slots {lo}-{hi} of {meshed._n_full}; graphs {g} "
+          f"for {keys} key(s); slots at state_at(clock {float(t):.4f}) {at_clock}; frame "
+          f"median {summary['frame_median_ms']:.4f} ms, single-device aloof Engine "
+          f"{single_summary['frame_median_ms']:.4f} ms")
+    if not at_clock or g["captures"] != keys:
+        raise AssertionError(f"aloof mesh engine: slots at the clock {at_clock}, graphs {g} for "
+                             f"{keys} keys")
+    return counts
+
+
 def mesh_phase(device):
     """The Engine on a one-rank NCCL mesh (see the module docstring):
     flagship_1080p in retarded mode for MESH_FRAMES frames (then graph vs
     eager from its final state, and the collectives of one eager frame
-    counted), in points mode for MESH_FRAMES, and conical_defect for
-    MESH_CONICAL_FRAMES.  Returns the launches summed over the three mesh
-    runs."""
+    counted), with an aloof disc for MESH_FRAMES (mesh_aloof), in points
+    mode for MESH_FRAMES, and conical_defect for MESH_CONICAL_FRAMES.
+    Returns the launches summed over the four mesh runs."""
     import socket
 
     import torch.distributed as dist
@@ -2019,6 +2057,8 @@ def mesh_phase(device):
         if unequal:
             raise AssertionError(f"mesh graphs differ from eager in {unequal}")
         total = dict(counts)
+        for k, v in mesh_aloof(cfg, mesh, device).items():
+            total[k] += v
         for c, mode, frames, expect in (
                 (dataclasses.replace(cfg, render_mode="points"), "points", MESH_FRAMES,
                  {"collision": 4, "points": 1}),

@@ -9,6 +9,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import device as device_mod
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -17,7 +19,10 @@ class Camera:
     vel: torch.Tensor  # (2,) f32 — ground-frame velocity
 
     @staticmethod
-    def create(pos=(0.5, 0.5), zoom=1.0, vel=(0.0, 0.0), device="cpu") -> "Camera":
+    def create(pos=(0.5, 0.5), zoom=1.0, vel=(0.0, 0.0), device=None) -> "Camera":
+        """A camera from host values on `device` (None: cuda:0, raising
+        without CUDA)."""
+        device = device_mod.resolve(device)
         f = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
         return Camera(pos=f(pos), zoom=f(zoom), vel=f(vel))
 

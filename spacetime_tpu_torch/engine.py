@@ -76,8 +76,14 @@ with the collectives inside its stages (captured into its CUDA graphs on
 NCCL); every rank gets the whole image and the same diagnostics, so every
 rank adapts its budgets alike.  A checkpoint holds the whole unpadded
 state (rank 0 writes it) and loads on a mesh or on one device alike.  Every
-mode and `render_views` run on a mesh; aloof bodies raise
-NotImplementedError there.
+mode and `render_views` run on a mesh, with aloof bodies too: their slots
+are reserved on the whole scene before the padding and the cut, the
+render-present mask is padded and cut as the particles are
+(`sharding.shard_mask`), and every rank computes all the bodies' states and
+writes the slots that fall in its block (`aloofbody.Injection`'s `block`;
+a rank holding none writes nothing).  `_aloof_slice` keeps the whole
+scene's rows.  A trajectory that cannot be captured runs every frame
+eagerly on every rank alike, with the same host clock.
 """
 
 from __future__ import annotations
@@ -186,27 +192,23 @@ def conical_defects(cfg: EngineConfig, device, t, cam, particles, buf, max_age: 
     return tuple(out) + sourced
 
 
-def _refuse_unported(config: EngineConfig, mesh, aloof_bodies=()) -> None:
-    on_mesh = mesh is not None
-    missing = [
-        (config.render_mode not in MODES, f"render_mode {config.render_mode!r}"),
-        (on_mesh and bool(aloof_bodies), "aloof bodies on a device mesh"),
-    ]
-    for absent, what in missing:
-        if absent:
-            raise NotImplementedError(f"{what} is not ported to spacetime_tpu_torch yet")
+def _refuse_unported(config: EngineConfig) -> None:
+    if config.render_mode not in MODES:
+        raise NotImplementedError(f"render_mode {config.render_mode!r} is not ported to "
+                                  "spacetime_tpu_torch yet")
 
 
 class Engine:
     """Owns the state on one device (or this rank's share of it on a
     `mesh`) and drives the frame loop.  `device` None means cuda:0 and
     raises without CUDA; pass "cpu" for the CPU.  With `mesh` the device is
-    the mesh's, and `particles` (if given) is the whole scene."""
+    the mesh's, `particles` (if given) is the whole scene, and `present`
+    (with aloof bodies) is this rank's block, as the state is."""
 
     def __init__(self, config: EngineConfig, particles: Optional[Particles] = None,
                  objects: Optional[Objects] = None, device=None, aloof_bodies=(),
                  mesh=None):
-        _refuse_unported(config, mesh, aloof_bodies)
+        _refuse_unported(config)
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
@@ -221,7 +223,7 @@ class Engine:
         self.present = None  # render-present mask when aloof slots exist
         self._aloof = None  # their injection (aloofbody.Injection)
         if self.aloof_bodies:
-            particles = self._reserve_aloof_slots(particles)
+            particles, present, slots = self._reserve_aloof_slots(particles)
         self._n_full = particles.capacity  # the capacity, before any mesh padding
         particles = fused.owned(particles.to(self.device))  # updated in place
         self.objects = objects.to(self.device)
@@ -247,6 +249,18 @@ class Engine:
             particles = with_rest_len(particles, config.physics.rest_lengths())
         if mesh is not None:
             particles = sharding.shard_particles(particles, mesh)
+        if self.aloof_bodies:
+            # the mask padded and cut like the particles, and the injection
+            # writing the slots that fall in this rank's block
+            block = None
+            if mesh is not None:
+                present = sharding.shard_mask(present, mesh)
+                block = sharding.particle_block(particles.capacity * mesh.size, mesh)
+            self.present = present.to(self.device)
+            self._aloof = aloofbody.Injection(self.aloof_bodies, *slots, block=block)
+            if not self._aloof.capturable:
+                self.log.warning("an aloof body's trajectory cannot be captured (it reads its "
+                                 "time on the host): every frame runs eagerly")
         self.controller = CameraController()
         self.time = 0.0
         self.frame = 0
@@ -278,8 +292,9 @@ class Engine:
         # so retarded visibility does not ramp in over `history` frames
         present = particles.active
         if self._aloof is not None:
-            self._aloof(particles, torch.zeros((), device=self.device), self.time)
-            self._aloof.check_speed(particles)
+            t0 = torch.zeros((), device=self.device)
+            self._aloof(particles, t0, self.time)
+            self._aloof.check_speed(t0, self.time)
             present = self.present
         buf = wl.create(config.history, particles.capacity, device=self.device)
         buf = wl.prefill_inertial(buf, particles.pos, particles.vel, present,
@@ -338,11 +353,12 @@ class Engine:
 
     # -- aloof bodies ---------------------------------------------------------
 
-    def _reserve_aloof_slots(self, particles: Particles) -> Particles:
-        """The softbody particles repacked with one physics-inactive slot per
-        aloof point after them (capacity grown to a multiple of 256 if
-        needed), each body's slots carrying its object index; sets
-        `present` (softbody and aloof slots) and the injection.  The active
+    def _reserve_aloof_slots(self, particles: Particles):
+        """(particles, present, (lo, hi)): the softbody particles repacked
+        with one physics-inactive slot per aloof point after them (capacity
+        grown to a multiple of 256 if needed), each body's slots carrying
+        its object index; the render-present mask (softbody and aloof
+        slots) and the slots' rows, all of the whole scene.  The active
         particles move to the front, and their bonds are renumbered with
         them (the JAX Engine keeps the old numbers, which point at other
         particles wherever a lattice-padded scene had padding between
@@ -377,16 +393,13 @@ class Engine:
         active[:n_soft] = True
         present = active.copy()
         present[n_soft:n_soft + total] = True
-        self.present = torch.from_numpy(present).to(self.device)
-        self._aloof = aloofbody.Injection(bodies, n_soft, n_soft + total)
-        if not self._aloof.capturable:
-            self.log.warning("an aloof body's trajectory cannot be captured (it reads its "
-                             "time on the host): every frame runs eagerly")
-        return dataclasses.replace(new, active=torch.from_numpy(active).to(self.device))
+        new = dataclasses.replace(new, active=torch.from_numpy(active).to(self.device))
+        return new, torch.from_numpy(present), (n_soft, n_soft + total)
 
     @property
     def _aloof_slice(self):
-        """(lo, hi): the aloof slots, or None."""
+        """(lo, hi): the aloof slots' rows of the whole scene (on a mesh
+        too), or None."""
         return None if self._aloof is None else (self._aloof.lo, self._aloof.hi)
 
     # -- camera -------------------------------------------------------------

@@ -61,12 +61,12 @@ def collectives_of_one_frame(cfg, mesh) -> dict:
     return {k: list(v) for k, v in seen.items()}
 
 
-def _run(args, mesh) -> dict:
+def _run(args, mesh, aloof_bodies=()) -> dict:
     """The frames on the mesh (and with --check, rank 0's single-device
-    run): the JSON record rank 0 prints.  Every Engine is dropped by the
-    return, and with it its CUDA graphs: NCCL's communicator outlives no
-    graph that captured its collectives (destroy_process_group waits for
-    them)."""
+    run), both Engines with `aloof_bodies`: the JSON record rank 0 prints.
+    Every Engine is dropped by the return, and with it its CUDA graphs:
+    NCCL's communicator outlives no graph that captured its collectives
+    (destroy_process_group waits for them)."""
     from .device import card_line
     from .parallel import multihost, sharding
     from .utils.config import get_config
@@ -75,7 +75,7 @@ def _run(args, mesh) -> dict:
     over = {k: v for k, v in (("render_mode", args.mode), ("width", args.width),
                               ("height", args.height)) if v is not None}
     cfg = dataclasses.replace(cfg, **over)
-    eng = Engine(cfg, mesh=mesh)
+    eng = Engine(cfg, mesh=mesh, aloof_bodies=aloof_bodies)
     last = {}
     summary = eng.run(args.frames, on_frame=lambda i, img: last.__setitem__("img", img))
     out = {"world": mesh.size, "config": cfg.name, "mode": cfg.render_mode,
@@ -89,7 +89,7 @@ def _run(args, mesh) -> dict:
             out["card"] = card_line()
         if args.check:
             ref = {}
-            single = Engine(cfg, device=mesh.device)
+            single = Engine(cfg, device=mesh.device, aloof_bodies=aloof_bodies)
             single.run(args.frames, on_frame=lambda i, img: ref.__setitem__("img", img))
             same_state = all(
                 torch.equal(getattr(full, f.name), getattr(single.particles, f.name))
@@ -101,7 +101,9 @@ def _run(args, mesh) -> dict:
     return out
 
 
-def main(argv=None) -> int:
+def main(argv=None, aloof_bodies=()) -> int:
+    """The command line; a script that drives an aloof scene passes its
+    `aloof_bodies` (spacetime_tpu_torch.mesh_aloof)."""
     ap = argparse.ArgumentParser(prog="spacetime_tpu_torch.mesh_run", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--config", default="flagship_1080p", help="named config (utils/config.py)")
@@ -123,7 +125,7 @@ def main(argv=None) -> int:
         return 1
     try:
         mesh = mesh_mod.make_mesh()
-        out = _run(args, mesh)
+        out = _run(args, mesh, aloof_bodies)
         if mesh.rank == 0:
             print(json.dumps(out), flush=True)
         multihost.sync(mesh)

@@ -16,12 +16,20 @@ whether a set of bodies can be: each trajectory must map a 0-d `meta`
 tensor to tensors.  A trajectory that reads its time on the host (float(t),
 numpy) cannot; the Engine then runs its frames eagerly and passes such a
 trajectory the tick's time as a 0-d CPU tensor.
+
+On a device mesh each rank holds a block of the particle rows
+(parallel/sharding.py), and the slots may lie in any of the blocks.  Every
+rank computes all the bodies' states (a few thousand replicated points)
+and writes the rows of the slots that fall in its own block: `Injection`'s
+`block`.  A rank that holds none of them writes nothing.  The bounds are
+host ints fixed at construction, so the write is still captured, and no
+collective is needed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -133,28 +141,49 @@ def capturable(bodies: Sequence[AloofBody]) -> bool:
 
 
 class Injection:
-    """Writes the states of `bodies` into the particle slots lo:hi, in place
-    (the JAX Engine's `_inject_aloof_pure`).  With capturable trajectories
-    the states come from the device clock `t`; otherwise from the tick's
-    host time `host_time`, as a 0-d CPU tensor, copied to the device."""
+    """Writes the states of `bodies` into the particle slots lo:hi (global
+    rows), in place (the JAX Engine's `_inject_aloof_pure`).  `block`,
+    (b_lo, b_hi), is the global rows that the particles passed in hold
+    (this rank's block on a mesh; default: all of them): the rows
+    [max(lo, b_lo), min(hi, b_hi)) are written, shifted by -b_lo.  With
+    capturable trajectories the states come from the device clock `t`;
+    otherwise from the tick's host time `host_time`, as a 0-d CPU tensor,
+    copied to the device."""
 
-    def __init__(self, bodies: Sequence[AloofBody], lo: int, hi: int):
+    def __init__(self, bodies: Sequence[AloofBody], lo: int, hi: int,
+                 block: Optional[Tuple[int, int]] = None):
         self.bodies, self.lo, self.hi = tuple(bodies), lo, hi
+        b_lo, b_hi = (0, hi) if block is None else block
+        first, last = max(lo, b_lo), min(hi, b_hi)  # the global rows written
+        # rows of the concatenated states, and of the block (None: no slot here)
+        here = first < last
+        self._src = slice(first - lo, last - lo) if here else None
+        self._dst = slice(first - b_lo, last - b_lo) if here else None
         self.capturable = capturable(self.bodies)
 
-    def __call__(self, particles, t: torch.Tensor, host_time=None) -> None:
+    def states(self, t: torch.Tensor, host_time=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(pos, vel) of every slot, (hi - lo, 2) each, at `t` (or at
+        `host_time` when the trajectories cannot be captured)."""
         if not self.capturable:
             if host_time is None:
                 raise ValueError("a trajectory that cannot be captured needs the host time")
             t = torch.tensor(np.float32(host_time))
         states = [b.state_at(t) for b in self.bodies]
-        particles.pos[self.lo:self.hi].copy_(torch.cat([s[0] for s in states]))
-        particles.vel[self.lo:self.hi].copy_(torch.cat([s[1] for s in states]))
+        return torch.cat([s[0] for s in states]), torch.cat([s[1] for s in states])
 
-    def check_speed(self, particles) -> None:
-        """Raise if any injected velocity reaches c (one host read)."""
-        v = particles.vel[self.lo:self.hi]
-        top = float((v * v).sum(dim=-1).max())
+    def __call__(self, particles, t: torch.Tensor, host_time=None) -> None:
+        if self._src is None:
+            return  # none of the slots in this block
+        pos, vel = self.states(t, host_time)
+        particles.pos[self._dst].copy_(pos[self._src])
+        particles.vel[self._dst].copy_(vel[self._src])
+
+    def check_speed(self, t: torch.Tensor, host_time=None) -> None:
+        """Raise if any slot's velocity at `t` reaches c (one host read).
+        It reads every slot, not this block's, so every rank of a mesh
+        reaches the same verdict."""
+        vel = self.states(t, host_time)[1]
+        top = float((vel * vel).sum(dim=-1).max())
         if top >= 1.0:
             raise ValueError(f"aloofbody speed {top ** 0.5:.4f} >= c")
 

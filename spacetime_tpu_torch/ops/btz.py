@@ -67,6 +67,7 @@ import math
 
 import torch
 
+from .. import device as device_mod
 from ..camera import Camera, pixel_centers
 from ..state import Objects
 from .raytrace import (
@@ -99,9 +100,11 @@ class BTZBlackHole:
 
     @staticmethod
     def create(center=(0.5, 0.5), mass=0.01, ads_l=4.0, spin=0.0,
-               device="cpu") -> "BTZBlackHole":
-        """A hole from host values, as f32 tensors on `device` (fills, not
-        host copies, for the scalars: a CUDA graph may capture them)."""
+               device=None) -> "BTZBlackHole":
+        """A hole from host values, as f32 tensors on `device` (None:
+        cuda:0, raising without CUDA; fills, not host copies, for the
+        scalars: a CUDA graph may capture them)."""
+        device = device_mod.resolve(device)
         c = torch.tensor(center, dtype=torch.float32, device=device)
         scalar = lambda v: torch.full((), v, dtype=torch.float32, device=c.device)
         return BTZBlackHole(center=c, mass=scalar(mass), ads_l=scalar(ads_l),

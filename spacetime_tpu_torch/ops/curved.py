@@ -60,6 +60,7 @@ import math
 import numpy as np
 import torch
 
+from .. import device as device_mod
 from ..camera import Camera, pixel_centers
 from ..state import Objects
 from .raytrace import (
@@ -84,8 +85,10 @@ class ConicalDefect:
     deficit: torch.Tensor  # () f32: the deficit angle in radians (8 pi G M)
 
     @staticmethod
-    def create(center=(0.5, 0.5), deficit=0.8, device="cpu") -> "ConicalDefect":
-        """A defect from host values (tensors are stacked as they are)."""
+    def create(center=(0.5, 0.5), deficit=0.8, device=None) -> "ConicalDefect":
+        """A defect from host values (tensors are stacked as they are) on
+        `device` (None: cuda:0, raising without CUDA)."""
+        device = device_mod.resolve(device)
         if isinstance(center, torch.Tensor) or any(isinstance(c, torch.Tensor) for c in center):
             c = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=device)
                              for v in center]).to(torch.float32)

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from .. import device as device_mod
 from ..state import Particles
 
 
@@ -50,9 +51,10 @@ class WorldlineBuffer:
         )
 
 
-def create(capacity: int, num_particles: int, device="cpu") -> WorldlineBuffer:
-    """Empty history of `capacity` ticks: the oldest visible event is
-    capacity * dt in the past."""
+def create(capacity: int, num_particles: int, device=None) -> WorldlineBuffer:
+    """Empty history of `capacity` ticks on `device` (None: cuda:0, raising
+    without CUDA): the oldest visible event is capacity * dt in the past."""
+    device = device_mod.resolve(device)
     plane = lambda fill: torch.full(
         (2 * capacity, num_particles), fill, dtype=torch.float32, device=device
     )

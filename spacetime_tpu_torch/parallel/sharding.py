@@ -88,6 +88,16 @@ def shard_particles(particles: Particles, mesh: Mesh) -> Particles:
         for f in dataclasses.fields(particles) if getattr(particles, f.name) is not None})
 
 
+def shard_mask(mask: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a (full) per-particle bool mask that is not a
+    Particles field (the Engine's render-present mask), padded with False
+    and cut as shard_particles pads and cuts the particles."""
+    n = mask.shape[0]
+    mask = torch.cat([mask, mask.new_zeros(pad_to_multiple(n, mesh.size) - n)])
+    lo, hi = particle_block(mask.shape[0], mesh)
+    return mask[lo:hi].to(mesh.device).clone()
+
+
 def shard_ring(buf: wl.WorldlineBuffer, mesh: Mesh, n: int) -> wl.WorldlineBuffer:
     """This rank's columns of the (full) ring padded to `n` particles; the
     clock and cursor replicated."""

@@ -187,7 +187,10 @@ class SceneBuilder:
     def num_particles(self) -> int:
         return sum(b["pos"].shape[0] for b in self.bodies)
 
-    def build(self, capacity: Optional[int] = None, device="cpu") -> Tuple[Particles, Objects]:
+    def build(self, capacity: Optional[int] = None, device=None) -> Tuple[Particles, Objects]:
+        """The bodies packed into (particles, objects) on `device` (None:
+        cuda:0, raising without CUDA)."""
+        device = device_mod.resolve(device)
         pos, vel, nbr, obj, ids, act = concat_particle_arrays(self.bodies)
         particles = pack_particles(
             pos, vel, nbr, obj, particle_id=ids, capacity=capacity, active=act,

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import device as device_mod
 from .constants import NUM_NEIGHBORS
 
 
@@ -71,9 +72,11 @@ class Objects:
         return _to(self, device)
 
 
-def make_objects(max_objects: int, specs=None, device="cpu") -> Objects:
+def make_objects(max_objects: int, specs=None, device=None) -> Objects:
     """Build an Objects table from a list of {offset, material_index,
-    base_color} dicts.  Default palette: object 0 blue, the others red."""
+    base_color} dicts on `device` (None: cuda:0, raising without CUDA).
+    Default palette: object 0 blue, the others red."""
+    device = device_mod.resolve(device)
     offset = np.zeros((max_objects,), np.int32)
     material = np.zeros((max_objects,), np.int32)
     color = np.tile(np.array([1.0, 0.0, 0.0], np.float32), (max_objects, 1))
@@ -101,9 +104,11 @@ def pack_particles(
     capacity: Optional[int] = None,
     pad_multiple: int = 256,
     active: Optional[np.ndarray] = None,
-    device="cpu",
+    device=None,
 ) -> Particles:
-    """Pad host-side arrays to a static capacity and move them to `device`."""
+    """Pad host-side arrays to a static capacity and move them to `device`
+    (None: cuda:0, raising without CUDA)."""
+    device = device_mod.resolve(device)
     n = pos.shape[0]
     cap = capacity if capacity is not None else _round_up(max(n, pad_multiple), pad_multiple)
     if n > cap:

@@ -286,9 +286,10 @@ def test_camera_frame_displaces_ahead_source():
     sb = scene.SceneBuilder()
     sb.add(scene.disc_softbody(8, 0, (0.6, 0.45), (0.0, 0.0)), base_color=(0.2, 0.9, 0.3))
     p, objects = sb.build(capacity=512, device="cpu")
-    buf = wl.prefill_inertial(wl.create(192, p.capacity), p.pos, p.vel, p.active, 0.0, H)
+    buf = wl.prefill_inertial(wl.create(192, p.capacity, device="cpu"), p.pos, p.vel, p.active,
+                              0.0, H)
     v = 0.5
-    cam = Camera.create(pos=(0.35, 0.5), zoom=1.2, vel=(v, 0.0))
+    cam = Camera.create(pos=(0.35, 0.5), zoom=1.2, vel=(v, 0.0), device="cpu")
     base = rt.RenderParams(dt=H, bin_capacity=64, num_rays=512, opaque=False)
     base = dataclasses.replace(base, cell_px=rt.auto_cell_px(base, 72, 72, 1.2))
 

@@ -295,7 +295,8 @@ def test_route_delay_matches_quadrature_in_float64(route):
     sweep (+1 counterclockwise)."""
     cx, cy = 4.0 * R_H, 0.0
     for spin in (0.0, 0.004):
-        hole = _hole64(btz.BTZBlackHole.create(center=(0.0, 0.0), mass=M, ads_l=L, spin=spin))
+        hole = _hole64(btz.BTZBlackHole.create(center=(0.0, 0.0), mass=M, ads_l=L, spin=spin,
+                                               device="cpu"))
         m, l, j = (float(getattr(hole, f)) for f in ("mass", "ads_l", "spin"))
         rng = np.random.default_rng(31 + route)
         for _ in range(8):

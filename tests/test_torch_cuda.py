@@ -911,7 +911,7 @@ def _retina_edge_or_seam(cam, centers, params, width, height):
 
     mask = on_edge(px, py)
     for c, k in zip(centers, (4.0, 3.0)):
-        d = curved.ConicalDefect.create(c, k)
+        d = curved.ConicalDefect.create(c, k, device="cpu")
         dc = d.center.double()
         bearing = torch.atan2(py - dc[1], px - dc[0]) - torch.atan2(cy - dc[1], cx - dc[0])
         theta = curved._route2_theta(px.float(), py.float(), cam, d).double()

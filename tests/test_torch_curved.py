@@ -142,7 +142,7 @@ def test_geodesic_lengths_match_jax(deficit):
 
 def test_geodesic_triangle_law():
     """90 degrees apart, deficit 4: the back route spans (2 pi - 4) - pi/2."""
-    d = curved.ConicalDefect.create(center=(0.0, 0.0), deficit=4.0)
+    d = curved.ConicalDefect.create(center=(0.0, 0.0), deficit=4.0, device="cpu")
     l1, l2, v2 = curved.geodesic_lengths(torch.tensor([[0.3, 0.0]]), torch.tensor([[0.0, 0.4]]),
                                          d)
     back = (2 * np.pi - 4.0) - np.pi / 2
@@ -242,7 +242,7 @@ def test_zero_deficit_matches_flat_render(scene, opaque):
     differently)."""
     buf, p, o, cam = scene["t"]
     params = _port_params(_jparams(opaque=opaque))
-    d = curved.ConicalDefect.create(center=(-5.0, -5.0), deficit=0.0)
+    d = curved.ConicalDefect.create(center=(-5.0, -5.0), deficit=0.0, device="cpu")
     img = curved.render_retarded_conical(buf, p.object_index, o, cam, d, W, HT, params).numpy()
     flat = rt.render_retarded(buf, p.object_index, o, cam, W, HT, params).numpy()
     assert _lit(flat) > 10

@@ -106,7 +106,7 @@ def test_render_params_match_jax_at_zooms():
                 setattr(eng, name, v)
         for zoom in (0.01, 0.05, 0.3, 1.0, 2.5):
             je.camera = JCamera(pos=je.camera.pos, zoom=jnp.float32(zoom), vel=je.camera.vel)
-            pe.camera = Camera.create(pos=(0.5, 0.5), zoom=zoom)
+            pe.camera = Camera.create(pos=(0.5, 0.5), zoom=zoom, device="cpu")
             ours, ref = _shared(pe._render_params(), je._render_params())
             assert ours == ref, zoom
             seen.add((ours["cell_px"], ours["max_age"]))

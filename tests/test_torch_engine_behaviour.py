@@ -12,8 +12,12 @@ import pytest
 import torch
 
 from spacetime_tpu.utils import config as jconfig
-from spacetime_tpu_torch import cli, headline, scene
+from spacetime_tpu_torch import cli, headline, scene, state
+from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.engine import Engine, build_scene
+from spacetime_tpu_torch.models.softbody import SoftbodyModel
+from spacetime_tpu_torch.ops import btz, curved
+from spacetime_tpu_torch.ops import worldline as wl
 from spacetime_tpu_torch.ops.raytrace import RenderParams
 from spacetime_tpu_torch.utils import config
 from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec, get_config
@@ -181,34 +185,68 @@ def test_btz_mode_without_a_hole_raises(frame):
         eng.render() if frame == "render" else eng.run_frame()
 
 
-def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch):
-    """With no device named, the Engine, SoftbodyModel and build_scene run
-    on cuda:0; without CUDA they raise and never fall back to the CPU."""
-    from spacetime_tpu_torch.models.softbody import SoftbodyModel
+_ONE = np.zeros((1, 2), np.float32)
+# the entry points and the public constructors a user builds state with:
+# {name: fn(**device) -> a tensor of what it built}
+ENTRY_POINTS = {
+    "Engine": lambda **d: Engine(_tiny(), **d).particles.pos,
+    "SoftbodyModel": lambda **d: SoftbodyModel(256, None, **d).rest_lengths,
+    "build_scene": lambda **d: build_scene(_tiny().scene, **d)[0].pos,
+    "SceneBuilder.build": lambda **d: scene.SceneBuilder().add(
+        scene.disc_softbody(3, 0, (0.0, 0.0), (0.0, 0.0))).build(**d)[0].pos,
+    "Camera.create": lambda **d: Camera.create(**d).pos,
+    "make_objects": lambda **d: state.make_objects(4, **d).offset,
+    "pack_particles": lambda **d: state.pack_particles(
+        _ONE, _ONE, np.full((1, 8), -1, np.int32), np.zeros(1, np.int32), **d).pos,
+    "worldline.create": lambda **d: wl.create(4, 8, **d).pos_x,
+    "ConicalDefect.create": lambda **d: curved.ConicalDefect.create(**d).center,
+    "BTZBlackHole.create": lambda **d: btz.BTZBlackHole.create(**d).center,
+}
 
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_points_default_to_the_card_and_raise_without_cuda(monkeypatch, name):
+    """With no device named, the Engine, SoftbodyModel, build_scene and the
+    public constructors of state (SceneBuilder.build, Camera.create,
+    make_objects, pack_particles, worldline.create, ConicalDefect.create,
+    BTZBlackHole.create) run on cuda:0; without CUDA they raise and never
+    fall back to the CPU, and with device="cpu" they build there."""
+    build = ENTRY_POINTS[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     stepped = []
     monkeypatch.setattr(SoftbodyModel, "step", lambda self, *a, **k: stepped.append(1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        Engine(_tiny())
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        SoftbodyModel(256, None)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_scene(_tiny().scene)
+        build()
     assert not stepped
-    assert Engine(_tiny(), device="cpu").device.type == "cpu"
+    assert build(device="cpu").device.type == "cpu"
 
 
 def test_mesh_and_aloof_raise():
-    """A mesh runs (tests/test_torch_parallel.py); aloof bodies on one are
-    not ported, and the Engine refuses them by name."""
-    from spacetime_tpu_torch.models.aloofbody import AloofBody, disc_template
+    """Aloof bodies run on a mesh (tests/test_torch_parallel.py runs them):
+    the aloof Engine on a (two-rank) mesh constructs, with the slots of the
+    whole scene, the render-present mask of this rank's block and the
+    injection writing the slots in it; an unknown render_mode still
+    raises by name."""
+    from spacetime_tpu_torch.models.aloofbody import AloofBody, circular_trajectory, disc_template
     from spacetime_tpu_torch.parallel.mesh import Mesh
 
-    mesh = Mesh(group=None, rank=0, size=2, device=torch.device("cpu"))
-    body = AloofBody(disc_template(3), lambda t: (t, t), object_index=1)
-    with pytest.raises(NotImplementedError, match="aloof bodies on a device mesh"):
-        Engine(_tiny(), device="cpu", mesh=mesh, aloof_bodies=[body])
+    body = AloofBody(disc_template(3), circular_trajectory((0.6, 0.5), 0.02, 0.3),
+                     object_index=1)
+    for rank in range(2):
+        mesh = Mesh(group=None, rank=rank, size=2, device=torch.device("cpu"))
+        eng = Engine(_tiny(), mesh=mesh, aloof_bodies=[body])
+        single = Engine(_tiny(), device="cpu", aloof_bodies=[body])
+        lo, hi = eng._aloof_slice
+        assert (lo, hi) == single._aloof_slice and hi - lo == body.num_points
+        assert eng.particles.capacity == eng.present.shape[0] == 128
+        assert torch.equal(eng.present, single.present[128 * rank:128 * (rank + 1)])
+        # the slots written in this block: state_at(0) of the rows it holds
+        pos = body.state_at(torch.zeros(()))[0]
+        rows = range(max(lo, 128 * rank), min(hi, 128 * (rank + 1)))
+        assert torch.equal(eng.particles.pos[[g - 128 * rank for g in rows]],
+                           pos[[g - lo for g in rows]])
+    with pytest.raises(NotImplementedError, match="render_mode 'ray_march'"):
+        Engine(_tiny(render_mode="ray_march"), mesh=mesh, aloof_bodies=[body])
 
 
 # --------------------------------------------------------------------------

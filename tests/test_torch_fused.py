@@ -208,7 +208,7 @@ def test_fused_cache_key_across_the_cell_ladder_matches_jax():
     for sweep in (zooms, zooms[::-1]):
         for z in sweep:
             je.camera = JCamera(pos=je.camera.pos, zoom=jnp.float32(z), vel=je.camera.vel)
-            pe.camera = Camera.create(pos=(0.5, 0.5), zoom=float(z))
+            pe.camera = Camera.create(pos=(0.5, 0.5), zoom=float(z), device="cpu")
             je.run_frame()
             pe.run_frame()
         ours = [k[0] for k in pe._fused_cache]
@@ -227,18 +227,18 @@ def test_fused_cache_evicts_first_in_at_four():
     frames = []
     zooms = (0.049, 0.0204, 0.01224, 0.00816, 0.00612)
     for zoom in zooms:
-        eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zoom)
+        eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zoom, device="cpu")
         eng.run_frame()
         frames.append(eng._fused_frame_fn(eng._render_params()))
     assert len({f.stages["render"] for f in frames}) == 5
     cached = [entry[0] for entry in eng._fused_cache.values()]
     assert len(cached) == Engine._FUSED_CACHE_MAX == 4 and cached == frames[1:]
     assert [k[0].cell_px for k in eng._fused_cache] == [16, 24, 32, 48]
-    eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zooms[2])
+    eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zooms[2], device="cpu")
     eng.run_frame()
     assert [entry[0] for entry in eng._fused_cache.values()] == frames[1:]
     # the evicted zoom comes back as a new frame, evicting the next oldest
-    eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zooms[0])
+    eng.camera = Camera.create(pos=(0.5, 0.5), zoom=zooms[0], device="cpu")
     eng.run_frame()
     kept = [entry[0] for entry in eng._fused_cache.values()]
     assert kept[:3] == frames[2:] and kept[3] is not frames[0]
@@ -266,7 +266,7 @@ def test_engine_state_stays_in_its_tensors():
     eng.run_frame(keys={"p": True})  # paused: an eager frame
     assert eng.paused and not eng._can_fuse() and same()
     eng.run_frame(keys={"p": True})
-    eng.camera = Camera.create(pos=(0.47, 0.45), zoom=0.8)
+    eng.camera = Camera.create(pos=(0.47, 0.45), zoom=0.8, device="cpu")
     assert same() and float(eng.camera.zoom) == pytest.approx(0.8)
     moved = dataclasses.replace(eng.particles, pos=eng.particles.pos + 0.001)
     eng.particles = moved
@@ -310,9 +310,10 @@ def _tiny_frame(bin_capacity=256):
     particles, objects = build_scene(_configs()[1].scene, device="cpu")
     model = SoftbodyModel(particles.capacity,
                           forces.derive_spring_offsets(particles.neighbors.numpy()), device="cpu")
-    buf = wl.prefill_inertial(wl.create(32, particles.capacity), particles.pos, particles.vel,
-                              particles.active, 0.0, model.params.h)
-    state = fused.new_state(particles, buf, Camera.create(pos=(0.5, 0.5), zoom=1.0), 0.0)
+    buf = wl.prefill_inertial(wl.create(32, particles.capacity, device="cpu"), particles.pos,
+                              particles.vel, particles.active, 0.0, model.params.h)
+    state = fused.new_state(particles, buf,
+                            Camera.create(pos=(0.5, 0.5), zoom=1.0, device="cpu"), 0.0)
     params = rt.RenderParams(num_rays=256, bin_capacity=bin_capacity)
     stages = fused.frame_stages(model, None, state, objects, 48, 48, params, "retarded",
                                 model.params.h)

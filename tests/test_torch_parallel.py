@@ -19,12 +19,19 @@ What the workers hold, bit for bit, against the single-device port:
   * the Engine on a mesh, 3 fused frames, in each mode it runs there;
   * a checkpoint saved on the mesh and loaded on one device, and the
     reverse;
+  * the Engine with an aloof body on the mesh (_aloof_config): 3 fused
+    frames in retarded, instant and points modes and 3 eager ones of a
+    trajectory that cannot be captured, render_views and a checkpoint
+    crossing both ways, then a frame in each other mode; the slots
+    (29, 142) straddle a block boundary in both worlds (128; 86 of the
+    blocks of 86) and world 3's last rank holds none of them;
   * the collective budget of one fused frame, counted by a wrapper around
     every torch.distributed collective.
 
 In this process: the kernels' plain row ranges (collision), cell-row bands
 (pixel pass) and per-block winner planes (points) against their whole
-launches, and the setup's refusals.
+launches, the aloof injection's block arithmetic, the 2-rank aloof run
+against JAX's Engine on a mesh, and the setup's refusals.
 """
 
 from __future__ import annotations
@@ -49,6 +56,11 @@ FRAMES = 3
 ENGINE_MODES = ("retarded", "instant", "points", "worldline3d", "retina", "conical", "btz",
                 "selfgravity")
 HISTORY = 128  # the budget run's ring: 2T rows a particle column, more than any collective's
+# the aloof runs on the mesh: 3 fused modes and an eager (uncapturable)
+# trajectory at 3 frames, then one frame in each other mode
+ALOOF_RUNS = ("retarded", "instant", "points", "eager")
+ALOOF_OTHER_MODES = ("retina", "worldline3d", "conical", "btz")
+ALOOF_RADIUS = 6  # disc_template(6): 113 points, the slots (29, 142) of 256
 
 
 # --------------------------------------------------------------------------
@@ -92,6 +104,36 @@ def _engine_config(config, rt, name):
     return dataclasses.replace(cfg, scene=config.SceneSpec(bodies=bodies), width=48, height=48,
                                history=64 if name == "btz" else 128,
                                render=dataclasses.replace(cfg.render, num_rays=256))
+
+
+def _aloof_config(config, rt, mode="retarded"):
+    """tests/test_torch_aloof_euler.py's unpadded `_cfg` (one disc of 29
+    particles at capacity 256): JAX does not renumber bonds when it moves
+    the active particles to the front, so only an unpadded lattice is
+    comparable with it."""
+    return config.EngineConfig(
+        scene=config.SceneSpec(bodies=(("disc", 30, (0.42, 0.42), (0.0, 0.0), (0.2, 0.2, 1.0)),),
+                               capacity=256, lattice_pad=False),
+        render=rt.RenderParams(num_rays=256), width=48, height=48, history=32, cam_zoom=0.3,
+        render_mode=mode)
+
+
+def _host_circle(t):
+    """A circular trajectory read on the host (float(t), numpy out): it
+    cannot be captured, so every frame runs eagerly."""
+    import numpy as np
+
+    a = 15.0 * float(t)
+    return (np.array([0.55 + 0.02 * np.cos(a), 0.5 + 0.02 * np.sin(a)], np.float32),
+            np.array([-0.3 * np.sin(a), 0.3 * np.cos(a)], np.float32))
+
+
+def _aloof_bodies(mod, kind="circular"):
+    """One aloof disc of ALOOF_RADIUS (object 5) of `mod` (either package's
+    models.aloofbody) circling at 0.3c right of the softbody; `eager`: the
+    same circle read on the host."""
+    traj = _host_circle if kind == "eager" else mod.circular_trajectory((0.55, 0.5), 0.02, 0.3)
+    return [mod.AloofBody(mod.disc_template(ALOOF_RADIUS), traj, object_index=5)]
 
 
 # --------------------------------------------------------------------------
@@ -172,25 +214,26 @@ def _worker(out_dir: str) -> None:
                    same(got, ref) and touched > 0, f"contact force sum {touched}")
 
     # -- the sharded frame --------------------------------------------------
-    cam = Camera.create(pos=(0.465, 0.45), zoom=0.12)
+    cam = Camera.create(pos=(0.465, 0.45), zoom=0.12, device="cpu")
     for mode in ("retarded", "instant", "jax"):
         if mode == "jax":  # the scene of the JAX comparison: no contact
             full, objects = engine_mod.build_scene(_config(config, rt, apart=True).scene, "cpu")
-            cam = Camera.create(pos=(0.465, 0.45), zoom=0.4)
+            cam = Camera.create(pos=(0.465, 0.45), zoom=0.4, device="cpu")
             offsets = engine_mod.forces.derive_spring_offsets(full.neighbors.numpy())
         model = engine_mod.SoftbodyModel(full.capacity, offsets, cfg.physics, device="cpu")
         padded = sharding.pad_particles(full, mesh.size)
         params = dataclasses.replace(cfg.render, cell_px=8, max_age=0)
         if mode == "instant":
             params = dataclasses.replace(params, opaque=False, retarded=False)
-        buf = wl.prefill_inertial(wl.create(cfg.history, full.capacity), full.pos, full.vel,
-                                  full.active, 0.0, cfg.physics.h)
+        buf = wl.prefill_inertial(wl.create(cfg.history, full.capacity, device="cpu"), full.pos,
+                                  full.vel, full.active, 0.0, cfg.physics.h)
         mp, mb = sharding.shard_state(full, buf, mesh)
         fn = sharding.make_sharded_frame(
             engine_mod.SoftbodyModel(padded.capacity, offsets, cfg.physics, device="cpu"),
             objects, params, cfg.width, cfg.height, mesh)
-        p1, b1 = full, wl.prefill_inertial(wl.create(cfg.history, full.capacity), full.pos,
-                                           full.vel, full.active, 0.0, cfg.physics.h)
+        p1, b1 = full, wl.prefill_inertial(wl.create(cfg.history, full.capacity, device="cpu"),
+                                           full.pos, full.vel, full.active, 0.0,
+                                           cfg.physics.h)
         ok, lit = True, True
         for i in range(FRAMES):
             t = torch.tensor(cfg.physics.h * (i + 1), dtype=torch.float32)
@@ -212,7 +255,7 @@ def _worker(out_dir: str) -> None:
         engine_mod.SoftbodyModel(padded.capacity, offsets, cfg.physics, device="cpu"),
         objects, cfg.render, cfg.width, cfg.height, mesh, render_mode="points",
         object_index=sharding.replicated_object_index(mp, mesh))
-    mp, mb = sharding.shard_state(full, wl.create(cfg.history, full.capacity), mesh)
+    mp, mb = sharding.shard_state(full, wl.create(cfg.history, full.capacity, device="cpu"), mesh)
     p1 = full
     ok = True
     for i in range(FRAMES):
@@ -246,8 +289,8 @@ def _worker(out_dir: str) -> None:
                and meshed.graph_stats["eager"] == eager,
                f"share {share} lit {lit} diag {single.last_diag} / {meshed.last_diag}")
         if mode == "retarded":
-            cams = [Camera.create(pos=(0.46, 0.45), zoom=0.15),
-                    Camera.create(pos=(0.47, 0.44), zoom=0.1, vel=(0.2, 0.0))]
+            cams = [Camera.create(pos=(0.46, 0.45), zoom=0.15, device="cpu"),
+                    Camera.create(pos=(0.47, 0.44), zoom=0.1, vel=(0.2, 0.0), device="cpu")]
             record("views", same(single.render_views(cams), meshed.render_views(cams)))
 
     # -- checkpoints across the mesh ----------------------------------------
@@ -265,6 +308,67 @@ def _worker(out_dir: str) -> None:
     c.load_checkpoint(path2)
     ok = ok and same(b.run_frame(), c.run_frame()) and c.frame == b.frame
     record("checkpoint", ok, f"frames {a.frame} {b.frame} {c.frame}")
+    del a, b, c
+
+    # -- aloof bodies on the mesh -------------------------------------------
+    from spacetime_tpu_torch.models import aloofbody
+
+    def aloof_pair(cfg_a, kind):
+        return (engine_mod.Engine(cfg_a, device="cpu",
+                                  aloof_bodies=_aloof_bodies(aloofbody, kind)),
+                engine_mod.Engine(cfg_a, mesh=mesh, aloof_bodies=_aloof_bodies(aloofbody, kind)))
+
+    def same_run(single, meshed, frames):
+        """(bit-equal images, gathered state and ring, lit) over `frames`."""
+        ok, lit = True, True
+        for _ in range(frames):
+            a, b = single.run_frame(), meshed.run_frame()
+            ok = ok and same(a, b)
+            lit = lit and bool((a.min(-1).values < 0.9).any())
+        gp, gb = sharding.gather_state(meshed.particles, meshed.worldline, mesh,
+                                       single.particles.capacity)
+        return ok and same(gp, single.particles) and same(gb, single.worldline), lit, b
+
+    for name in ALOOF_RUNS:
+        cfg_a = _aloof_config(config, rt, "retarded" if name == "eager" else name)
+        single, meshed = aloof_pair(cfg_a, "eager" if name == "eager" else "circular")
+        inj = meshed._aloof
+        ok, lit, img = same_run(single, meshed, FRAMES)
+        eager = FRAMES if name == "eager" else 0
+        ok = ok and single.graph_stats["eager"] == eager == meshed.graph_stats["eager"]
+        ok = ok and meshed._aloof_slice == single._aloof_slice
+        record(f"aloof_{name}", ok and lit,
+               f"slots {meshed._aloof_slice} of {single.particles.capacity}, this rank's "
+               f"rows {inj._dst} from {inj._src}, eager {meshed.graph_stats['eager']}")
+        if name != "retarded":
+            continue
+        cams = [Camera.create(pos=(0.5, 0.5), zoom=0.3, device="cpu"),
+                Camera.create(pos=(0.55, 0.48), zoom=0.2, vel=(0.2, 0.0), device="cpu")]
+        record("aloof_views", same(single.render_views(cams), meshed.render_views(cams)))
+        pos = sharding.gather_particles(meshed.particles, mesh, single.particles.capacity).pos
+        if mesh.rank == 0:  # for the JAX comparison (world 2)
+            np.savez(os.path.join(out_dir, "aloof_port.npz"), img=img.numpy(), pos=pos.numpy())
+        # checkpoints: the mesh's state on one device, then that one's on a mesh
+        path = os.path.join(out_dir, f"aloof_mesh{mesh.size}.npz")
+        meshed.save_checkpoint(path)
+        one = engine_mod.Engine(cfg_a, device="cpu", aloof_bodies=_aloof_bodies(aloofbody))
+        one.load_checkpoint(path)
+        ok = same(meshed.run_frame(), one.run_frame())
+        path2 = os.path.join(out_dir, f"aloof_single{mesh.size}_{mesh.rank}.npz")
+        one.save_checkpoint(path2)
+        back = engine_mod.Engine(cfg_a, mesh=mesh, aloof_bodies=_aloof_bodies(aloofbody))
+        back.load_checkpoint(path2)
+        again = same_run(one, back, 1)[0]  # a collective: every rank runs it
+        record("aloof_checkpoint", ok and again and back.frame == one.frame,
+               f"frames {meshed.frame} {one.frame} {back.frame}")
+        del one, back
+
+    # one frame of an aloof body in each other mode that runs on a mesh
+    for mode in ALOOF_OTHER_MODES:
+        single, meshed = aloof_pair(_engine_config(config, rt, mode), "circular")
+        ok, lit, _ = same_run(single, meshed, 1)
+        record(f"aloof_{mode}", ok, f"lit {lit}")
+    del single, meshed
 
     # -- the collective budget ----------------------------------------------
     log = []
@@ -335,6 +439,7 @@ from spacetime_tpu_torch.utils import config  # noqa: E402
 # at most 0.1% of the pixels may differ by more than 1e-3 (capsule edges
 # where XLA and torch round the f32 maths apart)
 PIXEL_TOL, PIXEL_SHARE = 1e-3, 1e-3
+POS_ATOL = 1e-6  # positions, as tests/test_torch_aloof_euler.py holds them
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -443,6 +548,24 @@ def test_checkpoint_crosses_between_mesh_and_single_device(worlds, world):
 
 
 @pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("run", ALOOF_RUNS + ALOOF_OTHER_MODES + ("views", "checkpoint"))
+def test_aloof_engine_on_a_mesh_bit_equal_to_single_device(worlds, world, run):
+    """Engine(config, mesh=..., aloof_bodies=...) against the single-device
+    aloof Engine: images, gathered state and ring bit-equal over 3 fused
+    frames (retarded, instant, points) and 3 eager ones (a trajectory read
+    on the host), render_views, a checkpoint saved on the mesh loaded on
+    one device and the reverse, and one frame in each other mode.  The
+    slots straddle a block boundary and, in world 3, the last rank holds
+    none of them (the detail prints each rank's rows)."""
+    _check(worlds, world, f"aloof_{run}")
+    if run == "retarded":
+        rows = [res["checks"]["aloof_retarded"]["detail"] for res in worlds[world][0]]
+        print(f"world {world}: " + "; ".join(rows))
+        held = [r for r in rows if "rows None" not in r]
+        assert len(held) == (2 if world == 3 else world)
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_workers_import_no_jax(worlds, world):
     _check(worlds, world, "_jax_imported")
 
@@ -537,6 +660,33 @@ def test_sharded_frame_matches_jax_make_sharded_frame(worlds):
     assert mismatch <= PIXEL_SHARE, f"{mismatch:.3%} pixels differ"
 
 
+def test_aloof_mesh_matches_jax_engine_on_a_mesh(worlds):
+    """The port's 2-rank aloof Engine (world 2's rank 0 wrote its last image
+    and gathered positions) against JAX's Engine(cfg,
+    mesh=make_mesh(2), production_kernels=False, aloof_bodies=...) on
+    conftest's virtual CPU devices, after the same FRAMES fused frames:
+    the image under the pixel gate, the positions (aloof slots included)
+    at POS_ATOL, as test_aloof_engine_matches_jax holds the single-device
+    Engines."""
+    from spacetime_tpu.engine import Engine as JEngine
+    from spacetime_tpu.models import aloofbody as jab
+    from spacetime_tpu.ops import raytrace as jrt
+    from spacetime_tpu.parallel import mesh as jmesh
+    from spacetime_tpu.utils import config as jconfig
+
+    port = np.load(os.path.join(worlds[2][1], "aloof_port.npz"))
+    je = JEngine(_aloof_config(jconfig, jrt), mesh=jmesh.make_mesh(2), production_kernels=False,
+                 aloof_bodies=_aloof_bodies(jab))
+    assert je._aloof_slice == (29, 142)
+    for _ in range(FRAMES):
+        jimg = np.asarray(je.run_frame())
+    assert port["img"].shape == jimg.shape == (48, 48, 3)
+    assert (jimg.min(-1) < 0.9).any()
+    mismatch = np.mean(np.abs(port["img"] - jimg).max(axis=-1) > PIXEL_TOL)
+    assert mismatch <= PIXEL_SHARE, f"{mismatch:.3%} pixels differ"
+    np.testing.assert_allclose(port["pos"], np.asarray(je.particles.pos), rtol=0, atol=POS_ATOL)
+
+
 # --------------------------------------------------------------------------
 # in this process: the kernels' plain shares against their whole launches
 # --------------------------------------------------------------------------
@@ -586,7 +736,7 @@ def test_pixel_bands_assemble_the_whole_image(bands, camera_frame):
         eng.run_frame()
     params = dataclasses.replace(eng._render_params(), camera_frame=camera_frame)
     cam = Camera.create(pos=(0.465, 0.45), zoom=0.12, vel=(0.3, 0.1) if camera_frame else
-                        (0.0, 0.0))
+                        (0.0, 0.0), device="cpu")
     inputs, _ = rt.prepare_pixel_pass(eng.worldline, eng.particles.object_index, eng.objects,
                                       cam, cfg.width, cfg.height, params,
                                       wl.boundary_mask(eng.particles))
@@ -608,7 +758,7 @@ def test_pixel_bands_assemble_the_whole_image(bands, camera_frame):
 def test_points_winner_planes_min_reduce_to_the_whole(blocks):
     p, _, _ = _contact_state()
     objects = engine_mod.build_scene(_config(config, rt).scene, "cpu")[1]
-    cam = Camera.create(pos=(0.465, 0.45), zoom=0.08)
+    cam = Camera.create(pos=(0.465, 0.45), zoom=0.08, device="cpu")
     whole = points_cuda.render_points(p, objects, cam, 64, 48)
     b = p.capacity // blocks
     planes = [points_cuda.points_winners(
@@ -617,6 +767,32 @@ def test_points_winner_planes_min_reduce_to_the_whole(blocks):
     merged = torch.stack(planes).amin(0)
     img = points_cuda.points_resolve(merged, p.object_index, objects, 64, 48)
     assert torch.equal(img, whole) and (whole != 1.0).any()
+
+
+@pytest.mark.parametrize("block", [(0, 20), (0, 25), (20, 34), (30, 35), (33, 60), (38, 80),
+                                   (40, 80), (0, 256)],
+                         ids=["before", "ends_at_lo", "across_lo", "inside", "across_hi",
+                              "starts_at_hi", "after", "whole"])
+def test_aloof_injection_writes_its_blocks_share(block):
+    """Injection(bodies, lo, hi, block) on a block of rows: the rows of the
+    slots (25, 38) that fall in the block hold state_at(t) of their slot,
+    shifted by the block's start; every other row is untouched."""
+    from spacetime_tpu_torch.models import aloofbody
+
+    body = aloofbody.AloofBody(aloofbody.disc_template(2),
+                               aloofbody.circular_trajectory((0.55, 0.5), 0.02, 0.3))
+    lo, hi = 25, 38
+    assert body.num_points == hi - lo
+    b_lo, b_hi = block
+    p = dataclasses.make_dataclass("Rows", ["pos", "vel"])(
+        torch.full((b_hi - b_lo, 2), 7.0), torch.full((b_hi - b_lo, 2), 7.0))
+    t = torch.tensor(0.4)
+    aloofbody.Injection([body], lo, hi, block=block)(p, t)
+    pos, vel = body.state_at(t)
+    want_pos, want_vel = torch.full_like(p.pos, 7.0), torch.full_like(p.vel, 7.0)
+    for g in range(max(lo, b_lo), min(hi, b_hi)):
+        want_pos[g - b_lo], want_vel[g - b_lo] = pos[g - lo], vel[g - lo]
+    assert torch.equal(p.pos, want_pos) and torch.equal(p.vel, want_vel)
 
 
 def test_make_mesh_raises_without_a_process_group():

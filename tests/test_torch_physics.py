@@ -45,13 +45,13 @@ def _fields(x):
             for f in dataclasses.fields(x) if getattr(x, f.name) is not None}
 
 
-def _two_discs(mod, radius, gap_x, vel=0.25, lattice_pad=True, capacity=None):
+def _two_discs(mod, radius, gap_x, vel=0.25, lattice_pad=True, capacity=None, **build):
     sb = mod.SceneBuilder()
     sb.add(mod.disc_softbody(radius, 0, (0.35, 0.40), (vel, 0.05), lattice_pad=lattice_pad),
            base_color=(0.25, 0.35, 1.0))
     sb.add(mod.disc_softbody(radius, 1, (0.35 + gap_x, 0.405), (-vel, -0.05),
                              lattice_pad=lattice_pad), base_color=(1.0, 0.3, 0.25))
-    return sb.build(capacity)
+    return sb.build(capacity, **build)
 
 
 def _overlapping(rng, lattice_pad=False):
@@ -104,7 +104,7 @@ def test_relativity_matches_jax(rng):
 @pytest.mark.parametrize("lattice_pad", [True, False])
 def test_scene_arrays_exact(lattice_pad):
     jp, jo = _two_discs(jscene, 5, 0.05, lattice_pad=lattice_pad)
-    tp, to = _two_discs(scene, 5, 0.05, lattice_pad=lattice_pad)
+    tp, to = _two_discs(scene, 5, 0.05, lattice_pad=lattice_pad, device="cpu")
     for name, ref in _fields(jp).items():
         np.testing.assert_array_equal(getattr(tp, name).numpy(), ref, err_msg=name)
     for name, ref in _fields(jo).items():
@@ -388,7 +388,7 @@ def test_break_bonds_shifted_on_stretched_bond():
 
 
 def test_step_n_matches_repeated_step():
-    tp, _ = _two_discs(scene, 3, 0.05)
+    tp, _ = _two_discs(scene, 3, 0.05, device="cpu")
     _, model = _models(tp)
     a, _ = model.step_n(tp, 3)
     b = tp
@@ -409,7 +409,7 @@ def test_package_imports_without_jax():
         "from spacetime_tpu_torch import cli, compare_kernels, device, engine, headline\n"
         "from spacetime_tpu_torch.utils import timing\n"
         "sb = scene.SceneBuilder(); sb.add(scene.disc_softbody(3, 0, (0, 0), (0.1, 0), True))\n"
-        "p, o = sb.build()\n"
+        "p, o = sb.build(device='cpu')\n"
         "m = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),\n"
         "                  device='cpu')\n"
         "p, aux = m.step(p)\n"

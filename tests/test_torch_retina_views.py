@@ -146,7 +146,7 @@ def test_render_retina_planar_and_spectral_match_jax(ring):
 
 def _strip(ring, vel):
     _, (buf, tp, to) = ring
-    cam = Camera.create(pos=(0.0, 0.0), zoom=1.0, vel=vel)
+    cam = Camera.create(pos=(0.0, 0.0), zoom=1.0, vel=vel, device="cpu")
     img = rt.render_retina(buf, tp.object_index, to, cam, _port_params(RETINA), height=4)
     return img.numpy()[0]  # (R, 3)
 
@@ -220,7 +220,7 @@ def test_render_views_matches_jax_and_single_renders(history, planar):
 
 
 def test_stack_cameras():
-    cams = [Camera.create(pos=p, zoom=z, vel=v) for p, z, v in CAMS]
+    cams = [Camera.create(pos=p, zoom=z, vel=v, device="cpu") for p, z, v in CAMS]
     s = stack_cameras(cams)
     assert s.pos.shape == (3, 2) and s.zoom.shape == (3,) and s.vel.shape == (3, 2)
     assert torch.equal(s.vel[2], cams[2].vel)
@@ -273,7 +273,7 @@ def test_engine_render_views_matches_jax():
         je.run_frame()
         pe.run_frame()
     zoom = float(pe.camera.zoom)
-    batch = pe.render_views([pe.camera, Camera.create(pos=(0.52, 0.5), zoom=zoom)])
+    batch = pe.render_views([pe.camera, Camera.create(pos=(0.52, 0.5), zoom=zoom, device="cpu")])
     jbatch = np.asarray(je.render_views([je.camera, JCamera.create(pos=(0.52, 0.5), zoom=zoom)]))
     assert batch.shape == jbatch.shape == (2, 48, 48, 3)
     assert torch.equal(batch[0], pe.render())

@@ -54,17 +54,17 @@ def _jparams():
                             max_age=48, entry_budget=4096, backend="xla")
 
 
-def _scene(mod):
+def _scene(mod, **build):
     sb = mod.SceneBuilder()
     sb.add(mod.disc_softbody(4, 0, (0.35, 0.40), (0.25, 0.05), lattice_pad=True),
            base_color=(0.25, 0.35, 1.0))
     sb.add(mod.disc_softbody(4, 1, (0.3795, 0.405), (-0.25, -0.05), lattice_pad=True),
            base_color=(1.0, 0.3, 0.25))
-    return sb.build()
+    return sb.build(**build)
 
 
 def _run_port(device, frames):
-    p, objects = _scene(scene)
+    p, objects = _scene(scene, device="cpu")
     p, objects = p.to(device), objects.to(device)
     model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.cpu().numpy()),
                           device=device)
@@ -205,7 +205,7 @@ def test_compare_kernels_collision_inputs():
     cell order of the state, stage 0 at its positions with no
     displacement, stage 3 at pos + vel h with the per-axis displacement of
     the active particles."""
-    p, _ = _scene(scene)
+    p, _ = _scene(scene, device="cpu")
     model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.numpy()),
                           device="cpu")
     p, _ = model.step(p)
@@ -223,7 +223,7 @@ def test_compare_kernels_collision_inputs():
 def test_compare_kernels_checks_catch_a_difference():
     """collision_error raises past rtol 1e-4, atol 1e-3 on active rows only;
     band_unequal names every field that is not exactly equal."""
-    p, _ = _scene(scene)
+    p, _ = _scene(scene, device="cpu")
     ref = torch.from_numpy(np.random.default_rng(0).normal(size=(p.capacity, 2))
                          .astype(np.float32))
     off = ref.clone()
@@ -232,8 +232,9 @@ def test_compare_kernels_checks_catch_a_difference():
     off[torch.nonzero(p.active)[0, 0]] += 2e-3
     with pytest.raises(AssertionError):
         checks.collision_error(off, ref, p.active)
-    buf = wl.prefill_inertial(wl.create(64, p.capacity), p.pos, p.vel, p.active, 0.0, H)
-    cam = Camera.create(pos=(0.37, 0.41), zoom=0.15)
+    buf = wl.prefill_inertial(wl.create(64, p.capacity, device="cpu"), p.pos, p.vel, p.active,
+                              0.0, H)
+    cam = Camera.create(pos=(0.37, 0.41), zoom=0.15, device="cpu")
     params = raytrace.RenderParams(**{f.name: getattr(_jparams(), f.name)
                                       for f in dataclasses.fields(raytrace.RenderParams)})
     plain = band_cuda.cone_band_window_plain(buf, params, cam)

@@ -24,13 +24,14 @@ def _fields(x):
             for f in dataclasses.fields(x) if getattr(x, f.name) is not None}
 
 
-def _one(pack, x):
+def _one(pack, x, **build):
     return pack(
         pos=np.array([[x, 0.0]], np.float32),
         vel=np.array([[0.1, 0.0]], np.float32),
         neighbors=np.full((1, 8), -1, np.int32),
         object_index=np.zeros(1, np.int32),
         capacity=8,
+        **build,
     )
 
 
@@ -45,10 +46,10 @@ def _assert_same(buf, jbuf):
 @pytest.mark.parametrize("pushes", [1, 4, 6])
 def test_push_matches_jax(pushes):
     """Ramp-up (1), exactly full (4) and wrapped (6) rings of capacity 4."""
-    buf, jbuf = wl.create(4, 8), jwl.create(4, 8)
+    buf, jbuf = wl.create(4, 8, device="cpu"), jwl.create(4, 8)
     for i in range(pushes):
         jbuf = jwl.push_frame(jbuf, _one(jpack, float(i)), time=i * H)
-        out = wl.push_frame(buf, _one(pack_particles, float(i)), time=i * H)
+        out = wl.push_frame(buf, _one(pack_particles, float(i), device="cpu"), time=i * H)
         assert out is buf  # updated in place
     _assert_same(buf, jbuf)
     np.testing.assert_array_equal(buf.pos_x[:4].numpy(), buf.pos_x[4:].numpy())  # mirror
@@ -57,10 +58,10 @@ def test_push_matches_jax(pushes):
 
 
 def test_slot_and_pos_at_age_match_jax():
-    buf, jbuf = wl.create(4, 8), jwl.create(4, 8)
+    buf, jbuf = wl.create(4, 8, device="cpu"), jwl.create(4, 8)
     for i in range(6):
         jbuf = jwl.push_frame(jbuf, _one(jpack, float(i)), time=i * H)
-        wl.push_frame(buf, _one(pack_particles, float(i)), time=i * H)
+        wl.push_frame(buf, _one(pack_particles, float(i), device="cpu"), time=i * H)
     ages = [buf.pos_x[wl.slot_of_age(buf, a), 0].item() for a in range(4)]
     assert ages == [5.0, 4.0, 3.0, 2.0]
     for a in range(4):
@@ -76,7 +77,8 @@ def test_prefill_and_push_match_jax():
     tp = convert.particles_from_numpy(_fields(jp))
     jbuf = jwl.prefill_inertial(jwl.create(16, jp.capacity), jp.pos, jp.vel, jp.active,
                                 jnp.float32(0.0), jnp.float32(H))
-    buf = wl.prefill_inertial(wl.create(16, tp.capacity), tp.pos, tp.vel, tp.active, 0.0, H)
+    buf = wl.prefill_inertial(wl.create(16, tp.capacity, device="cpu"), tp.pos, tp.vel,
+                              tp.active, 0.0, H)
     _assert_same(buf, jbuf)
     moved = dataclasses.replace(jp, pos=jp.pos + jp.vel * H)
     jbuf = jwl.push_frame(jbuf, moved, H)
@@ -89,7 +91,7 @@ def test_prefill_and_push_match_jax():
 def test_boundary_mask_matches_jax():
     sb = scene.SceneBuilder()
     sb.add(scene.disc_softbody(5, 0, (0.0, 0.0), (0.0, 0.0)))
-    tp, _ = sb.build(capacity=256)
+    tp, _ = sb.build(capacity=256, device="cpu")
     jsb = jscene.SceneBuilder()
     jsb.add(jscene.disc_softbody(5, 0, (0.0, 0.0), (0.0, 0.0)))
     jp, _ = jsb.build(capacity=256)
@@ -100,8 +102,8 @@ def test_boundary_mask_matches_jax():
 
 def test_push_time_from_device_tensor():
     """push_frame takes the tick time as a 0-d tensor too (no host sync)."""
-    buf = wl.create(4, 8)
-    wl.push_frame(buf, _one(pack_particles, 1.0), torch.tensor(0.25))
+    buf = wl.create(4, 8, device="cpu")
+    wl.push_frame(buf, _one(pack_particles, 1.0, device="cpu"), torch.tensor(0.25))
     assert buf.times[buf.cursor].item() == 0.25
 
 
@@ -111,12 +113,12 @@ def test_cursor_and_in_use_are_device_tensors_matching_jax():
     a captured graph needs), equal to JAX's after every push: ramp-up,
     exactly full, wrapped once and twice; the newest time and the rows at
     each age read through them match JAX's."""
-    buf, jbuf = wl.create(4, 8), jwl.create(4, 8)
+    buf, jbuf = wl.create(4, 8, device="cpu"), jwl.create(4, 8)
     cursor, in_use = buf.cursor, buf.frames_in_use
     assert cursor.dtype == in_use.dtype == torch.int32 and cursor.shape == in_use.shape == ()
     for i in range(10):
         jbuf = jwl.push_frame(jbuf, _one(jpack, float(i)), time=i * H)
-        wl.push_frame(buf, _one(pack_particles, float(i)), time=torch.tensor(i * H))
+        wl.push_frame(buf, _one(pack_particles, float(i), device="cpu"), time=torch.tensor(i * H))
         assert buf.cursor is cursor and buf.frames_in_use is in_use
         assert int(cursor) == int(jbuf.cursor) and int(in_use) == int(jbuf.frames_in_use)
         assert wl.newest_time(buf).item() == float(jbuf.times[jbuf.cursor])
