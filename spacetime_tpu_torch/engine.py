@@ -88,6 +88,7 @@ eagerly on every rank alike, with the same host clock.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -112,6 +113,7 @@ from .parallel import multihost, sharding
 from .state import Objects, Particles, pack_particles, with_rest_len
 from .utils import logging as logmod
 from .utils.config import EngineConfig, SceneSpec
+from .utils.profiling import span
 from .utils.stats import FramePerfStats, StageClock, StatsWindow
 
 MODES = ("retarded", "instant", "points", "retina", "conical", "btz", "worldline3d")
@@ -420,15 +422,17 @@ class Engine:
         """The host camera and the clock (f32) into the device frame input:
         one non-blocking copy from a pinned slot on CUDA (a pageable copy
         would sync)."""
-        host = self._staging[self._slot]
-        if self._staged is not None:
-            self._staged[self._slot].synchronize()  # this slot's last copy has run
-        host.numpy()[:] = np.concatenate(
-            [self._cam_pos, [self._cam_zoom], self._cam_vel, [np.float32(self.time)]])
-        self._state.frame_in.copy_(host, non_blocking=self._staged is not None)
-        if self._staged is not None:
-            self._staged[self._slot].record()
-        self._slot ^= 1
+        with span("engine.upload"):
+            host = self._staging[self._slot]
+            if self._staged is not None:
+                with span("engine.wait.staging"):
+                    self._staged[self._slot].synchronize()  # this slot's last copy has run
+            host.numpy()[:] = np.concatenate(
+                [self._cam_pos, [self._cam_zoom], self._cam_vel, [np.float32(self.time)]])
+            self._state.frame_in.copy_(host, non_blocking=self._staged is not None)
+            if self._staged is not None:
+                self._staged[self._slot].record()
+            self._slot ^= 1
 
     def _move_camera(self, dt: float) -> None:
         """Relativistic camera motion on the host: inertial, or under the
@@ -630,58 +634,78 @@ class Engine:
         """One full frame: camera -> physics -> worldline -> render -> stats
         and diagnostics.  Returns the image, (H, W, 3) f32, a tensor of its
         own (its device work may still be queued; the call waits only for
-        the previous frame)."""
-        t0 = time.perf_counter()
-        cfg = self.config
-        frame_dt = cfg.physics.h * cfg.steps_per_frame
-        if self.recorder is not None:
-            self.recorder.record(self.frame, keys, self.hotswap)
-        if keys:
-            pos, zoom = self.controller.update(self._cam_pos, self._cam_zoom, keys, frame_dt)
-            self._cam_pos, self._cam_zoom = pos, zoom
-            if keys.get("p"):
-                self.paused = not self.paused
-        self._move_camera(frame_dt)
-        self._upload()
-        rparams = self._render_params()
-        clock = None
-        if self._can_fuse():
-            frame = self._fused_frame_fn(rparams)
-            timed = StageClock(self.device) if self._profile_clocks is not None else None
-            img, counters = frame(timed)
-            if timed is not None:
-                self._profile_clocks.append(timed)
-            self.time += frame_dt
-            render = frame.stages["render"]
-        else:
-            clock = StageClock(self.device)
-            stages = self._stages(rparams, tick_time=self._tick)
-            img, counters = fused.run_stages(
-                stages, fused.schedule(cfg.steps_per_frame, ticks=not self.paused), clock)
-            render = stages["render"]
-            self.graph_stats["eager"] += 1
-        self.last_aux, self.last_diag = fused.unpack(counters, render)
-        self._drops += fused.drop_counts(counters, render)
-        if self.device.type == "cuda":
-            end = torch.cuda.Event()
-            end.record()
-            if self._prev_end is not None:
-                self._prev_end.synchronize()
-            self._prev_end = end
-        self.frame += 1
-        self._flush_stats()
-        self._pending = (clock, time.perf_counter() - t0)
-        self._check_diag()
-        return img.permute(1, 2, 0)
+        the previous frame).
+
+        While a torch.profiler trace runs, the call is an `engine.frame`
+        span holding one span a phase (utils/profiling.span): `engine.input`,
+        `engine.upload`, `engine.params`, `engine.capture` (a key's first
+        fused frame), the stage ranges, `engine.outputs`, `engine.stats`,
+        `engine.adapt`; each place where the host waits on the device is an
+        `engine.wait.*` span (`staging`, `prev_frame`, `stage_clock`,
+        `diag_read`)."""
+        with span("engine.frame"):
+            t0 = time.perf_counter()
+            cfg = self.config
+            frame_dt = cfg.physics.h * cfg.steps_per_frame
+            with span("engine.input"):
+                if self.recorder is not None:
+                    self.recorder.record(self.frame, keys, self.hotswap)
+                if keys:
+                    pos, zoom = self.controller.update(self._cam_pos, self._cam_zoom, keys,
+                                                       frame_dt)
+                    self._cam_pos, self._cam_zoom = pos, zoom
+                    if keys.get("p"):
+                        self.paused = not self.paused
+                self._move_camera(frame_dt)
+            self._upload()
+            clock = None
+            if self._can_fuse():
+                with span("engine.params"):
+                    frame = self._fused_frame_fn(self._render_params())
+                timed = StageClock(self.device) if self._profile_clocks is not None else None
+                with span("engine.capture") if frame.captures else contextlib.nullcontext():
+                    img, counters = frame(timed)
+                if timed is not None:
+                    self._profile_clocks.append(timed)
+                self.time += frame_dt
+                render = frame.stages["render"]
+            else:
+                with span("engine.params"):
+                    stages = self._stages(self._render_params(), tick_time=self._tick)
+                clock = StageClock(self.device)
+                img, counters = fused.run_stages(
+                    stages, fused.schedule(cfg.steps_per_frame, ticks=not self.paused), clock)
+                render = stages["render"]
+                self.graph_stats["eager"] += 1
+            with span("engine.outputs"):
+                self.last_aux, self.last_diag = fused.unpack(counters, render)
+                self._drops += fused.drop_counts(counters, render)
+            if self.device.type == "cuda":
+                with span("engine.wait.prev_frame"):
+                    end = torch.cuda.Event()
+                    end.record()
+                    if self._prev_end is not None:
+                        self._prev_end.synchronize()
+                    self._prev_end = end
+            self.frame += 1
+            self._flush_stats()
+            self._pending = (clock, time.perf_counter() - t0)
+            with span("engine.adapt"):
+                self._check_diag()
+            return img.permute(1, 2, 0)
 
     def _flush_stats(self) -> None:
         """Add the pending frame to the stats window; an eager frame's stage
         times wait for its end."""
         if self._pending is not None:
-            clock, frame_time = self._pending
-            stages = clock.seconds() if clock is not None else {}
-            self._stats.add(FramePerfStats(**stages, frame_time=frame_time))
-            self._pending = None
+            with span("engine.stats"):
+                clock, frame_time = self._pending
+                stages = {}
+                if clock is not None:
+                    with span("engine.wait.stage_clock"):
+                        stages = clock.seconds()
+                self._stats.add(FramePerfStats(**stages, frame_time=frame_time))
+                self._pending = None
 
     @property
     def stats(self) -> StatsWindow:
@@ -728,8 +752,9 @@ class Engine:
             return  # the point view drops nothing (no window cap)
         fields = [f for f in diag._fields if getattr(diag, f) is not None]
         # ONE device-to-host transfer for all counters
-        vals = torch.stack([torch.as_tensor(getattr(diag, f)).to(torch.int64)
-                            for f in fields]).tolist()
+        with span("engine.wait.diag_read"):
+            vals = torch.stack([torch.as_tensor(getattr(diag, f)).to(torch.int64)
+                                for f in fields]).tolist()
         d = dict(zip(fields, vals))
         render = self.config.render
         if d["band_truncated"] > 0 and self._band_boost < 6:

@@ -47,14 +47,15 @@ scratch of that stream) and then captures each distinct stage into a CUDA
 graph, all in one memory pool (the graphs never run at once); every later
 call replays them.  A capture that fails raises: nothing falls back to
 eager.  A call returns fresh copies of the render's outputs, since the next
-replay overwrites the graph's own.  The launch counts that the wrappers
-make while a stage is captured are held apart and added at each replay
-(kernels.held_apart), so `kernels.launches` counts kernels that ran.
+replay overwrites the graph's own.  Each stage runs inside a span named
+after the stage; a replay opens no other span inside those.  The launch
+counts that the wrappers make while a stage is captured are held apart
+and added at each replay (kernels.held_apart), so `kernels.launches`
+counts kernels that ran.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -68,7 +69,7 @@ from .ops import btz, curved, points_cuda, raytrace, rasterize, worldline3d
 from .ops import worldline as wl
 from .ops.points_cuda import PointsDiag
 from .ops.rk4 import StepAux
-from .utils.profiling import annotate
+from .utils.profiling import span
 
 
 class FrameState(NamedTuple):
@@ -321,21 +322,15 @@ def drops_of(counters: torch.Tensor, render) -> dict:
     return dict(zip(DROP_FIELDS, drop_counts(counters, render).tolist()))
 
 
-def _ranged(name: str):
-    """A profiler range named after the stage while a torch.profiler trace
-    runs (utils/profiling.py attributes the device work launched inside
-    it), else nothing."""
-    return annotate(name) if torch.autograd._profiler_enabled() else contextlib.nullcontext()
-
-
 def _each_stage(order, run_one, clock):
-    """run_one(closure key) for each stage of `order`, inside its profiler
-    range; with a utils.stats.StageClock, each stage's span marked.
-    Returns the last stage's outputs."""
+    """run_one(closure key) for each stage of `order`, inside a span named
+    after the stage (utils/profiling.py attributes the device work
+    launched inside it); with a utils.stats.StageClock, each stage's span
+    marked.  Returns the last stage's outputs."""
     out = None
     for name, key in order:
         a = clock.mark() if clock is not None else None
-        with _ranged(name):
+        with span(name):
             out = run_one(key)
         if clock is not None:
             clock.span(f"{name}_time", a, clock.mark())
@@ -369,6 +364,11 @@ class FusedFrame:
         self.stats = stats if stats is not None else new_stats()
         self.graphs = None  # closure key -> (graph, its outputs, its launch counts)
         self.keep = None  # the points scratch a graph holds the pointers of
+
+    @property
+    def captures(self) -> bool:
+        """Does the next call capture the graphs (a CUDA device's first)?"""
+        return self.device.type == "cuda" and self.graphs is None
 
     def __call__(self, clock=None):
         if self.device.type != "cuda":

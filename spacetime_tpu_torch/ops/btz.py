@@ -70,10 +70,11 @@ import torch
 from .. import device as device_mod
 from ..camera import Camera, pixel_centers
 from ..state import Objects
+from ..utils.profiling import spanned
+from . import raytrace
 from .raytrace import (
     _BIG, _F_AX, _F_AY, _F_BX, _F_BY, _F_CB, _F_CG, _F_CR, _F_TA, _F_VX, _F_VY, _PI,
-    PairData, RenderDiag, RenderParams, _assemble_image, _band_pairs, _build_view_tables,
-    _gather_pairs,
+    PairData, RenderDiag, RenderParams, _assemble_image, _gather_pairs,
     _cell_blocks, _cell_pixel_coords, _compact_pairs_to_budget, _field_at, _occupancy_cells,
     _occupancy_xy, _ray_angles, _segment_data, camera_doppler_factor_xy, doppler_factor_xy,
     floored_mod, shade_channels,
@@ -86,6 +87,8 @@ _TWO_PI32 = float(2 * _PI)  # the f32 2 pi of the retina's bin index
 # the oracle tests pixels against every (slot, particle) segment in chunks
 # of pixels holding at most this many (pixel, segment) elements
 _BRUTE_ELEMENTS = 1 << 20
+
+_build_view_tables = spanned("view tables")(raytrace._build_view_tables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -436,6 +439,7 @@ def route_ids(params: RenderParams):
     return tuple(4 * k + b for k in range(params.btz_windings + 1) for b in bases)
 
 
+@spanned("bearing retina")
 def _btz_retina(pairs: PairData, cam: Camera, t_now, hole: BTZBlackHole, dt, rho, n_rays: int,
                 ray_chunk: int = 8192, routes=(0, 1), optics=None):
     """The occlusion retina over arrival bearing at the camera: every pair
@@ -530,6 +534,7 @@ def _compose(routes, visible, occupied, in_hole, params: RenderParams, use_rays:
         torch.where(visible, s, torch.where(occupied, s * params.absorbed_dim, background)))
 
 
+@spanned("route pass")
 def _route_pass_block(vdat, vok, px, py, optics, t_now, cam: Camera, hole: BTZBlackHole,
                       retina, params: RenderParams):
     """The route pass over one block of view cells; `optics` holds each
@@ -568,16 +573,18 @@ def _route_pass_block(vdat, vok, px, py, optics, t_now, cam: Camera, hole: BTZBl
     return torch.stack([comp(sr), comp(sg), comp(sb)], dim=1)
 
 
+@spanned(lambda args, kwargs: f"band sweep + pairs, route {args[9]}")
 def _route_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera, t_now,
                  width: int, height: int, params: RenderParams, hole: BTZBlackHole, route: int,
                  delay_fn):
-    """One route's band search and pair rows (`raytrace._band_pairs` with the
-    route's delay as the cone metric, no view-hull cull)."""
+    """One route's band search and pair rows (`raytrace._band_search` with
+    the route's delay as the cone metric, no view-hull cull)."""
     fn = lambda qx, qy: delay_fn(qx, qy, cam.pos[0], cam.pos[1], hole, route)
-    return _band_pairs(buf, obj_index, objects, cam, t_now, width, height, params,
-                       cull_hull=False, route_lengths=fn)
+    return raytrace._band_search(buf, obj_index, objects, cam, t_now, width, height, params,
+                                 cull_hull=False, route_lengths=fn)
 
 
+@spanned("route optics (all pixels)")
 def _pixel_optics(pxs, pys, cam: Camera, hole: BTZBlackHole, routes, optics_fn):
     """Each route's (bearing, delay, emitter direction x, y) at every pixel
     at once (elementwise: the values the JAX package computes per block)."""

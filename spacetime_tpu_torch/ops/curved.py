@@ -63,10 +63,11 @@ import torch
 from .. import device as device_mod
 from ..camera import Camera, pixel_centers
 from ..state import Objects
+from ..utils.profiling import spanned
+from . import raytrace
 from .raytrace import (
     _BIG, _F_AX, _F_AY, _F_BX, _F_BY, _F_CB, _F_CG, _F_CR, _F_TA, _F_VX, _F_VY, _PI,
-    PairData, RenderDiag, RenderParams, _assemble_image, _band_pairs, _build_view_tables,
-    _gather_pairs,
+    PairData, RenderDiag, RenderParams, _assemble_image, _gather_pairs,
     _cell_blocks, _cell_pixel_coords, _compact_pairs_to_budget, _field_at,
     _occupancy_cells, _occupancy_xy, _ray_hit_xy, _retina, _segment_data,
     camera_doppler_factor_xy, doppler_factor_xy, floored_mod, shade_channels,
@@ -77,6 +78,13 @@ _TWO_PI = 2.0 * math.pi
 # the oracle tests pixels against every (slot, particle) segment in chunks
 # of pixels holding at most this many (pixel, segment) elements
 _BRUTE_ELEMENTS = 1 << 22
+
+# raytrace's band search and view tables, in spans named after this
+# render's sub-stages
+_band_pairs = spanned(lambda args, kwargs: "band + pairs, route 1"
+                      if kwargs.get("route_lengths") is None
+                      else "band sweep + pairs, route 2")(raytrace._band_search)
+_build_view_tables = spanned("view tables")(raytrace._build_view_tables)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,6 +159,7 @@ def _rotate_about(px, py, theta, defect: ConicalDefect):
     return cx + ct * rx - st * ry, cy + st * rx + ct * ry
 
 
+@spanned("route-2 images")
 def _route2_image_pairs(pairs: PairData, cam: Camera, defect: ConicalDefect) -> PairData:
     """Route-2 images of the candidates: segment endpoints and velocities
     rotated about the defect by each candidate's (midpoint) rotation angle.
@@ -215,6 +224,7 @@ def _shade(vx, vy, cr, cg, cb, r_eff, ex, ey, cam: Camera, params: RenderParams)
     return shade_channels(cr, cg, cb, d, params)
 
 
+@spanned("route pass")
 def _route_pass_block(vdat, vok, px, py, t_now, cam: Camera, defects, retinas,
                       params: RenderParams):
     """The route pass over one block of view cells: (C, 3, k2) colours."""

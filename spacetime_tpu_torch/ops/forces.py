@@ -39,6 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import spanned
+
 _EPS = 1e-20
 # pads each slot's offset row; never equals a neighbor-index difference
 _NO_OFFSET = np.iinfo(np.int32).max
@@ -142,6 +144,7 @@ def _creep(bonded, j, px, py, rest_len, creep_rate, yield_strain, h, row0=0):
     return torch.where(bonded, rest_len + c_pair * h * excess, rest_len)
 
 
+@spanned("springs")
 def spring_forces_shifted(px, py, neighbors, offsets, rest_lengths, k, k_pp=None, row0=0):
     """Hooke spring force sum over bonded slots; returns (fx, fy).
     `rest_lengths` is (8,) per slot or (N, 8) per bond; `k_pp` (N,)
@@ -174,6 +177,7 @@ def creep_rest_lengths_shifted(px, py, neighbors, offsets, rest_len, creep_rate,
                   yield_strain, h, row0)
 
 
+@spanned("bonded repulsion")
 def bonded_repulsion_shifted(px, py, neighbors, offsets, collision_distance,
                              repulsion, row0=0):
     """Repulsion contributed by BONDED neighbors — the collision kernel's own

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.profiling import spanned
 
 PLAIN_CHUNK = 1024  # rows of the plain version's all-pairs block
 
@@ -56,6 +57,7 @@ class CellOrder(NamedTuple):
     bin_resolution: float  # cell edge, lightseconds
 
 
+@spanned("cell sort")
 def build_cell_order(cell: torch.Tensor, origin: torch.Tensor, n_cells: int, side: int,
                      bin_resolution: float) -> CellOrder:
     """Stable sort by cell id plus the dense per-cell start table; `cell`
@@ -110,6 +112,7 @@ def collision_forces_plain(pos: torch.Tensor, active: torch.Tensor,
     return out
 
 
+@spanned("collision kernel")
 def collision_forces(pos: torch.Tensor, active: torch.Tensor, order: CellOrder,
                      collision_distance: float, repulsion: float,
                      disp: torch.Tensor,

@@ -35,6 +35,7 @@ import torch
 from .. import relativity
 from ..parallel import comm
 from ..state import Particles
+from ..utils.profiling import spanned
 from .worldline import WorldlineBuffer
 
 EIGHT_PI = 8.0 * math.pi
@@ -122,6 +123,7 @@ def retarded_com(buf: WorldlineBuffer, object_index, rest_mass, active, obj: int
     return at_cone(com_x), at_cone(com_y), at_cone(tot)
 
 
+@spanned("sourced defects")
 def source_defects(specs, particles: Particles, buf, cam, dt: float, g_coupling: float,
                    retarded: bool, max_age: int = 0, mesh=None):
     """The ConicalDefect tuple of matter-sourced specs (config.defect_source:

@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import spanned
 
+
+@spanned("cell sort")
 def cell_ids(pos: torch.Tensor, active: torch.Tensor, grid_resolution: float,
              grid_dim: int):
     """Flat halo cell id per particle + the floating grid origin.

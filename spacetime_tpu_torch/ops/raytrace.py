@@ -75,6 +75,7 @@ from ..camera import Camera, pixel_centers
 from ..constants import C2
 from ..parallel import comm
 from ..state import Objects
+from ..utils.profiling import spanned
 from . import band_cuda, boost, render_cuda
 from .worldline import WorldlineBuffer, newest_time, row_at_age
 
@@ -308,9 +309,9 @@ def _view_grid(width, height, cam, k):
     return wc_img, hc_img, pixel_size, x0, y0
 
 
-def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
-                t_now, width: int, height: int, params: RenderParams,
-                cull_hull: bool = True, route_lengths=None):
+def _band_search(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
+                 t_now, width: int, height: int, params: RenderParams,
+                 cull_hull: bool = True, route_lengths=None):
     """Cone-crossing segments in the (N * band) pair layout, validity
     re-checked exactly per segment and, with `cull_hull`, culled to the view
     + camera hull (never in the camera frame, whose ground footprint goes
@@ -401,6 +402,11 @@ def _band_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
     return pairs, truncated, seg_dropped
 
 
+# the band search in the retarded, instant and retina renders' own span;
+# the curved renders call `_band_search` under their routes' spans
+_band_pairs = spanned("cone sweep + pairs")(_band_search)
+
+
 def _band_pairs_nocull(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                        t_now, params: RenderParams) -> PairData:
     """Band pairs without the view cull or rank compaction, (N * band) rows:
@@ -444,6 +450,7 @@ def _compact_by_class(pairs: PairData, key: torch.Tensor, budget: int,
     return PairData(pdata=pdata, pair_valid=ok, n_pairs=pairs.n_pairs)
 
 
+@spanned("pair compaction")
 def _compact_pairs_to_budget(pairs: PairData, budget: int) -> PairData:
     """Valid rows first, in row order, cut to `budget` rows.  `n_pairs`
     stays the pre-budget count."""
@@ -454,6 +461,7 @@ def _compact_pairs_to_budget(pairs: PairData, budget: int) -> PairData:
     return _compact_by_class(pairs, key, budget, 1)
 
 
+@spanned("pair compaction")
 def _compact_pairs_two_segment(pairs: PairData, first_mask, budget: int):
     """Like _compact_pairs_to_budget, but valid rows matching `first_mask`
     come first (then the other valid rows), so a prefix slice holds them.
@@ -545,6 +553,7 @@ def _splat_keys(pairs: PairData, cam: Camera, width: int, height: int,
     return key, val, wc, hc, geom, cell_too_small
 
 
+@spanned("splat CSR")
 def _splat_csr(pairs: PairData, cam: Camera, width: int, height: int,
                params: RenderParams):
     """Splat pairs into a per-image-cell CSR of entries.
@@ -688,6 +697,7 @@ def _ray_angles(n_rays: int, device):
     return -float(_PI) + (i + 0.5) * float(step)
 
 
+@spanned("retina march")
 def _retina(pairs: PairData, cam: Camera, t_now, params: RenderParams):
     """First-hit arclength per angle over all pairs: s_first (num_rays,)."""
     dt, rho = params.dt, params.rho
@@ -732,6 +742,7 @@ def _sfirst_lookup(s_first, gxq, gyq, x0, y0, pixel_size, cam, n_rays, off,
     return s_first[ri]
 
 
+@spanned("retina lookup")
 def _retina_quads(s_first, cam, width, height, params: RenderParams, geom):
     """Retina lookup for every d x d pixel quad of the padded view-cell grid
     (d = occlusion downsample), at the quad's centre angle:

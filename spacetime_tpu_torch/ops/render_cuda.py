@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..utils.profiling import spanned
 from . import boost
 
 _F_AX, _F_AY, _F_BX, _F_BY, _F_TA, _F_VX, _F_VY, _F_CR, _F_CG, _F_CB = range(10)
@@ -142,6 +143,7 @@ def pixel_pass_plain(inputs, params, *, width, height, rows=None):
     return out.reshape(3, -1, wp)[:, :out_h, :width].contiguous()
 
 
+@spanned("pixel kernel")
 def pixel_pass(inputs, params, *, width, height, rows=None):
     """(3, H, W) pixel pass of `inputs` (raytrace.PixelInputs), or with
     `rows` = (first, count, out_h) the band (3, out_h, W) of those cell

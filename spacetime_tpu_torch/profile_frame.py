@@ -29,9 +29,9 @@ takes the discs into contact, then WALL_FRAMES frames timed on the host
 clock without the profiler, then PROFILE_FRAMES frames under
 `torch.profiler`.  Every device kernel, memcpy and memset of that trace is
 attributed (utils/profiling.attribute), through the correlation id of its
-launch, to the innermost named range (the sub-stages of `named_ranges`,
-inside the stages step / push / render) that was open on the host when it
-was launched.  Then the same frame, from the state the eager frames left,
+launch, to the innermost named range (the program's sub-stage spans,
+`utils/profiling.spanned` on the functions of ops/, inside the stages step /
+push / render) that was open on the host when it was launched.  Then the same frame, from the state the eager frames left,
 as the fused frame (fused.py: one CUDA graph a stage, captured at its first
 frame): WALL_FRAMES frames timed the same way and PROFILE_FRAMES traced,
 where a graph's kernels fall in the stage range its replay ran in (the
@@ -44,75 +44,16 @@ its busy share of the unprofiled frame's wall time.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
 import sys
 import time
 
 import torch
 
-from .utils.profiling import attribute, traced_events
+from .utils.profiling import attribute, span, traced_events
 
 WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES = 185, 10, 5
 EXACT_SOLVER_FRAMES = (10, 3, 1)
 ENGINE_SCENES = ("conical_defect", "selfgravity", "btz_hole", "btz_extremal")
-
-
-@contextlib.contextmanager
-def named_ranges():
-    """Wrap the frame's sub-stages in `record_function` ranges for the
-    duration of the block (each is looked up through its module at call
-    time, so replacing the module attribute reaches every caller)."""
-    from .ops import btz, curved, forces, forces_cuda, grid, gravity, raytrace, render_cuda
-
-    def band_label(args, kwargs):
-        return ("band + pairs, route 1" if kwargs.get("route_lengths") is None
-                else "band sweep + pairs, route 2")
-
-    targets = (
-        (grid, "cell_ids", "cell sort"),
-        (forces_cuda, "build_cell_order", "cell sort"),
-        (forces_cuda, "collision_forces", "collision kernel"),
-        (forces, "spring_forces_shifted", "springs"),
-        (forces, "bonded_repulsion_shifted", "bonded repulsion"),
-        (raytrace, "_band_pairs", "cone sweep + pairs"),
-        (raytrace, "_compact_pairs_two_segment", "pair compaction"),
-        (raytrace, "_compact_pairs_to_budget", "pair compaction"),
-        (raytrace, "_splat_csr", "splat CSR"),
-        (raytrace, "_retina", "retina march"),
-        (raytrace, "_retina_quads", "retina lookup"),
-        (render_cuda, "pixel_pass", "pixel kernel"),
-        (curved, "_band_pairs", band_label),
-        (curved, "_compact_pairs_to_budget", "pair compaction"),
-        (curved, "_build_view_tables", "view tables"),
-        (curved, "_route2_image_pairs", "route-2 images"),
-        (curved, "_retina", "retina march"),
-        (curved, "_route_pass_block", "route pass"),
-        (gravity, "source_defects", "sourced defects"),
-        (btz, "_route_pairs", lambda args, kwargs: f"band sweep + pairs, route {args[9]}"),
-        (btz, "_compact_pairs_to_budget", "pair compaction"),
-        (btz, "_build_view_tables", "view tables"),
-        (btz, "_btz_retina", "bearing retina"),
-        (btz, "_pixel_optics", "route optics (all pixels)"),
-        (btz, "_route_pass_block", "route pass"),
-    )
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
-
-    def ranged(fn, label):
-        @functools.wraps(fn)
-        def call(*args, **kwargs):
-            name = label(args, kwargs) if callable(label) else label
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return call
-
-    for mod, name, label in targets:
-        setattr(mod, name, ranged(getattr(mod, name), label))
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def report(title: str, res: dict, wall_ms: float) -> None:
@@ -127,11 +68,10 @@ def report(title: str, res: dict, wall_ms: float) -> None:
           f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
 
 
-def _profile(title: str, run_one, ranges: bool, wall_frames: int = WALL_FRAMES,
+def _profile(title: str, run_one, wall_frames: int = WALL_FRAMES,
              profile_frames: int = PROFILE_FRAMES) -> None:
     """`wall_frames` frames of `run_one` on the host clock, then
-    `profile_frames` traced (inside named_ranges with `ranges`), and the
-    report."""
+    `profile_frames` traced, and the report."""
     from . import kernels
 
     torch.cuda.synchronize()
@@ -142,10 +82,9 @@ def _profile(title: str, run_one, ranges: bool, wall_frames: int = WALL_FRAMES,
     wall_ms = (time.perf_counter() - t0) / wall_frames * 1e3
 
     def traced():
-        with named_ranges() if ranges else contextlib.nullcontext():
-            for _ in range(profile_frames):
-                run_one()
-            torch.cuda.synchronize()
+        for _ in range(profile_frames):
+            run_one()
+        torch.cuda.synchronize()
 
     res = attribute(traced_events(traced, kernels.BUILD_DIR), profile_frames)
     if not res["by_range"]:
@@ -173,15 +112,15 @@ def profile_engine(name: str, device) -> int:
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS if getattr(eng, f)}
     print(f"{name}: boosts after {warm} frames {boosts}, frozen from here on")
     eng.config = dataclasses.replace(cfg, stage_timing=True, diag_every=0)
-    _profile(f"{name}: eager frames {warm + 1}-{warm + wall}", eng.run_frame, True, wall, prof)
+    _profile(f"{name}: eager frames {warm + 1}-{warm + wall}", eng.run_frame, wall, prof)
     eng.config = dataclasses.replace(cfg, diag_every=0)  # fused from here on
     t0 = time.perf_counter()
     eng.run_frame()  # the eager frame the capture follows, and the capture
     torch.cuda.synchronize()
     print(f"{name}: the first fused frame (eager run and capture) took "
           f"{time.perf_counter() - t0:.2f} s")
-    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, False,
-             wall, prof)
+    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, wall,
+             prof)
     return 0
 
 
@@ -207,14 +146,13 @@ def main(argv=None) -> int:
     build = headline.build_refdemo if args.scene == "refdemo" else headline.build
     model, p, objects, buf, cam, params = build(device)
     h = model.params.h
-    rf = torch.profiler.record_function
 
     def frame(p, i):
-        with rf("step"):
+        with span("step"):
             p, _ = model.step(p)
-        with rf("push"):
+        with span("push"):
             wl.push_frame(buf, p, h * (i + 1))
-        with rf("render"):
+        with span("render"):
             raytrace.render_retarded(buf, p.object_index, objects, cam, headline.WIDTH,
                                      headline.HEIGHT, params, planar=True,
                                      boundary=wl.boundary_mask(p))
@@ -238,10 +176,9 @@ def main(argv=None) -> int:
         state["p"], state["i"] = frame(state["p"], state["i"]), state["i"] + 1
 
     def eager_traced():
-        with named_ranges():
-            for _ in range(PROFILE_FRAMES):
-                eager_one()
-            torch.cuda.synchronize()
+        for _ in range(PROFILE_FRAMES):
+            eager_one()
+        torch.cuda.synchronize()
 
     wall_ms = timed(eager_one)
     res = attribute(traced_events(eager_traced, kernels.BUILD_DIR), PROFILE_FRAMES)

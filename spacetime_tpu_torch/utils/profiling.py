@@ -3,7 +3,15 @@
 
   * `trace(path)`: a `torch.profiler` trace (CPU and CUDA activity) of the
     enclosed block, written as a Chrome trace to `path`;
-  * `annotate(name)`: a named range in such a trace;
+  * `span(name)`: a named range on such a trace's timeline while a trace
+    runs, and nothing otherwise; `spanned(label)` puts a function's calls
+    in one.  These are the program's only ranges: the fused frame's stage
+    ranges (step, worldline, render), the Engine's frame loop
+    (`engine.*`; every place where the host waits on the device is an
+    `engine.wait.*` span) and the sub-stages of the step and the renders
+    (`cell sort`, `collision kernel`, ..., `route pass`).  Kineto puts the
+    host ranges and the device's kernels, memcpys and memsets on one
+    timeline, so a span shares the device trace's clock;
   * `attribute(events, n)`: each device kernel, memcpy and memset of a
     trace, by the innermost named range open on the host when it was
     launched (the correlation id of its launch) and by kind of kernel, per
@@ -29,6 +37,7 @@ time.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -66,9 +75,30 @@ def trace(path: str):
     prof.export_chrome_trace(path)
 
 
-def annotate(name: str):
-    """A named range inside a trace."""
-    return torch.profiler.record_function(name)
+def span(name: str):
+    """A `record_function` range named `name` while a torch.profiler trace
+    runs, else a null context: without a trace a span costs one check of
+    the profiler's state.  A CUDA graph's replay runs no Python, so the
+    spans of the code it was captured from never open inside it."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
+def spanned(label):
+    """Decorator: each call of the function inside a `span`, named `label`,
+    or `label(args, kwargs)` if it is callable (worked out only while a
+    trace runs)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not torch.autograd._profiler_enabled():
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(label(args, kwargs) if callable(label)
+                                                else label):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def kind_of(name: str, cat: str) -> str:

@@ -702,21 +702,21 @@ def test_btz_hole_first_frame_at_full_physics_matches_jax():
 
 
 def test_profile_ranges_reach_the_btz_sub_stages(scene):
-    """profile_frame's named ranges wrap the BTZ render's sub-stages (each
-    route's band sweep, the compaction, the view tables, the bearing
-    retina, the pixel optics, the route pass), and come off again."""
-    from spacetime_tpu_torch import profile_frame
-
+    """The program's sub-stage spans open on the BTZ render's sub-stages
+    (each route's band sweep, the compaction, the view tables with the
+    splat inside, the bearing retina, the pixel optics, the route pass)
+    under a plain torch.profiler trace; a route's band sweep is the
+    innermost span over its band search (raytrace's own `cone sweep +
+    pairs` does not open inside it)."""
     buf, p, o, cam = scene["t"]
     _, th = _holes(0.0)
-    retina = btz._btz_retina
     acts = [torch.profiler.ProfilerActivity.CPU]
     params = _port_params(_jparams(pair_budget=256))
-    with profile_frame.named_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         btz.render_btz_with_diag(buf, p.object_index, o, cam, th, W, HT, params)
     names = {e.name for e in prof.events()}
     for label in ("band sweep + pairs, route 0", "band sweep + pairs, route 1",
-                  "pair compaction", "view tables", "bearing retina",
+                  "pair compaction", "view tables", "splat CSR", "bearing retina",
                   "route optics (all pixels)", "route pass"):
         assert label in names, label
-    assert btz._btz_retina is retina
+    assert "cone sweep + pairs" not in names

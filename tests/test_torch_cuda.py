@@ -9,6 +9,7 @@ only PyTorch is installed:
 the `cuda` tests skip; the rest check the wrappers' refusals on the CPU.
 """
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -723,6 +724,79 @@ def test_engine_capture_failure_raises(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.run_frame()
     assert eng.graph_stats["captures"] == 0 and eng.graph_stats["replays"] == 0
+
+
+def _innermost_of_each_launch(events):
+    """[(launching call, innermost range or None)] for each device op of a
+    Chrome trace (the range open on the launching thread at the launch)."""
+    launches, ranges = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {}):
+            launches[e["args"]["correlation"]] = e
+        elif e.get("cat") == "user_annotation":
+            ranges.setdefault(e["tid"], []).append((e["ts"], e["ts"] + e["dur"], e["name"]))
+    out = []
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        call = launches.get(e.get("args", {}).get("correlation"))
+        if call is None:
+            continue
+        inside = [r for r in ranges.get(call["tid"], ()) if r[0] <= call["ts"] <= r[1]]
+        out.append((call["name"], max(inside, key=lambda r: (r[0], -r[1]))[2]
+                    if inside else None))
+    return out
+
+
+@pytest.mark.cuda
+def test_traced_fused_frames_keep_the_stage_ranges(cuda_device, monkeypatch):
+    """Traced fused Engine frames on the card: each `engine.wait.prev_frame`
+    span lies inside an `engine.frame`; the graph replays' kernels fall
+    under step / worldline / render (no span opens inside a stage range
+    around a replay); and the device ops a frame under `step` and
+    `render` are as many as in a trace without the Engine's spans."""
+    from spacetime_tpu_torch import engine as engine_mod
+    from spacetime_tpu_torch.engine import Engine
+    from spacetime_tpu_torch.utils import profiling
+    from spacetime_tpu_torch.utils.config import EngineConfig, SceneSpec
+
+    cfg = EngineConfig(
+        scene=SceneSpec(bodies=(("disc", 50, (0.45, 0.45), (0.1, 0.0), (0.2, 0.2, 1.0)),),
+                        capacity=256),
+        render=raytrace.RenderParams(num_rays=256), width=48, height=48, history=32)
+    eng = Engine(cfg, device=cuda_device)
+    eng.run(3)
+    frames = 4
+
+    def traced():
+        for _ in range(frames):
+            eng.run_frame()
+        torch.cuda.synchronize()
+
+    events = profiling.traced_events(traced)
+    assert eng.graph_stats["captures"] == 1
+    spans = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    frame_spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in spans
+                   if e["name"] == "engine.frame"]
+    waits = [e for e in spans if e["name"] == "engine.wait.prev_frame"]
+    assert len(frame_spans) == len(waits) == frames
+    for w in waits:
+        assert any(t == w["tid"] and a <= w["ts"] and w["ts"] + w["dur"] <= b
+                   for t, a, b in frame_spans)
+    assert {"engine.wait.staging", "engine.outputs", "engine.adapt"} <= {e["name"] for e in spans}
+    replayed = [label for call, label in _innermost_of_each_launch(events)
+                if call == "cudaGraphLaunch"]
+    assert replayed and set(replayed) <= {"step", "worldline", "render"}
+    with_spans = profiling.attribute(events, frames)["by_range"]
+
+    monkeypatch.setattr(engine_mod, "span", lambda name: contextlib.nullcontext())
+    bare = profiling.traced_events(traced)
+    assert not any(e.get("name", "").startswith("engine.") for e in bare)
+    without = profiling.attribute(bare, frames)["by_range"]
+    for stage in ("step", "render"):
+        assert with_spans[stage][1] == without[stage][1] > 0, stage
 
 
 # --------------------------------------------------------------------------

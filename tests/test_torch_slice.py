@@ -139,19 +139,25 @@ def test_cpu_slice_launches_no_kernel(runs):
                                 "pixel_pass_camera_frame": 0, "band": 0, "points": 0}
 
 
-def test_profile_ranges_reach_every_sub_stage():
-    """profile_frame's named ranges wrap the sub-stages the frame really
-    calls, and are taken off again after the block."""
-    retina = raytrace._retina
+def test_profile_ranges_reach_every_sub_stage(monkeypatch):
+    """The program's sub-stage spans (utils/profiling.spanned) open on the
+    sub-stages the frame really calls under a plain torch.profiler trace,
+    and open nothing without one."""
     acts = [torch.profiler.ProfilerActivity.CPU]
-    with profile_frame.named_ranges(), torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts) as prof:
         _run_port("cpu", 1)
     names = {e.name for e in prof.events()}
     for label in ("cell sort", "collision kernel", "springs", "bonded repulsion",
                   "cone sweep + pairs", "pair compaction", "splat CSR", "retina march",
                   "retina lookup", "pixel kernel"):
         assert label in names, label
-    assert raytrace._retina is retina
+
+    def refused(name):
+        raise AssertionError(f"range {name!r} opened without a trace")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refused)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refused)
+    _run_port("cpu", 1)
 
 
 def test_profile_attribution_of_a_trace():
