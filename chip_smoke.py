@@ -15,6 +15,23 @@ just after:
     through their impact (contact at about frame 170): every collision,
     band and pixel-pass launch goes through the kernels, every
     render/step diagnostic counter stays 0, the image is finite and lit;
+  * the step kernels (csrc/step.cu, `step_phase`): the headline scene
+    after STEP_HEADLINE_STEPS steps and the capacity scene
+    (headline.build_capacity, 2^20 particles) after STEP_CAPACITY_STEPS, a
+    step counting 4 bond_stage and 1 step_finish launch beside its 4
+    collision launches; at each state, with the state's own planes and
+    again with every material plane set and per-bond rest lengths, and a
+    break threshold at the median bonded length: bond_stage's bonded
+    force and both accumulators (stage 3 and the first evaluation)
+    bit-equal to the plain functions, its next positions within 1e-6 ls,
+    each displacement fold equal to the plain amax, the first
+    evaluation's broken bonds (some, not all) and crept rest lengths
+    (some) exactly the plain break's and creep's, step_finish within f32
+    roundings of the plain combine; each kernel's time beside its bound
+    and the plain chain's.
+    Every launch count below that names collision launches a frame also
+    expects as many bond_stage launches and a quarter as many step_finish
+    launches (`with_step`);
   * the same headline frame as the fused frame (spacetime_tpu_torch/
     fused.py: its stages captured as CUDA graphs at the first frame and
     replayed), FRAMES frames from a copy of the start state of two eager
@@ -83,8 +100,8 @@ just after:
     stages as graphs bit-equal to eager, then ALOOF_FRAMES fused Engine
     frames (a capture a key, the aloof slots at state_at(the clock));
   * Euler (`SoftbodyModel(integrator="euler")`): EULER_STEPS headline steps
-    with one collision launch a step, and a small scene on the GPU against
-    the CPU;
+    with one collision, bond_stage and step_finish launch a step, and a
+    small scene on the GPU against the CPU;
   * the conical mode through the CLI: `conical_defect` (a static defect)
     and `selfgravity` (two defects sourced by the discs' retarded centres
     of energy), CONICAL_FRAMES and SELFGRAVITY_FRAMES fused frames with 4
@@ -228,6 +245,8 @@ SMALL_EXTREMAL_FRAMES = 3  # the shrunk btz_extremal, GPU vs CPU
 SMALL_FRAMES = 5  # frames of the small GPU-vs-CPU scene, through its impact
 SMALL_ENGINE_FRAMES = 15  # frames of the tiny Engine config, GPU vs CPU
 BIG_BIN_CAPACITY = 1536  # a staged slice past 48 KB of shared memory
+STEP_HEADLINE_STEPS = 180  # the headline's discs meet at about step 170
+STEP_CAPACITY_STEPS = 130  # the capacity boxes touch in step 119
 IO_PNG_FRAMES, IO_EVERY = 60, 10  # png_demo through --out: frames 0, 10, ..., 50
 IO_SERVE_LIMIT = 40  # the served run's --frames; its client's q ends it at frame 15
 IO_REPLAY_FRAMES = 30
@@ -443,8 +462,10 @@ def main_path(model, particles, objects, buf, cam, params):
           f"diag sums {sums}; occupied share {occupied:.4f}; "
           f"bonds broken (last frame) {int(aux.bonds_broken)}")
     if (counts["collision"] != 4 * FRAMES or counts["pixel_pass"] != FRAMES
-            or counts["band"] != FRAMES):
-        raise AssertionError(f"main path launches {counts}, expected 4x / 1x / 1x {FRAMES}")
+            or counts["band"] != FRAMES or counts["bond_stage"] != 4 * FRAMES
+            or counts["step_finish"] != FRAMES):
+        raise AssertionError(f"main path launches {counts}, expected 4x / 1x / 1x / 4x / 1x "
+                             f"{FRAMES}")
     if any(sums.values()):
         raise AssertionError(f"nonzero diagnostics over the run: {sums}")
     if img.shape != (3, HEIGHT, WIDTH) or not torch.isfinite(img).all() or occupied <= 0.0:
@@ -494,6 +515,14 @@ def _slowest(eng):
     return [(i, round(ms[i], 3)) for i in sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]]
 
 
+def with_step(expect: dict) -> dict:
+    """`expect` (launches a frame by kernel) with the step kernels' added:
+    one bond_stage a collision launch (a force evaluation), one
+    step_finish an RK4 step of four."""
+    evals = expect.get("collision", 0) + expect.get("collision_exclude", 0)
+    return {**expect, "bond_stage": evals, "step_finish": evals // 4}
+
+
 def engine_via_cli(argv, frames, expect, drops="report", envelope=False):
     """The Engine through the CLI's code path (`cli.build`, then its
     frames run as `cli.run` runs them); `expect` maps a kernel name to its
@@ -537,7 +566,7 @@ def engine_via_cli(argv, frames, expect, drops="report", envelope=False):
           f"lit share {lit:.4f}; boosts {boosts}; graphs {eng.graph_stats}; slowest frames "
           f"(index, ms) {_slowest(eng)}")
     print(f"  summary {json.dumps(summary)}")
-    want = {k: expect.get(k, 0) * frames for k in counts}
+    want = {k: with_step(expect).get(k, 0) * frames for k in counts}
     if counts != want:
         raise AssertionError(f"engine launches {counts}, expected {want}")
     before = (0,) * len(eng._ADAPT_FIELDS)
@@ -974,6 +1003,205 @@ def time_collision(particles, model, exclude=False):
           f"{ms:.4f} ms at stage 3's positions (disp ({dx:.3e}, {dy:.3e})), {still_ms:.4f} ms "
           f"at stage 0's; plain {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
     return err, ms, plain_ms, bnd
+
+
+def step_bounds(planes, weight: int, breaking: bool):
+    """(stage bound, finish bound): the bytes bond_stage and step_finish
+    must move at these planes, each read or written once (the partners'
+    positions are the stage-position plane, read once), and ~20 f32
+    operations a bond slot plus ~30 a particle (the advance, the
+    accumulator; the finish's combine)."""
+    n = planes.rest_mass.shape[0]
+    # pos, pos0, vel0, mass, active, nbr, coll, the accumulator out, next
+    per = 8 + 8 + 8 + 4 + 1 + 32 + 8 + 8 + 8
+    per += 8 if weight else 0  # the accumulator in, after the first evaluation
+    per += sum(4 for t in (planes.k_pp, planes.c_pp) if t is not None)
+    per += 8 if planes.c_pp is not None else 0  # the partners' start velocities
+    nbytes = n * per + 4 * planes.rest.numel()
+    if breaking:
+        nbytes += n * 32 + (n * 36 if planes.creep_rate is not None else 0)
+        nbytes += 4 * n if planes.break_scale is not None else 0
+    return bound(nbytes, n * (8 * 20 + 30)), bound(n * 45, n * 30)
+
+
+def _bonded(planes):
+    """(sel, j) of the plain functions for `planes`: the bonded slots and
+    their partners (the shifted rule with an offset table, else every
+    valid slot)."""
+    from spacetime_tpu_torch.ops import forces
+
+    if planes.offsets is None:
+        return forces._row_slots(planes.neighbors)
+    return forces._bonded_slots(planes.neighbors, planes.offsets, planes.row0)
+
+
+def _straddled(planes, params):
+    """`params` with a bond_break_threshold that the bonds of `planes`
+    straddle at their start positions: the median bonded length, so
+    about half of them break in the first evaluation (with a break scale,
+    per pair around it)."""
+    sel, j = _bonded(planes)
+    pos = planes.gpos0
+    dx, dy = pos[:, None, 0] - pos[j, 0], pos[:, None, 1] - pos[j, 1]
+    lengths = torch.sqrt(dx * dx + dy * dy)[sel]
+    return dataclasses.replace(params, bond_break_threshold=lengths.median().item())
+
+
+def _with_materials(planes, rest, seed=18):
+    """`planes` with every material plane set, drawn on their device from
+    `seed` (the ranges of the card tests): k_scale, damping, break scale,
+    and per-bond rest lengths around the slot lengths `rest` that creep
+    with yield strains."""
+    g = torch.Generator(device=planes.pos0.device).manual_seed(seed)
+    n = planes.pos0.shape[0]
+    u = lambda lo, hi, *shape: torch.rand(shape or (n,), generator=g,
+                                          device=planes.pos0.device) * (hi - lo) + lo
+    return planes._replace(rest=(rest[None, :] * u(0.97, 1.03, n, 8)).contiguous(),
+                           k_pp=u(0.5, 2.0), c_pp=u(0.0, 0.4), break_scale=u(0.8, 1.2),
+                           creep_rate=u(0.0, 5.0), yield_strain=u(0.0, 0.05))
+
+
+def _compare_stages(planes, P, start, moved, coll0, coll3):
+    """bond_stage against bond_stage_plain on the same planes: at stage 3's
+    positions `moved` (weight 2) and at the start positions (the first
+    evaluation, which breaks bonds at P's threshold and creeps per-bond
+    rest lengths): the bonded force and both accumulators bit-equal, the
+    next positions within 1e-6 ls, each displacement fold equal to the
+    plain amax over the kernel's own next positions and to the plain
+    fold, the new neighbour table, the broken count and the crept rest
+    lengths exactly equal, some bonds broken and, with creep, some rest
+    lengths crept.  Returns (stage 3's output, its next positions' max
+    abs err, the first's, bonds broken, bonds)."""
+    from spacetime_tpu_torch.ops import rk4
+
+    dev = moved.device
+    zero = torch.zeros_like(coll3)
+    bonded = rk4.bond_stage(planes, P, moved, zero, None, 0).facc
+    if not torch.equal(bonded, torch.stack(rk4.bonded_forces_plain(planes, P, moved), -1)):
+        raise AssertionError("bond_stage's bonded force differs from the plain functions'")
+    errs, outs = [], []
+    for gpos, coll, facc, weight in ((moved, coll3, coll0, 2), (start, coll0, None, 0)):
+        first = weight == 0
+        disp, disp_plain = (torch.zeros(2, device=dev) for _ in range(2))
+        b, b_plain = ((torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+                      if first else (None, None))
+        ours = rk4.bond_stage(planes, P, gpos, coll, facc, weight, P.h / 2.0, disp=disp,
+                              broken=b)
+        want = rk4.bond_stage_plain(planes, P, gpos, coll, facc, weight, P.h / 2.0,
+                                    disp=disp_plain, broken=b_plain)
+        what = "the first evaluation's" if first else "stage 3's"
+        if not torch.equal(ours.facc, want.facc):
+            raise AssertionError(f"bond_stage's accumulator differs from the plain chain's in "
+                                 f"{what}")
+        err = (ours.next_pos - want.next_pos).abs().max().item()
+        folded = torch.where(planes.active[:, None], (ours.next_pos - planes.pos0).abs(),
+                             0.0).amax(dim=0)
+        if err > 1e-6 or not torch.equal(disp, folded) or not torch.equal(disp, disp_plain):
+            raise AssertionError(f"bond_stage's next positions in {what} off by {err:.3e} ls, "
+                                 f"or its displacement {disp.tolist()} is not {folded.tolist()} "
+                                 f"(plain fold {disp_plain.tolist()})")
+        errs.append(err)
+        outs.append((ours, want, b, b_plain))
+    (ours, _, _, _), (first, first_plain, b, b_plain) = outs
+    bonds = int(_bonded(planes)[0].sum())
+    if not torch.equal(first.neighbors, first_plain.neighbors) or int(b) != int(b_plain):
+        raise AssertionError("the first evaluation's broken bonds differ from the plain break's")
+    if not 0 < int(b_plain) < bonds:
+        raise AssertionError(f"{int(b_plain)} of {bonds} bonds broke: the threshold "
+                             f"{P.bond_break_threshold} does not test breaking")
+    if planes.creep_rate is not None and not (
+            torch.equal(first.rest_len, first_plain.rest_len)
+            and not torch.equal(first_plain.rest_len, planes.rest)):
+        raise AssertionError("the first evaluation's crept rest lengths differ from the plain "
+                             "creep's, or nothing crept")
+    return ours, errs[0], errs[1], int(b_plain), bonds
+
+
+def check_step(particles, model, when):
+    """bond_stage and step_finish (csrc/step.cu) against the plain functions
+    at a path's state on one device (`_compare_stages`), twice: with the
+    state's own planes and a break threshold its bonds straddle, and with
+    every material plane set and per-bond rest lengths that creep; the
+    finish within f32 roundings of the plain combine.  Prints each
+    kernel's ms (the state's own planes and threshold) beside its bound
+    and the plain chain's ms; returns {kernel: (max abs err over both
+    comparisons, ms, plain ms, bound)}."""
+    from spacetime_tpu_torch.ops import forces_cuda, rk4
+
+    P, p = model.params, particles
+    planes = rk4.StepPlanes(
+        pos0=p.pos, gpos0=p.pos, vel0=p.vel, gvel0=p.vel, rest_mass=p.rest_mass,
+        active=p.active, neighbors=p.neighbors.contiguous(), offsets=model.spring_offsets,
+        rest=p.rest_len if p.rest_len is not None else model.rest_lengths)
+    order, stages = collision_inputs(p, model)
+    (start, still), (moved, disp) = stages[0], stages[3]
+    nbrs = None if model.spring_offsets is not None else planes.neighbors
+    cd, rep = P.collision_distance, P.collision_repulsion_coefficient
+    coll0 = forces_cuda.collision_forces(start, p.active, order, cd, rep, still, neighbors=nbrs)
+    coll3 = forces_cuda.collision_forces(moved, p.active, order, cd, rep, disp, neighbors=nbrs)
+    ours, stage_err, first_err, broke, bonds = _compare_stages(
+        planes, _straddled(planes, P), start, moved, coll0, coll3)
+    mats = _with_materials(planes, model.rest_lengths)
+    _, m_err, m_first_err, m_broke, _ = _compare_stages(
+        mats, _straddled(mats, P), start, moved, coll0, coll3)
+    stage_err, first_err = max(stage_err, m_err), max(first_err, m_first_err)
+    pos, vel = rk4.step_finish(planes, P, ours.facc)
+    pos_plain, vel_plain = rk4.step_finish_plain(planes, P, ours.facc)
+    fin_err = max((pos - pos_plain).abs().max().item(), (vel - vel_plain).abs().max().item())
+    torch.testing.assert_close(pos, pos_plain, rtol=0, atol=1e-6)
+    torch.testing.assert_close(vel, vel_plain, rtol=1e-5, atol=1e-6)
+    d_kernel, d_plain = torch.zeros(2, device=moved.device), torch.zeros(2, device=moved.device)
+    broken, broken_plain = (torch.zeros((), dtype=torch.int32, device=moved.device)
+                            for _ in range(2))
+    run = lambda: rk4.bond_stage(planes, P, moved, coll3, coll0, 2, P.h / 2.0, disp=d_kernel)
+    plain = lambda: rk4.bond_stage_plain(planes, P, moved, coll3, coll0, 2, P.h / 2.0,
+                                         disp=d_plain)
+    run0 = lambda: rk4.bond_stage(planes, P, start, coll0, None, 0, P.h / 2.0, disp=d_kernel,
+                                  broken=broken)
+    plain0 = lambda: rk4.bond_stage_plain(planes, P, start, coll0, None, 0, P.h / 2.0,
+                                          disp=d_plain, broken=broken_plain)
+    stage_ms, stage0_ms = cuda_ms(run), cuda_ms(run0)
+    finish_ms = cuda_ms(lambda: rk4.step_finish(planes, P, ours.facc))
+    plain_ms, plain0_ms = cuda_ms(plain, reps=5), cuda_ms(plain0, reps=5)
+    plain_finish_ms = cuda_ms(lambda: rk4.step_finish_plain(planes, P, ours.facc), reps=5)
+    stage_bnd, finish_bnd = step_bounds(planes, 2, False)
+    stage0_bnd, _ = step_bounds(planes, 0, True)
+    n = p.pos.shape[0]
+    print(f"step kernels at {when} ({n} particles, {int(p.active.sum())} active, {bonds} "
+          f"bonds): bonded force and accumulators bit-equal, first evaluation's breaking equal "
+          f"({broke} broken at the median length; {m_broke} with materials, rest lengths "
+          f"crept equal), next positions within {stage_err:.3e} ls (first {first_err:.3e}), "
+          f"finish within {fin_err:.3e}; bond_stage {stage_ms:.4f} ms (stage 1-3 shape; plain "
+          f"chain {plain_ms:.4f} ms; bound {stage_bnd[0]:.6f} ms, {stage_bnd[1]}), stage 0 "
+          f"with breaking {stage0_ms:.4f} ms (plain {plain0_ms:.4f} ms; bound "
+          f"{stage0_bnd[0]:.6f} ms), step_finish {finish_ms:.4f} ms (plain "
+          f"{plain_finish_ms:.4f} ms; bound {finish_bnd[0]:.6f} ms, {finish_bnd[1]})")
+    return {"bond_stage": (stage_err, stage_ms, plain_ms, stage_bnd),
+            "bond_stage_first": (first_err, stage0_ms, plain0_ms, stage0_bnd),
+            "step_finish": (fin_err, finish_ms, plain_finish_ms, finish_bnd)}
+
+
+def step_phase(device):
+    """The step kernels at the headline's state after STEP_HEADLINE_STEPS
+    steps (through the impact) and at the capacity scene's (2^20) after
+    STEP_CAPACITY_STEPS (past first contact); a step of each counts 4
+    bond_stage and 1 step_finish launch beside 4 collision launches.
+    Returns {kernel: the capacity state's (err, ms, plain ms, bound)}."""
+    from spacetime_tpu_torch import headline, kernels
+
+    out = {}
+    for name, build, steps in (("headline", headline.build, STEP_HEADLINE_STEPS),
+                               ("capacity 2^20", headline.build_capacity, STEP_CAPACITY_STEPS)):
+        model, particles = build(device)[:2]
+        particles, _ = model.step_n(particles, steps - 1)
+        kernels.reset_launch_counts()
+        particles, _ = model.step(particles)
+        counts = dict(kernels.launches)
+        if (counts["collision"], counts["bond_stage"], counts["step_finish"]) != (4, 4, 1):
+            raise AssertionError(f"a step launched {counts}, expected 4 / 4 / 1")
+        out = check_step(particles, model, f"{name}, step {steps}")
+        del model, particles
+    return out
 
 
 def check_collision_state(particles, model, when):
@@ -1525,7 +1753,7 @@ def engine_aloof(device):
     # moved to the front, the padded lattice's bonds lose their constant
     # offsets: the row-gather physics, the bond-excluding collision variant
     coll = "collision" if eng.model.spring_offsets is not None else "collision_exclude"
-    want = {coll: 4, "band": 1, "pixel_pass": 1}
+    want = with_step({coll: 4, "band": 1, "pixel_pass": 1})
     g = eng.graph_stats
     keys = len(eng._fused_cache)
     if any(counts[k] != want.get(k, 0) * ALOOF_FRAMES for k in counts) \
@@ -1535,7 +1763,8 @@ def engine_aloof(device):
 
 def check_euler(device):
     """SoftbodyModel(integrator="euler"): EULER_STEPS steps of the headline
-    scene on the card with one collision launch a step; and the small
+    scene on the card with one collision, bond_stage and step_finish launch
+    a step; and the small
     two-disc scene of check_small_vs_cpu through its impact on the card
     against the CPU path."""
     from spacetime_tpu_torch import headline, kernels, scene
@@ -1566,8 +1795,10 @@ def check_euler(device):
     print(f"euler: {EULER_STEPS} headline steps, launches {counts}, bonds broken (last) "
           f"{int(aux.bonds_broken)}; small scene GPU vs CPU after {SMALL_FRAMES} steps: max "
           f"position err {pos_err:.3e}, velocity err {vel_err:.3e}")
-    if counts["collision"] != EULER_STEPS or sum(counts.values()) != EULER_STEPS:
-        raise AssertionError(f"euler launches {counts}, expected {EULER_STEPS} collision")
+    if (counts["collision"], counts["bond_stage"], counts["step_finish"],
+            sum(counts.values())) != (EULER_STEPS,) * 3 + (3 * EULER_STEPS,):
+        raise AssertionError(f"euler launches {counts}, expected {EULER_STEPS} collision, "
+                             f"bond_stage and step_finish")
     if pos_err > 1e-4 or vel_err > 1e-3 or out["cuda"][2] != 0 or not torch.isfinite(p.pos).all():
         raise AssertionError("euler on the card disagrees with the CPU path")
 
@@ -1611,8 +1842,8 @@ def io_png_demo(tmp):
           f"{counts}; graphs {eng.graph_stats}; {wall:.2f} s")
     if names != want or unequal or lit <= 0.0:
         raise AssertionError(f"png_demo frames: {names}, unequal at {unequal}, lit {lit}")
-    if counts != {**{k: 0 for k in counts}, "collision": 4 * IO_PNG_FRAMES,
-                  "band": IO_PNG_FRAMES, "pixel_pass": IO_PNG_FRAMES}:
+    if counts != {**{k: 0 for k in counts}, **{k: v * IO_PNG_FRAMES for k, v in with_step(
+            {"collision": 4, "band": 1, "pixel_pass": 1}).items()}}:
         raise AssertionError(f"png_demo launches {counts}")
     return counts
 
@@ -1959,7 +2190,7 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    want = {k: expect.get(k, 0) * frames for k in counts}
+    want = {k: with_step(expect).get(k, 0) * frames for k in counts}
     g = meshed.graph_stats
     img, ref_img = last["img"], ref["img"]
     same = torch.equal(img, ref_img)
@@ -2092,7 +2323,6 @@ def main() -> int:
           f"-> {kernels.build()}")
     print(f"launch floor: {launch_floor_ms():.4f} ms a launch (torch.cuda._sleep(0) "
           f"back to back, timed as every kernel below)")
-
     coll_err = check_collision(device)
     model, particles, objects, buf, cam, params = headline.build(device)
     pix_err, pix_ms, pix_plain_ms, pix_bound = check_pixel(
@@ -2113,6 +2343,7 @@ def main() -> int:
                                                "headline, after the main path")
     coll_err = max(coll_err, coll_err2)
     del model, particles, objects, buf
+    step_rows = step_phase(device)
     graph_ms, eager_ms = check_graph_vs_eager(device)
 
     # the Engine, fused by default (each path with its launch counts reset
@@ -2237,11 +2468,20 @@ def main() -> int:
                "spacetime_tpu/ops/render_pallas.py:110",
                boosted_counts["pixel_pass_camera_frame"], cf_err, cf_ms, cf_plain_ms, cf_bnd),
     ]
+    # the step kernels replace no TPU kernel; their times are the capacity
+    # state's (2^20), their launches the headline main path's: bond_stage's
+    # every evaluation (4 a step), the first evaluation's one a step, as
+    # many as step_finish's
+    for name, key in (("bond_stage", "bond_stage"), ("bond_stage_first", "step_finish"),
+                      ("step_finish", "step_finish")):
+        rows.append(record(name, "step.cu", "none: the JAX step's plain jnp chain",
+                           counts[key], *step_rows[name]))
     # the I/O phase's launches by path and the mesh phase's, beside each
     # kernel's main-path count; the share launches' times beside the whole
     # launch's (the band kernel runs unchanged on a rank's ring columns)
     for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
-                               "collision_exclude", "pixel_pass_camera_frame")):
+                               "collision_exclude", "pixel_pass_camera_frame", "bond_stage",
+                               "step_finish", "step_finish")):
         row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
         row["launches_mesh"] = mesh_counts[key]
         whole, shares = SHARD_MS.get(row["name"], (None, None))

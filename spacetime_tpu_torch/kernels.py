@@ -14,7 +14,8 @@ so kernel-vs-plain checks on the card compare like with like.
 `launches` counts kernel launches by name.  Each wrapper adds one where it
 launches its kernel and nowhere else; `reset_launch_counts` zeroes them.
 A kernel's variants count apart: `collision` (bonded pairs included) and
-`collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`.  A CUDA
+`collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`; the step's
+`bond_stage` (one a force evaluation) and `step_finish` (one a step).  A CUDA
 graph capture (fused.py) runs the wrappers but launches nothing: the counts
 it makes are taken back out (`held_apart`) and added once per replay of the
 graph (`add_launches`), so the counts stay those of kernels that ran.
@@ -33,7 +34,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu")
+SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu", "step.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "spacetime_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,7 +42,31 @@ NVCC_FLAGS = (
 )
 
 launches = {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
-            "pixel_pass_camera_frame": 0, "band": 0, "points": 0}
+            "pixel_pass_camera_frame": 0, "band": 0, "points": 0, "bond_stage": 0,
+            "step_finish": 0}
+
+
+class BondStageArgs(ctypes.Structure):
+    """csrc/step.cu's BondStageArgs, field for field (see there)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "pos", "pos0", "vel0", "gvel0", "mass", "active", "nbr", "offsets", "rest", "k_pp",
+        "c_pp", "coll", "facc_in", "facc_out", "next", "disp", "nbr_out", "broken",
+        "break_scale", "rest_out", "creep_rate", "yield_strain")]
+    _fields_ += [(name, ctypes.c_int) for name in ("n", "rows", "row0", "width",
+                                                   "rest_stride", "weight")]
+    _fields_ += [(name, ctypes.c_float) for name in ("k", "k_half", "cd2", "repulsion",
+                                                     "h_adv", "c2", "threshold", "h")]
+
+
+class StepFinishArgs(ctypes.Structure):
+    """csrc/step.cu's StepFinishArgs, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in ("facc", "pos0", "vel0", "mass", "active",
+                                                     "pos", "vel")]
+    _fields_ += [(name, ctypes.c_int) for name in ("n", "rows", "row0", "euler")]
+    _fields_ += [(name, ctypes.c_float) for name in ("h", "h6", "c2", "max_speed")]
+
 
 _lib = None
 build_seconds = None  # wall time of this process's build, None if cached
@@ -158,6 +183,17 @@ def library() -> ctypes.CDLL:
     lib.points_winner_launch.restype = ci
     lib.points_resolve_dense_launch.argtypes = [vp, vp, vp, ci, ci, vp, vp]
     lib.points_resolve_dense_launch.restype = ci
+    lib.step_struct_sizes.argtypes = [ctypes.POINTER(ci)]
+    lib.step_struct_sizes.restype = ci
+    sizes = (ci * 2)()
+    lib.step_struct_sizes(sizes)
+    if tuple(sizes) != (ctypes.sizeof(BondStageArgs), ctypes.sizeof(StepFinishArgs)):
+        raise RuntimeError(f"csrc/step.cu's argument structs ({tuple(sizes)} bytes) do not "
+                           f"match kernels.BondStageArgs and StepFinishArgs")
+    lib.bond_stage_launch.argtypes = [ctypes.POINTER(BondStageArgs), vp]
+    lib.bond_stage_launch.restype = ci
+    lib.step_finish_launch.argtypes = [ctypes.POINTER(StepFinishArgs), vp]
+    lib.step_finish_launch.restype = ci
     _lib = lib
     return lib
 

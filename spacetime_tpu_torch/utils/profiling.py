@@ -56,6 +56,7 @@ KINDS = (
     ("pixel kernel", r"pixel_kernel"),
     ("band kernel", r"band_kernel"),
     ("points kernel", r"points_(winner|resolve)_kernel"),
+    ("step kernels", r"bond_stage_kernel|step_finish_kernel"),
     ("sort", r"[Ss]ort|[Rr]adix"),
     ("reduction", r"[Rr]educe"),
     ("index / gather / scatter", r"[Ii]ndex|[Gg]ather|[Ss]catter"),

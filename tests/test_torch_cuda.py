@@ -23,7 +23,7 @@ from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.constants import DEFAULT_PARAMS as P
 from spacetime_tpu_torch.models.softbody import SoftbodyModel, default_bin_resolution
 from spacetime_tpu_torch.ops import (band_cuda, forces, forces_cuda, grid, points_cuda, raytrace,
-                                     render_cuda)
+                                     render_cuda, rk4, step_cuda)
 from spacetime_tpu_torch.ops import worldline as wl
 
 CD, REP = P.collision_distance, P.collision_repulsion_coefficient
@@ -118,6 +118,11 @@ def test_wrappers_refuse_other_devices():
         band_cuda.cone_band_window(buf.to("meta"), _params(), cam)
     with pytest.raises(ValueError, match="unsupported device"):
         points_cuda.render_points(p.to("meta"), objects, cam, 48, 32)
+    planes, gpos, coll = _stage_inputs("cpu", "shifted", "none", "slot", False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rk4.bond_stage(planes, P, gpos.to("meta"), coll, None, 0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rk4.step_finish(planes, P, coll.to("meta"))
 
 
 def test_points_scratch_is_kept_per_size(monkeypatch):
@@ -617,8 +622,9 @@ def test_fused_graph_replays_bit_equal_to_eager(cuda_device, spf):
     """The same frames as CUDA graph replays and eagerly, from copies of one
     state: positions, velocities, bonds, ring, clock, images and counters
     bit-equal (every kernel is deterministic); one capture, then replays,
-    with the launches of each replayed graph counted (4 collision, 1 band,
-    1 pixel pass a tick / a frame)."""
+    with the launches of each replayed graph counted (4 collision, 4
+    bond_stage and 1 step_finish a tick, 1 band and 1 pixel pass a
+    frame)."""
     state, model, objects = _fused_state(cuda_device)
     other = fused.copy_state(state)
     params = _params()
@@ -633,6 +639,7 @@ def test_fused_graph_replays_bit_equal_to_eager(cuda_device, spf):
     assert (graph.stats["captures"], graph.stats["replays"]) == (1, frames - 1)
     assert graph.stats["capture_s"] > 0
     assert counts["collision"] == 4 * spf * frames and counts["band"] == frames
+    assert counts["bond_stage"] == 4 * spf * frames and counts["step_finish"] == spf * frames
     assert counts["pixel_pass"] == frames
     for (img, ctr), (img2, ctr2) in zip(outs, want):
         assert torch.equal(img, img2) and torch.equal(ctr, ctr2)
@@ -1042,3 +1049,223 @@ def test_worldline3d_on_card_matches_cpu(cuda_device):
     torch.cuda.synchronize()
     assert eng.graph_stats["captures"] == 1 and eng.graph_stats["replays"] == 4
     assert kernels.launches["collision"] == 20 and kernels.launches["band"] == 0
+
+
+# --------------------------------------------------------------------------
+# the RK4 step's stage and finish kernels (csrc/step.cu) against the plain
+# functions: on the CPU the wrappers take the plain versions, on the card
+# the kernels
+# --------------------------------------------------------------------------
+
+# bond layouts: the padded lattice's shifted table (one offset a slot), the
+# unpadded discs' table cut to 3 offsets a slot (4 do occur: some valid
+# slots then match none and are no bond), and the row-gather physics
+LAYOUTS = ("shifted", "shifted_wide", "rows")
+STAGE_MATS = ("none", "k_scale", "k_scale_damping")
+# a break threshold that the lattice's bonds straddle at the jittered positions
+BREAK_P = dataclasses.replace(P, bond_break_threshold=0.0036)
+
+
+def _stage_inputs(device, layout, mats, rest, block):
+    """(StepPlanes, stage positions, collision forces) over the overlapping
+    discs, everything else drawn from numpy: velocities, the materials of
+    `mats` (a break scale with any of them), per-slot or per-bond rest
+    lengths (`rest`; per bond they creep, with yield strains), and with
+    `block` the rows [64, 192) of a mesh rank against the global planes."""
+    p, pos = _overlapping(device, lattice_pad=layout == "shifted")
+    n = p.capacity
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    offsets = None
+    if layout != "rows":
+        offsets = forces.spring_offsets_tensor(
+            forces.derive_spring_offsets(p.neighbors.cpu().numpy()), device)
+        offsets = offsets[:, :3].contiguous() if layout == "shifted_wide" else offsets
+    slots = P.rest_lengths()
+    per_bond = t(slots[None, :] * rng.uniform(0.9, 1.1, (n, 8)))
+    lo, hi = (64, 192) if block else (0, n)
+    own = slice(lo, hi)
+    planes = rk4.StepPlanes(
+        pos0=pos[own], gpos0=pos, vel0=t(rng.uniform(-0.3, 0.3, (n, 2)))[own],
+        gvel0=t(rng.uniform(-0.3, 0.3, (n, 2))), rest_mass=p.rest_mass[own],
+        active=p.active[own], neighbors=p.neighbors[own].contiguous(), offsets=offsets,
+        rest=t(slots) if rest == "slot" else per_bond[own].contiguous(), row0=lo,
+        k_pp=None if mats == "none" else t(rng.uniform(0.5, 2.0, n)),
+        c_pp=t(rng.uniform(0.0, 0.4, n)) if mats == "k_scale_damping" else None,
+        break_scale=None if mats == "none" else t(rng.uniform(0.8, 1.2, n)),
+        creep_rate=t(rng.uniform(0.0, 5.0, n)) if rest == "bond" else None,
+        yield_strain=t(rng.uniform(0.0, 0.05, n)) if rest == "bond" else None)
+    # the start velocities of the block's rows are the global plane's
+    planes = planes._replace(gvel0=planes.gvel0.clone())
+    planes.gvel0[own] = planes.vel0
+    moved, _ = _moved(pos, p.active, 3e-4)
+    return planes, moved, t(rng.normal(0.0, 5.0, (hi - lo, 2)))
+
+
+def _bonded_expected(planes, params, gpos):
+    """The plain functions' bonded force on the block at `gpos`, (B, 2)."""
+    px, py = gpos[:, 0], gpos[:, 1]
+    vx, vy = planes.gvel0[:, 0], planes.gvel0[:, 1]
+    nbr, rest, row0 = planes.neighbors, planes.rest, planes.row0
+    if planes.offsets is None:
+        fx, fy = forces.spring_forces_rows(px, py, nbr, rest, params.k, k_pp=planes.k_pp,
+                                           c_pp=planes.c_pp, vx=vx, vy=vy, row0=row0)
+        return torch.stack([fx, fy], dim=-1)
+    sfx, sfy = forces.spring_forces_shifted(px, py, nbr, planes.offsets, rest, params.k,
+                                            k_pp=planes.k_pp, row0=row0)
+    bfx, bfy = forces.bonded_repulsion_shifted(px, py, nbr, planes.offsets, CD, REP, row0=row0)
+    fx, fy = sfx - bfx, sfy - bfy
+    if planes.c_pp is not None:
+        dfx, dfy = forces.bond_damping_shifted(px, py, vx, vy, nbr, planes.offsets,
+                                               planes.c_pp, row0=row0)
+        fx, fy = fx + dfx, fy + dfy
+    return torch.stack([fx, fy], dim=-1)
+
+
+def _check_stage(device, layout, mats, rest, block):
+    """bond_stage and step_finish through their wrappers against the plain
+    functions on `device`: the bonded force, the accumulator and bond
+    breaking and creep exactly, the next positions within an f32 rounding
+    of the acceleration, the displacement fold exactly against the plain
+    amax over those positions.  Returns the launches it counted."""
+    planes, moved, coll = _stage_inputs(device, layout, mats, rest, block)
+    kernels.reset_launch_counts()
+    zero = torch.zeros_like(coll)
+    bonded = rk4.bond_stage(planes, BREAK_P, moved, zero, None, 0).facc
+    assert torch.equal(bonded, _bonded_expected(planes, BREAK_P, moved))
+    assert bonded.abs().max() > 1.0
+    f = coll + _bonded_expected(planes, BREAK_P, moved)
+    prev = coll * 0.5
+    for weight, want in ((0, f), (2, prev + 2.0 * f), (1, prev + f)):
+        disp = torch.zeros(2, device=device)
+        out = rk4.bond_stage(planes, BREAK_P, moved, coll, prev, weight, H / 2.0, disp=disp)
+        assert torch.equal(out.facc, want) and out.neighbors is None and out.rest_len is None
+        nxt, _ = rk4._advance(planes.pos0, planes.vel0, f, planes.rest_mass, H / 2.0)
+        torch.testing.assert_close(out.next_pos, nxt, rtol=0, atol=1e-6)
+        moved_by = torch.where(planes.active[:, None], (out.next_pos - planes.pos0).abs(), 0.0)
+        assert torch.equal(disp, moved_by.amax(dim=0)) and disp.min() > 0
+    # the first evaluation, at the start positions: bonds break, rest lengths creep
+    broken = torch.zeros((), dtype=torch.int32, device=device)
+    out = rk4.bond_stage(planes, BREAK_P, planes.gpos0, coll, None, 0, H / 2.0, broken=broken)
+    if planes.offsets is None:
+        nbr, n = rk4.break_bonds(planes.gpos0, planes.neighbors, BREAK_P.bond_break_threshold,
+                                 break_scale=planes.break_scale, row0=planes.row0)
+    else:
+        nbr, n = rk4.break_bonds_shifted(planes.gpos0, planes.neighbors, planes.offsets,
+                                         BREAK_P.bond_break_threshold,
+                                         break_scale=planes.break_scale, row0=planes.row0)
+    assert torch.equal(out.neighbors, nbr) and int(broken) == int(n)
+    assert 0 < int(n) < int((planes.neighbors >= 0).sum())
+    if rest == "bond":
+        if planes.offsets is None:
+            crept = forces.creep_rest_lengths_rows(planes.gpos0, planes.neighbors, planes.rest,
+                                                   planes.creep_rate, planes.yield_strain, H,
+                                                   row0=planes.row0)
+        else:
+            crept = forces.creep_rest_lengths_shifted(
+                planes.gpos0[:, 0], planes.gpos0[:, 1], planes.neighbors, planes.offsets,
+                planes.rest, planes.creep_rate, planes.yield_strain, H, row0=planes.row0)
+        assert torch.equal(out.rest_len, crept) and not torch.equal(crept, planes.rest)
+    else:
+        assert out.rest_len is None
+    for euler in (False, True):
+        pos, vel = rk4.step_finish(planes, BREAK_P, out.facc, euler=euler)
+        want_pos, want_vel = rk4.step_finish_plain(planes, BREAK_P, out.facc, euler=euler)
+        torch.testing.assert_close(pos, want_pos, rtol=0, atol=1e-6)
+        torch.testing.assert_close(vel, want_vel, rtol=1e-5, atol=1e-6)
+        assert torch.equal(pos[~planes.active], planes.pos0[~planes.active])
+    return dict(kernels.launches)
+
+
+@pytest.mark.parametrize("layout, mats, rest, block", [
+    ("rows", "none", "slot", False),
+    ("shifted", "k_scale_damping", "bond", True),
+], ids=["dispatch", "break_and_creep"])
+def test_step_wrappers_take_the_plain_path_on_cpu(layout, mats, rest, block):
+    """CPU tensors: bond_stage and step_finish are the plain functions, and
+    no kernel launch is counted; the first evaluation breaks bonds and,
+    with per-bond rest lengths, creeps them (on a mesh block).  The card
+    test below runs the whole matrix against the kernels."""
+    counts = _check_stage("cpu", layout, mats, rest, block)
+    assert counts["bond_stage"] == 0 and counts["step_finish"] == 0
+
+
+def _stage_args(**change):
+    """bond_stage_launch's arguments on CPU tensors with `change` applied
+    (planes fields, or gpos / coll / facc / weight / h_adv / disp /
+    broken)."""
+    planes, gpos, coll = _stage_inputs("cpu", "shifted", "none", "slot", False)
+    args = dict(gpos=gpos, coll=coll, facc=None, weight=0, h_adv=H / 2.0, disp=None,
+                broken=None)
+    fields = {k: v for k, v in change.items() if k in rk4.StepPlanes._fields}
+    args.update({k: v for k, v in change.items() if k not in fields})
+    return planes._replace(**fields), args
+
+
+def _misaligned(nbr):
+    flat = torch.zeros(nbr.numel() + 1, dtype=torch.int32)
+    out = flat[1:].view(nbr.shape)
+    out.copy_(nbr)
+    return out
+
+
+@pytest.mark.parametrize("case", ["misaligned", "wide_offsets", "weight", "facc", "start",
+                                  "creep_per_slot", "disp", "rows", "dtype"])
+def test_step_launchers_refuse_what_the_kernels_cannot_run(case):
+    """ops/step_cuda's checks raise before any launch (here before the
+    library would load): a neighbour table the kernel cannot load by 16
+    bytes, an offset table wider than 8, an unknown weight, a missing
+    accumulator, bond breaking away from the start positions, creep of
+    per-slot rest lengths, a displacement fold with no next positions, a
+    block past the global planes, an f64 plane."""
+    planes, _, _ = _stage_inputs("cpu", "shifted", "none", "slot", False)
+    change = {
+        "misaligned": dict(neighbors=_misaligned(planes.neighbors)),
+        "wide_offsets": dict(offsets=planes.offsets.repeat(1, 9)),
+        "weight": dict(weight=3),
+        "facc": dict(weight=2),
+        "start": dict(broken=torch.zeros((), dtype=torch.int32)),
+        "creep_per_slot": dict(creep_rate=torch.ones(planes.gpos0.shape[0])),
+        "disp": dict(h_adv=None, disp=torch.zeros(2)),
+        "rows": dict(row0=100),
+        "dtype": dict(rest_mass=planes.rest_mass.double()),
+    }[case]
+    planes, args = _stage_args(**change)
+    with pytest.raises(ValueError):
+        step_cuda.bond_stage_launch(planes, P, **args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [False, True], ids=["whole", "block"])
+@pytest.mark.parametrize("rest", ["slot", "bond"])
+@pytest.mark.parametrize("mats", STAGE_MATS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_step_kernels_match_plain(cuda_device, layout, mats, rest, block):
+    """On the card bond_stage's bonded force and accumulator are bit-equal
+    to the plain functions on the same CUDA tensors (csrc/ builds with
+    -fmad=false), its broken bonds and crept rest lengths exactly equal,
+    its displacement fold the plain amax; one launch a call."""
+    counts = _check_stage(cuda_device, layout, mats, rest, block)
+    assert counts["bond_stage"] == 5 and counts["step_finish"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["rk4", "euler"])
+def test_step_launch_counts_on_card(cuda_device, integrator):
+    """A step on the card: 4 bond_stage and 1 step_finish launch beside the
+    4 collision launches (Euler: 1, 1 and 1), and the bonds an RK4 step
+    broke as the plain break at its start positions."""
+    p, _, _, _ = _frame(cuda_device, frames=0)
+    model = SoftbodyModel(p.capacity, forces.derive_spring_offsets(p.neighbors.cpu().numpy()),
+                          params=dataclasses.replace(P, bond_break_threshold=0.0036),
+                          device=cuda_device, integrator=integrator)
+    kernels.reset_launch_counts()
+    new, aux = model.step(p)
+    evals = 4 if integrator == "rk4" else 1
+    assert (kernels.launches["collision"], kernels.launches["bond_stage"],
+            kernels.launches["step_finish"]) == (evals, evals, 1)
+    if integrator == "rk4":
+        nbr, n = rk4.break_bonds_shifted(p.pos, p.neighbors, model.spring_offsets, 0.0036)
+        assert torch.equal(new.neighbors, nbr) and int(aux.bonds_broken) == int(n) > 0
+    else:
+        assert new.neighbors is p.neighbors and int(aux.bonds_broken) == 0
