@@ -29,24 +29,29 @@ What is compared (every number against its limit, `limits/<cell>.json`):
         velocities, the tick's time, the cursor and the in-use count) that
         differ from the push of the program's own particles after the tick;
       - `image_px_share`: the share of pixels whose colour differs by more
-        than 1e-3 in a channel from the reference's image of the program's
-        ring after the frame (reference/retarded.py), or of its particles
-        (reference/points.py);
+        than 1e-3 in a channel from the image that the render mode's
+        reference makes of the frame from the program's particles after
+        the tick and its ring after the frame;
       - `render_counter_gap`: the render's counters (pairs, truncations,
-        drops) against the reference's, the largest gap relative to
-        max(1, the reference's count).
+        drops) against those of the mode's reference, the largest gap
+        relative to max(1, the reference's count); 0 where the reference
+        gives none.
 
 The reference's physics is the configuration's `physics` block (the
-program's PhysicsParams names, mapped by PHYSICS); a configuration that
-sets a field the check does not model (CONFIG_KEYS, PHYSICS), or a
-traffic mode other than MODES, is refused before a run starts
-(`require_modeled`).
+program's PhysicsParams names, mapped by PHYSICS); its render is the
+traffic's mode's, reference/<mode>.py (spec.mode_reference says what that
+module declares and gives).  A configuration that sets a field the check
+does not model (CONFIG_KEYS, PHYSICS, the mode's own keys and render
+values), or a traffic mode with no reference, is refused before a run
+starts (`require_modeled`).
 
 The reference imports nothing of the program.  With `control`, the
 reference itself takes the program's place, computed on bfloat16 state:
 every position and velocity it is given or gives back rounded to
 bfloat16 (the step a later change could take to halve the state's and
-the ring's bytes), and the point view's pixel arithmetic in bfloat16.
+the ring's bytes), and the frame's render as the mode's `control` makes
+it (the retarded view of the ring's planes in bfloat16, the point view's
+pixel arithmetic in bfloat16).
 The ring comparison and the bond comparison are exact (limit 0); the
 control's push of its own state is exact by construction, so its ring
 reading is 0, and a push that is wrong is what the faults' tests plant.
@@ -60,21 +65,19 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from . import spec
 from .reference import physics as ref_physics
-from .reference import points as ref_points
-from .reference import retarded as ref_retarded
 from .reference import scene as ref_scene
 
 PIXEL_TOL = 1e-3  # a channel gap above this counts a pixel as differing
 NUMBERS = ("scene_gap_ls", "advance_gap_ls", "step_pos_p999_ls", "step_vel_p999",
            "step_pos_max_ls", "step_vel_max", "bond_mismatch", "ring_mismatch",
            "image_px_share", "render_counter_gap")
-MODES = ("retarded", "points")
-# the keys of a configuration file the check models: its own description,
-# the scene and episode, the grid (which changes no result), the physics
-# and render blocks, and EngineConfig fields that do not change what a
-# frame computes from its state (the view's size, the ring's length, the
-# camera's start, pacing, diagnostics, the eager path)
+# the keys of a configuration file the check models in every mode: its own
+# description, the scene and episode, the grid (which changes no result),
+# the physics and render blocks, and EngineConfig fields that do not change
+# what a frame computes from its state (the view's size, the ring's length,
+# the camera's start, pacing, diagnostics, the eager path)
 CONFIG_KEYS = {"name", "source", "reduced", "assumed", "bodies", "episode", "grid_dim",
                "physics", "render", "width", "height", "history", "cam_pos", "cam_zoom",
                "max_fps", "diag_every", "stage_timing"}
@@ -108,13 +111,20 @@ def lowp(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def require_modeled(cfg: dict, mix: dict) -> None:
+def require_modeled(cfg: dict, mix: dict, here=spec.HERE) -> None:
     """Raise ValueError naming what of a cell's configuration and traffic
     the check does not model."""
-    bad = sorted(set(cfg) - CONFIG_KEYS)
+    try:
+        ref = spec.mode_reference(mix["mode"], here)
+    except LookupError:
+        ref = None
+    bad = sorted(set(cfg) - CONFIG_KEYS - (ref.CONFIG_KEYS if ref else set()))
     bad += [f"physics.{k}" for k in sorted(set(cfg.get("physics", {})) - set(PHYSICS))]
-    if mix["mode"] not in MODES:
+    if ref is None:
         bad.append(f"mode {mix['mode']!r}")
+    else:
+        bad += [f"render.{k} {v!r}" for k, v in sorted(cfg.get("render", {}).items())
+                if k in ref.RENDER and v not in ref.RENDER[k]]
     if bad:
         raise ValueError(f"configuration {cfg.get('name')!r}: the check does not model "
                          f"{', '.join(bad)}")
@@ -189,7 +199,7 @@ def advance_gap(bodies, first: int, params: ref_physics.Params,
     return _gap(start["pos"][act], pos)
 
 
-def _program_or_control(s: Sample, params: ref_physics.Params, mode: str, colors,
+def _program_or_control(s: Sample, params: ref_physics.Params, ref, colors,
                         control: bool):
     """(after particles, pushed row, image, counters) of the frame: the
     program's, or with `control` the bfloat16 reference's."""
@@ -201,12 +211,8 @@ def _program_or_control(s: Sample, params: ref_physics.Params, mode: str, colors
     after = {**b, "pos": lowp(t.pos), "vel": lowp(t.vel), "neighbors": t.neighbors}
     ring = _push(s, after, params.h)
     counters = {"grid_overflow": 0, "bonds_broken": t.bonds_broken, "window_truncated": 0}
-    if mode == "points":
-        image = _points(s, after, colors, torch.bfloat16)
-    else:
-        low = {**s.ring, **{k: lowp(s.ring[k]) for k in PLANES}}
-        image, diag = _render(s, after, low, colors)
-        counters.update(diag)
+    image, diag = ref.control(s, after, colors)
+    counters.update(diag)
     return after, ring, image, counters
 
 
@@ -238,30 +244,14 @@ def _mismatch(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> int:
     return sum(int((a[k].reshape(-1) != b[k].reshape(-1)).sum()) for k in a)
 
 
-def _points(s: Sample, after, colors, dtype=torch.float32) -> torch.Tensor:
-    pos, zoom, _ = s.cam
-    return ref_points.render(after["pos"], after["active"], after["object_index"], colors,
-                             pos, zoom, s.image.shape[2], s.image.shape[1], dtype)
-
-
-def _render(s: Sample, after, ring, colors) -> tuple:
-    buf = ref_retarded.Ring(**{k: ring[k] for k in RING_FIELDS})
-    pos, zoom, vel = s.cam
-    params = ref_retarded.RenderParams.from_fields(s.params)
-    boundary = after["active"] & (after["neighbors"] < 0).any(dim=1)
-    img, diag = ref_retarded.render(buf, after["object_index"], boundary, colors,
-                                    ref_retarded.Camera(pos, zoom, vel), s.image.shape[2],
-                                    s.image.shape[1], params)
-    return img, {k: v for k, v in diag._asdict().items() if v is not None}
-
-
-def frame_numbers(s: Sample, params: ref_physics.Params, mode: str, colors,
+def frame_numbers(s: Sample, params: ref_physics.Params, ref, colors,
                   control: bool) -> Dict[str, float]:
     """The per-frame numbers of one sample: the program's outputs (or the
-    control's) against the reference's from the same state.  A state
-    that has collapsed reads infinity in every number."""
+    control's) against the reference's from the same state, `ref` the
+    render mode's reference (spec.mode_reference).  A state that has
+    collapsed reads infinity in every number."""
     try:
-        after, ring, image, counters = _program_or_control(s, params, mode, colors, control)
+        after, ring, image, counters = _program_or_control(s, params, ref, colors, control)
         b = s.before
         t = ref_physics.tick(b["pos"], b["vel"], b["neighbors"], b["rest_mass"], b["active"],
                              params)
@@ -280,13 +270,9 @@ def frame_numbers(s: Sample, params: ref_physics.Params, mode: str, colors,
     pushed = _pushed(ring) if not control else ring
     want = _push(s, after, params.h)
     out["ring_mismatch"] = _mismatch({k: pushed[k] for k in want}, want)
-    if mode == "points":
-        ref_img = _points(s, after, colors)
-        counter_gap = 0.0
-    else:
-        ref_img, ref_diag = _render(s, after, s.ring, colors)
-        counter_gap = max((abs(float(counters[k]) - float(v)) / max(1.0, abs(float(v)))
-                           for k, v in ref_diag.items()), default=0.0)
+    ref_img, ref_diag = ref.image(s, after, s.ring, colors)
+    counter_gap = max((abs(float(counters[k]) - float(v)) / max(1.0, abs(float(v)))
+                       for k, v in ref_diag.items()), default=0.0)
     differs = ((image - ref_img).abs() > PIXEL_TOL).any(dim=0)
     out["image_px_share"] = float(differs.double().mean())
     out["render_counter_gap"] = counter_gap
@@ -294,14 +280,15 @@ def frame_numbers(s: Sample, params: ref_physics.Params, mode: str, colors,
 
 
 def numbers(bodies, colors, first: int, params: ref_physics.Params, mode: str, initial,
-            start, samples, device, control: bool = False) -> Dict[str, float]:
+            start, samples, device, control: bool = False, here=spec.HERE) -> Dict[str, float]:
     """Every number of the check (NUMBERS), the per-frame ones maximised
     over the samples."""
+    ref = spec.mode_reference(mode, here)
     colors = torch.tensor(colors, dtype=torch.float32, device=device)
     out = {"scene_gap_ls": scene_gap(bodies, initial, control),
            "advance_gap_ls": advance_gap(bodies, first, params, start, device, control)}
     for s in samples:
-        for k, v in frame_numbers(s, params, mode, colors, control).items():
+        for k, v in frame_numbers(s, params, ref, colors, control).items():
             prev = out.get(k)  # the worst over the samples; a NaN stays
             out[k] = v if prev is None or math.isnan(v) or v > prev else prev
     return out

@@ -37,6 +37,7 @@ import statistics
 import sys
 import tempfile
 import time
+from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
@@ -82,12 +83,13 @@ class Cell:
     config: dict
     traffic: dict
     limits: dict
+    here: Path  # the benchmark folder that holds its files
 
     @classmethod
     def load(cls, bench: dict, name: str, here=spec.HERE) -> "Cell":
         w = spec.workload(bench, name)
         return cls(name, spec.config(w["config"], here), spec.traffic(w["traffic"], here),
-                   spec.limits(name, here))
+                   spec.limits(name, here), here)
 
 
 def _tuples(v):
@@ -145,7 +147,7 @@ class Run:
         ep = cell.config["episode"]
         self.first, self.frames = int(ep["first"]), int(ep["frames"])
         self.script = traffic_mod.pan_script(cell.traffic["pan"], self.frames, seed)
-        self.full_ring = cell.traffic["mode"] != "points"
+        self.full_ring = spec.mode_reference(cell.traffic["mode"], cell.here).FULL_RING
         self.initial = _particles(self.engine.particles)
         self.saved = None
         self.built_s = process_age_s()
@@ -287,7 +289,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, traced: bool, de
              control: bool = False, here=spec.HERE, log=print) -> dict:
     """One run of cell `name`; returns the result dict (see run.py)."""
     cell = Cell.load(bench, name, here)
-    check.require_modeled(cell.config, cell.traffic)
+    check.require_modeled(cell.config, cell.traffic, here)
     run = Run(cell, seed, device)
     run.setup(log)
     cuda = run.device.type == "cuda"
@@ -340,7 +342,7 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, traced: bool, de
     with torch.no_grad():
         values = check.numbers(cell.config["bodies"], colors, first,
                                check.physics_params(cell.config), mode, initial, start,
-                               samples, device, control)
+                               samples, device, control, here)
     correct = bool(samples) and check.judge(values, cell.limits)
     compared = {k: {"value": values.get(k), "limit": cell.limits[k]} for k in check.NUMBERS}
     for k in sorted(set(values) - set(check.NUMBERS)):

@@ -29,3 +29,24 @@ def render(pos, active, body, colors, cam_pos, zoom, width: int, height: int,
     rgb = colors[body.long()][winner.clamp(max=n - 1)]  # (hw, 3)
     img = torch.where(lit[:, None], rgb, 1.0)
     return img.T.reshape(3, height, width).contiguous()
+
+
+# the check's entry points (../check.py, found by spec.mode_reference)
+
+CONFIG_KEYS = frozenset()  # configuration keys read beyond check.CONFIG_KEYS
+RENDER = {}  # the point view reads no field of the render block
+FULL_RING = False  # the check reads the pushed row of the ring only
+
+
+def image(s, after, ring, colors, dtype=torch.float32):
+    """The (3, H, W) image of the frame of check.Sample `s` from the
+    particles `after` its tick, and no counters."""
+    pos, zoom, _ = s.cam
+    return render(after["pos"], after["active"], after["object_index"], colors, pos, zoom,
+                  s.image.shape[2], s.image.shape[1], dtype), {}
+
+
+def control(s, after, colors):
+    """The bfloat16 control's image: `image` with its pixel arithmetic in
+    bfloat16."""
+    return image(s, after, s.ring, colors, torch.bfloat16)

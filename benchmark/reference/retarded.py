@@ -19,6 +19,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..check import PLANES, RING_FIELDS, lowp
+
 C2 = 1.0
 
 _BIG = 3.0e38
@@ -776,3 +778,30 @@ def render(buf: Ring, obj_index, boundary, base_color, cam: Camera, width: int, 
                       retina_dropped=retina_dropped, entry_dropped=entry_dropped,
                       segment_dropped=segment_dropped)
     return img, diag
+
+
+# the check's entry points (../check.py, found by spec.mode_reference)
+
+CONFIG_KEYS = frozenset()  # configuration keys read beyond check.CONFIG_KEYS
+# render fields whose values `render` reproduces only as listed (see its guard)
+RENDER = {"camera_frame": (False,), "retarded": (True,), "opaque": (True,)}
+FULL_RING = True  # the image reads the whole ring after the frame
+
+
+def image(s, after, ring, colors):
+    """The (3, H, W) image and the counters of the frame of check.Sample
+    `s`, from the particles `after` its tick and `ring`, the ring after
+    the frame."""
+    buf = Ring(**{k: ring[k] for k in RING_FIELDS})
+    pos, zoom, vel = s.cam
+    params = RenderParams.from_fields(s.params)
+    boundary = after["active"] & (after["neighbors"] < 0).any(dim=1)
+    img, diag = render(buf, after["object_index"], boundary, colors, Camera(pos, zoom, vel),
+                       s.image.shape[2], s.image.shape[1], params)
+    return img, {k: v for k, v in diag._asdict().items() if v is not None}
+
+
+def control(s, after, colors):
+    """The bfloat16 control's image and counters: `image` of the ring the
+    frame saw after it, its planes rounded to bfloat16."""
+    return image(s, after, {**s.ring, **{k: lowp(s.ring[k]) for k in PLANES}}, colors)

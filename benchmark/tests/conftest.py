@@ -16,11 +16,13 @@ sys.path.insert(0, str(ROOT))
 @pytest.fixture
 def tiny(tmp_path):
     """A benchmark folder with the tiny cells `tiny.retarded` and
-    `tiny.points`, held to the limits of refdemo_116k.retarded and
+    `tiny.points` (and the metric readers and the modes' references),
+    held to the limits of refdemo_116k.retarded and
     capacity_2p20.points; returns (bench, here)."""
     here = tmp_path / "bench"
     shutil.copytree(HERE / "tiny", here)
-    shutil.copytree(ROOT / "benchmark" / "metrics", here / "metrics")
+    for kind in ("metrics", "reference"):
+        shutil.copytree(ROOT / "benchmark" / kind, here / kind)
     (here / "limits").mkdir()
     bench = {"workloads": [], "per_layer": [],
              "end_to_end": [{"name": "fps", "unit": "frames/s"},

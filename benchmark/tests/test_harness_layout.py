@@ -10,9 +10,10 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from benchmark import check, harness, spec, traffic
-from benchmark.tests.conftest import ROOT
+from benchmark.tests.conftest import ROOT, quiet
 
 BENCH = spec.load_benchmark(ROOT)
 KEYS = {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
@@ -34,7 +35,7 @@ def test_every_named_piece_loads():
     for w in BENCH["workloads"]:
         cell = harness.Cell.load(BENCH, w["name"])
         assert w["name"] == f"{w['config']}.{w['traffic']}"
-        assert cell.traffic["mode"] in ("retarded", "points")
+        check.require_modeled(cell.config, cell.traffic)
         assert set(cell.limits) >= set(harness.check.NUMBERS)
     for m in BENCH["per_layer"]:
         assert callable(spec.metric_reader(m["name"]))
@@ -129,14 +130,76 @@ def test_a_new_configuration_is_new_files_only(tmp_path):
     assert (ref.h, ref.collision_distance) == (built.physics.h, built.physics.collision_distance)
 
 
+STUB = '''"""A stub of the instant view's reference: the program's own image
+with one pixel changed, which fails if the check hands it the whole ring."""
+
+CONFIG_KEYS = frozenset({"steps_per_frame"})
+RENDER = {}
+FULL_RING = False
+
+
+def image(s, after, ring, colors):
+    if "pos_x" in ring:
+        raise AssertionError("the harness kept the whole ring")
+    img = s.image.clone()
+    img[:, 0, 0] += 1.0
+    return img, {}
+
+
+def control(s, after, colors):
+    return image(s, after, s.ring, colors)
+'''
+
+
+def test_a_new_mode_is_new_files_only(tmp_path):
+    """A reference of a mode (the Engine's `instant`), a configuration with
+    a key that only that reference models, its traffic, limits and a
+    workloads entry: the check and the harness take the mode from the new
+    file, found through `here`."""
+    here = _copy(tmp_path)
+    (here / "reference" / "instant.py").write_text(STUB)
+    cfg = json.loads((here / "tests" / "tiny" / "configs" / "tiny.json").read_text())
+    cfg.update(name="tiny_instant", steps_per_frame=1)
+    (here / "configs" / "tiny_instant.json").write_text(json.dumps(cfg))
+    mix = json.loads((here / "tests" / "tiny" / "traffic" / "points.json").read_text())
+    (here / "traffic" / "instant.json").write_text(json.dumps(dict(mix, mode="instant")))
+    shutil.copy(here / "limits" / "refdemo_116k.retarded.json",
+                here / "limits" / "tiny_instant.instant.json")
+    bench = dict(BENCH, per_layer=[], workloads=BENCH["workloads"] + [
+        {"name": "tiny_instant.instant", "config": "tiny_instant", "traffic": "instant",
+         "chips": 1, "why": "test"}])
+    cell = harness.Cell.load(bench, "tiny_instant.instant", here)
+    check.require_modeled(cell.config, cell.traffic, here)
+    with pytest.raises(ValueError, match="does not model steps_per_frame"):
+        check.require_modeled(cell.config, dict(cell.traffic, mode="retarded"), here)
+    # the whole ring for a mode named other than "points" (the stub raises
+    # if handed it), and the stub's image in the check
+    torch.set_num_threads(2)
+    result = harness.run_cell(bench, cell.name, 2 ** 33 + 5, 0.5, False, "cpu", here=here,
+                              log=quiet)
+    assert result["checked"]["image_px_share"]["value"] == 1 / (96 * 64)
+    assert result["checked"]["ring_mismatch"]["value"] == 0
+
+
+@pytest.mark.parametrize("mode", ["physics", "scene", "__init__", "no_such_mode", "../check"])
+def test_a_mode_without_a_reference_is_refused(mode):
+    with pytest.raises(LookupError, match="does not model mode"):
+        spec.mode_reference(mode)
+
+
 @pytest.mark.parametrize("change", [{"steps_per_frame": 4}, {"cam_vel": [0.1, 0.0]},
                                     {"defect": [[0.5, 0.5], 0.3]},
-                                    {"physics": {"gravity": 1.0}}, {"mode": "btz"}])
+                                    {"physics": {"gravity": 1.0}}, {"mode": "btz"},
+                                    {"render": {"camera_frame": True}},
+                                    {"render": {"opaque": False}},
+                                    {"render": {"retarded": False}}])
 def test_a_field_the_check_does_not_model_is_refused(change):
     cfg = dict(spec.config("refdemo_116k"))
     mix = dict(spec.traffic("retarded"))
     if "mode" in change:
         mix.update(change)
+    elif "render" in change:
+        cfg["render"] = {**cfg["render"], **change["render"]}
     else:
         cfg.update(change)
     with pytest.raises(ValueError, match="does not model"):

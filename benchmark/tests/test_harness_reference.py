@@ -43,6 +43,7 @@ import shutil, json, pathlib
 here = pathlib.Path({str(tmp_path)!r}) / "bench"
 shutil.copytree(HERE / "tiny", here)
 shutil.copytree(HERE.parent / "metrics", here / "metrics")
+shutil.copytree(HERE.parent / "reference", here / "reference")
 (here / "limits").mkdir()
 shutil.copy(HERE.parent / "limits" / "refdemo_116k.retarded.json", here / "limits" / "tiny.retarded.json")
 from benchmark import harness, spec
