@@ -40,10 +40,12 @@ What is compared (every number against its limit, `limits/<cell>.json`):
 The reference's physics is the configuration's `physics` block (the
 program's PhysicsParams names, mapped by PHYSICS); its render is the
 traffic's mode's, reference/<mode>.py (spec.mode_reference says what that
-module declares and gives).  A configuration that sets a field the check
-does not model (CONFIG_KEYS, PHYSICS, the mode's own keys and render
-values), or a traffic mode with no reference, is refused before a run
-starts (`require_modeled`).
+module declares and gives).  The mode's `image` and `control` get the
+configuration's values of the keys it declares in its CONFIG_KEYS, and of
+no other key (`mode_config`): the conical mode's `defect`, say.  A
+configuration that sets a field the check does not model (CONFIG_KEYS,
+PHYSICS, the mode's own keys and render values), or a traffic mode with
+no reference, is refused before a run starts (`require_modeled`).
 
 The reference imports nothing of the program.  With `control`, the
 reference itself takes the program's place, computed on bfloat16 state:
@@ -130,6 +132,13 @@ def require_modeled(cfg: dict, mix: dict, here=spec.HERE) -> None:
                          f"{', '.join(bad)}")
 
 
+def mode_config(cfg: dict, ref) -> dict:
+    """The configuration's values of the keys that the mode's reference
+    `ref` declares (its CONFIG_KEYS), and no others: what its `image` and
+    `control` are given."""
+    return {k: cfg[k] for k in ref.CONFIG_KEYS if k in cfg}
+
+
 def physics_params(cfg: dict) -> ref_physics.Params:
     """The reference's physics of a configuration: its `physics` block,
     the defaults elsewhere."""
@@ -199,7 +208,7 @@ def advance_gap(bodies, first: int, params: ref_physics.Params,
     return _gap(start["pos"][act], pos)
 
 
-def _program_or_control(s: Sample, params: ref_physics.Params, ref, colors,
+def _program_or_control(s: Sample, params: ref_physics.Params, ref, colors, config: dict,
                         control: bool):
     """(after particles, pushed row, image, counters) of the frame: the
     program's, or with `control` the bfloat16 reference's."""
@@ -211,7 +220,7 @@ def _program_or_control(s: Sample, params: ref_physics.Params, ref, colors,
     after = {**b, "pos": lowp(t.pos), "vel": lowp(t.vel), "neighbors": t.neighbors}
     ring = _push(s, after, params.h)
     counters = {"grid_overflow": 0, "bonds_broken": t.bonds_broken, "window_truncated": 0}
-    image, diag = ref.control(s, after, colors)
+    image, diag = ref.control(s, after, colors, config)
     counters.update(diag)
     return after, ring, image, counters
 
@@ -244,14 +253,16 @@ def _mismatch(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> int:
     return sum(int((a[k].reshape(-1) != b[k].reshape(-1)).sum()) for k in a)
 
 
-def frame_numbers(s: Sample, params: ref_physics.Params, ref, colors,
+def frame_numbers(s: Sample, params: ref_physics.Params, ref, colors, config: dict,
                   control: bool) -> Dict[str, float]:
     """The per-frame numbers of one sample: the program's outputs (or the
     control's) against the reference's from the same state, `ref` the
-    render mode's reference (spec.mode_reference).  A state that has
-    collapsed reads infinity in every number."""
+    render mode's reference (spec.mode_reference) and `config` its keys'
+    values (mode_config).  A state that has collapsed reads infinity in
+    every number."""
     try:
-        after, ring, image, counters = _program_or_control(s, params, ref, colors, control)
+        after, ring, image, counters = _program_or_control(s, params, ref, colors, config,
+                                                           control)
         b = s.before
         t = ref_physics.tick(b["pos"], b["vel"], b["neighbors"], b["rest_mass"], b["active"],
                              params)
@@ -270,7 +281,7 @@ def frame_numbers(s: Sample, params: ref_physics.Params, ref, colors,
     pushed = _pushed(ring) if not control else ring
     want = _push(s, after, params.h)
     out["ring_mismatch"] = _mismatch({k: pushed[k] for k in want}, want)
-    ref_img, ref_diag = ref.image(s, after, s.ring, colors)
+    ref_img, ref_diag = ref.image(s, after, s.ring, colors, config)
     counter_gap = max((abs(float(counters[k]) - float(v)) / max(1.0, abs(float(v)))
                        for k, v in ref_diag.items()), default=0.0)
     differs = ((image - ref_img).abs() > PIXEL_TOL).any(dim=0)
@@ -279,16 +290,19 @@ def frame_numbers(s: Sample, params: ref_physics.Params, ref, colors,
     return out
 
 
-def numbers(bodies, colors, first: int, params: ref_physics.Params, mode: str, initial,
-            start, samples, device, control: bool = False, here=spec.HERE) -> Dict[str, float]:
-    """Every number of the check (NUMBERS), the per-frame ones maximised
-    over the samples."""
+def numbers(cfg: dict, mode: str, first: int, initial, start, samples, device,
+            control: bool = False, here=spec.HERE) -> Dict[str, float]:
+    """Every number of the check (NUMBERS) of a cell whose configuration
+    is `cfg` and whose traffic's mode is `mode`, the per-frame ones
+    maximised over the samples."""
     ref = spec.mode_reference(mode, here)
-    colors = torch.tensor(colors, dtype=torch.float32, device=device)
+    bodies, params = cfg["bodies"], physics_params(cfg)
+    colors = torch.tensor([b["rgb"] for b in bodies], dtype=torch.float32, device=device)
+    config = mode_config(cfg, ref)
     out = {"scene_gap_ls": scene_gap(bodies, initial, control),
            "advance_gap_ls": advance_gap(bodies, first, params, start, device, control)}
     for s in samples:
-        for k, v in frame_numbers(s, params, ref, colors, control).items():
+        for k, v in frame_numbers(s, params, ref, colors, config, control).items():
             prev = out.get(k)  # the worst over the samples; a NaN stays
             out[k] = v if prev is None or math.isnan(v) or v > prev else prev
     return out

@@ -338,11 +338,9 @@ def run_cell(bench: dict, name: str, seed: int, seconds: float, traced: bool, de
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    colors = [b["rgb"] for b in cell.config["bodies"]]
     with torch.no_grad():
-        values = check.numbers(cell.config["bodies"], colors, first,
-                               check.physics_params(cell.config), mode, initial, start,
-                               samples, device, control, here)
+        values = check.numbers(cell.config, mode, first, initial, start, samples, device,
+                               control, here)
     correct = bool(samples) and check.judge(values, cell.limits)
     compared = {k: {"value": values.get(k), "limit": cell.limits[k]} for k in check.NUMBERS}
     for k in sorted(set(values) - set(check.NUMBERS)):

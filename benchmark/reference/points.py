@@ -38,15 +38,16 @@ RENDER = {}  # the point view reads no field of the render block
 FULL_RING = False  # the check reads the pushed row of the ring only
 
 
-def image(s, after, ring, colors, dtype=torch.float32):
+def image(s, after, ring, colors, config, dtype=torch.float32):
     """The (3, H, W) image of the frame of check.Sample `s` from the
-    particles `after` its tick, and no counters."""
+    particles `after` its tick, and no counters (`config`, the values of
+    CONFIG_KEYS, is empty)."""
     pos, zoom, _ = s.cam
     return render(after["pos"], after["active"], after["object_index"], colors, pos, zoom,
                   s.image.shape[2], s.image.shape[1], dtype), {}
 
 
-def control(s, after, colors):
+def control(s, after, colors, config):
     """The bfloat16 control's image: `image` with its pixel arithmetic in
     bfloat16."""
-    return image(s, after, s.ring, colors, torch.bfloat16)
+    return image(s, after, s.ring, colors, config, torch.bfloat16)

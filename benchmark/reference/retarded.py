@@ -2,7 +2,10 @@
 port's plain-torch path (the dense cone band sweep, the pair rows with
 rank compaction, the budget compaction, the boundary occlusion retina,
 the view-cell splat CSR and the pixel pass over padded cell tables),
-with the mesh, camera-frame and curved-route branches left out.
+with the mesh and camera-frame branches left out.  The band search takes
+a route length and leaves the view-hull cull out for the curved routes
+(reference/conical.py, which shares the rest of the pair rows, the
+compaction, the splat and the retina with this file).
 
 It reads a ring laid out as the program's (four (2T, N) planes mirrored
 on the time axis, the tick times, the cursor and the in-use count), the
@@ -300,7 +303,7 @@ def _sweep_bounds(buf, params):
     return base_col, a_sw, col0, hi0
 
 
-def cone_band_window_plain(buf, params, cam) -> BandWindow:
+def cone_band_window_plain(buf, params, cam, route_lengths=None) -> BandWindow:
     """Each particle's cone-crossing tick band and its window, by one dense
     sweep over the swept ages.
 
@@ -311,7 +314,9 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
     the window holds ages [a0 + band - 1 .. a0 - 1] as ascending mirrored
     rows, read by one gather.  Window rows outside the swept ages hold the
     ring's values there; they only feed pairs that fail the age-range
-    validity."""
+    validity.  `route_lengths(qx, qy)` is the cone metric, the Euclidean
+    distance to the camera by default (the curved routes pass their
+    geodesic lengths)."""
 
     dt, rho, band = params.dt, params.rho, params.band
     t_cap = buf.capacity
@@ -319,7 +324,7 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
     dev = buf.pos_x.device
     thresh = rho + dt
     base_col, a_sw, col0, hi0 = _sweep_bounds(buf, params)
-    route = _euclid_route(cam.pos[0], cam.pos[1])
+    route = route_lengths or _euclid_route(cam.pos[0], cam.pos[1])
 
     # the swept rows col0 .. col0 + a_sw - 1, gathered by a device index
     rows = col0 + torch.arange(a_sw, dtype=torch.int32, device=dev)
@@ -346,22 +351,26 @@ def cone_band_window_plain(buf, params, cam) -> BandWindow:
 
 
 def _band_pairs(buf: Ring, obj_index, base_color, cam: Camera,
-                t_now, width: int, height: int, params: RenderParams):
+                t_now, width: int, height: int, params: RenderParams,
+                cull_hull: bool = True, route_lengths=None):
     """Cone-crossing segments in the (N * band) pair layout, validity
-    re-checked exactly per segment and culled to the view + camera hull.
-    With 0 < segments < band each particle keeps its first `segments` valid
-    crossings, oldest first, in an (N * segments) layout.  Returns (PairData,
-    band_truncated, segment_dropped), the last a () i64 device tensor with
-    compaction on, else None."""
+    re-checked exactly per segment and, with `cull_hull`, culled to the
+    view + camera hull.  With 0 < segments < band each particle keeps its
+    first `segments` valid crossings, oldest first, in an (N * segments)
+    layout.  `route_lengths(qx, qy) -> distance` is the cone metric (the
+    curved routes; they turn the hull cull off), the Euclidean distance to
+    the camera by default.  Returns (PairData, band_truncated,
+    segment_dropped), the last a () i64 device tensor with compaction on,
+    else None."""
     dt, rho, band = params.dt, params.rho, params.band
     n = buf.num_particles
     cxm, cym = cam.pos[0], cam.pos[1]
-    # the cone band search: the kernel for CUDA tensors on the Euclidean
-    # route, the dense sweep for CPU tensors and for any other route
-    bw = cone_band_window_plain(buf, params, cam)
+    # the program's band kernel (CUDA, Euclidean route) computes what this
+    # dense sweep does
+    bw = cone_band_window_plain(buf, params, cam, route_lengths)
     hi0, truncated = bw.hi0, bw.truncated
     wx, wy, wvx, wvy, ages = bw.wx, bw.wy, bw.wvx, bw.wvy, bw.ages
-    route = _euclid_route(cxm, cym)
+    route = route_lengths or _euclid_route(cxm, cym)
 
     # segment j: older endpoint = window column j (age a_j), younger = j + 1
     qax, qay = wx[:, :band], wy[:, :band]
@@ -380,20 +389,21 @@ def _band_pairs(buf: Ring, obj_index, base_color, cam: Camera,
         & (torch.minimum(ra, rb) <= s_hi + rho)
         & (torch.abs(qax) < 1.0e8)
     )
-    # straight rays: a camera -> pixel segment stays in the view + camera hull
-    _, _, pixel_size, x0, y0 = _view_grid(width, height, cam, params.cell_px)
-    margin = 4.0 * (rho + dt)
-    vx0 = torch.minimum(x0, cxm) - margin
-    vx1 = torch.maximum(x0 + width * pixel_size, cxm) + margin
-    vy0 = torch.minimum(y0, cym) - margin
-    vy1 = torch.maximum(y0 + height * pixel_size, cym) + margin
-    valid = (
-        valid
-        & (torch.maximum(qax, qbx) >= vx0)
-        & (torch.minimum(qax, qbx) <= vx1)
-        & (torch.maximum(qay, qby) >= vy0)
-        & (torch.minimum(qay, qby) <= vy1)
-    )
+    if cull_hull:
+        # straight rays: a camera -> pixel segment stays in the view + camera hull
+        _, _, pixel_size, x0, y0 = _view_grid(width, height, cam, params.cell_px)
+        margin = 4.0 * (rho + dt)
+        vx0 = torch.minimum(x0, cxm) - margin
+        vx1 = torch.maximum(x0 + width * pixel_size, cxm) + margin
+        vy0 = torch.minimum(y0, cym) - margin
+        vy1 = torch.maximum(y0 + height * pixel_size, cym) + margin
+        valid = (
+            valid
+            & (torch.maximum(qax, qbx) >= vx0)
+            & (torch.minimum(qax, qbx) <= vx1)
+            & (torch.maximum(qay, qby) >= vy0)
+            & (torch.minimum(qay, qby) <= vy1)
+        )
 
     seg_dropped = None
     k = params.segments
@@ -573,14 +583,8 @@ def _splat_csr(pairs: PairData, cam: Camera, width: int, height: int,
 
 
 # ---------------------------------------------------------------------------
-# Dense per-cell tables: the curved renderers' route pass
+# Occlusion retina
 # ---------------------------------------------------------------------------
-
-# a route pass tests every pixel of a view cell against every candidate of
-# its table, (cells, k * k, bin_capacity) elements; it runs over blocks of
-# cells of at most this many elements (the JAX package's lax.map over
-# `cells_per_block` cells, a RenderParams field the port leaves out)
-ROUTE_PASS_ELEMENTS = 1 << 23
 
 
 def _ray_angles(n_rays: int, device):
@@ -788,10 +792,10 @@ RENDER = {"camera_frame": (False,), "retarded": (True,), "opaque": (True,)}
 FULL_RING = True  # the image reads the whole ring after the frame
 
 
-def image(s, after, ring, colors):
+def image(s, after, ring, colors, config):
     """The (3, H, W) image and the counters of the frame of check.Sample
     `s`, from the particles `after` its tick and `ring`, the ring after
-    the frame."""
+    the frame (`config`, the values of CONFIG_KEYS, is empty)."""
     buf = Ring(**{k: ring[k] for k in RING_FIELDS})
     pos, zoom, vel = s.cam
     params = RenderParams.from_fields(s.params)
@@ -801,7 +805,7 @@ def image(s, after, ring, colors):
     return img, {k: v for k, v in diag._asdict().items() if v is not None}
 
 
-def control(s, after, colors):
+def control(s, after, colors, config):
     """The bfloat16 control's image and counters: `image` of the ring the
     frame saw after it, its planes rounded to bfloat16."""
-    return image(s, after, {**s.ring, **{k: lowp(s.ring[k]) for k in PLANES}}, colors)
+    return image(s, after, {**s.ring, **{k: lowp(s.ring[k]) for k in PLANES}}, colors, config)

@@ -90,8 +90,11 @@ def mode_reference(mode: str, here: Path = HERE):
     cell has), `RENDER` (render-block field -> the values it reproduces;
     a field it does not name, at any value), `FULL_RING` (whether the
     check reads the whole ring after a frame, or its pushed row only),
-    and `image` and `control` (see check.py).  LookupError where there is
-    no such file or the module renders nothing (physics.py, scene.py)."""
+    and `image(s, after, ring, colors, config)` and `control(s, after,
+    colors, config)` (see check.py), where `config` holds the
+    configuration's values of the keys in CONFIG_KEYS and of no other.
+    LookupError where there is no such file or the module renders
+    nothing (physics.py, scene.py)."""
     if NAME.match(mode) and (here / "reference" / f"{mode}.py").is_file():
         module = _module("reference", mode, here)
         if callable(getattr(module, "image", None)):

@@ -38,6 +38,26 @@ def tiny(tmp_path):
     return bench, here
 
 
+@pytest.fixture
+def tiny_conical(tmp_path):
+    """A copy of the benchmark folder with the tiny conical cell
+    `tiny_conical.conical` added as new files only (tiny's conical
+    configuration and traffic, and refdemo_116k.retarded's limits) and no
+    edit to any file; returns (bench, here)."""
+    from benchmark import spec
+
+    here = tmp_path / "benchmark"
+    shutil.copytree(ROOT / "benchmark", here, ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(HERE / "tiny" / "configs" / "tiny_conical.json", here / "configs")
+    shutil.copy(HERE / "tiny" / "traffic" / "conical.json", here / "traffic")
+    shutil.copy(here / "limits" / "refdemo_116k.retarded.json",
+                here / "limits" / "tiny_conical.conical.json")
+    bench = spec.load_benchmark(ROOT)
+    bench["workloads"].append({"name": "tiny_conical.conical", "config": "tiny_conical",
+                               "traffic": "conical", "chips": 1, "why": "test"})
+    return bench, here
+
+
 def quiet(*args, **kwargs):
     pass
 

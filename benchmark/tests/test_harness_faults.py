@@ -1,9 +1,10 @@
 """The check fails a run whose timed path is broken underneath: a step
 that returns its state unchanged, half of the particles left unstepped, a
 share of the particles or a single one, a ring row or an image altered where it is produced, and the
-bfloat16 control in the program's place.  (A cell on one card has no exchange
-between chips to leave out.)  Each is a whole run of a tiny cell on the
-CPU past the harness's look for a card."""
+bfloat16 control in the program's place; in the conical mode, the Engine
+built with another deficit than its configuration's.  (A cell on one card
+has no exchange between chips to leave out.)  Each is a whole run of a tiny
+cell on the CPU past the harness's look for a card."""
 
 import dataclasses
 
@@ -114,3 +115,32 @@ def test_a_point_view_altered_where_it_is_produced_fails(tiny, monkeypatch):
 @pytest.mark.parametrize("mode", ["retarded", "points"])
 def test_the_bfloat16_control_fails(tiny, mode):
     assert _run(tiny, mode, control=True)["correct"] is False
+
+
+def _run_conical(tiny_conical, control=False):
+    bench, here = tiny_conical
+    torch.set_num_threads(2)
+    return harness.run_cell(bench, "tiny_conical.conical", 2 ** 34 + 11, 0.5, False, "cpu",
+                            control=control, here=here, log=quiet)
+
+
+@pytest.mark.parametrize("scale", [1.01, 0.0])
+def test_an_engine_built_with_another_deficit_fails(tiny_conical, monkeypatch, scale):
+    """The Engine built with the file's deficit 1% too large, and with the
+    deficit 0 (no defect: flat space), against the reference at the
+    file's defect."""
+    from spacetime_tpu_torch.engine import Engine
+
+    init = Engine.__init__
+
+    def other(self, config, *args, **kwargs):
+        center, deficit = config.defect
+        init(self, dataclasses.replace(config, defect=(center, deficit * scale)), *args,
+             **kwargs)
+
+    monkeypatch.setattr(Engine, "__init__", other)
+    assert _run_conical(tiny_conical)["correct"] is False
+
+
+def test_the_conical_bfloat16_control_fails(tiny_conical):
+    assert _run_conical(tiny_conical, control=True)["correct"] is False

@@ -131,35 +131,40 @@ def test_a_new_configuration_is_new_files_only(tmp_path):
 
 
 STUB = '''"""A stub of the instant view's reference: the program's own image
-with one pixel changed, which fails if the check hands it the whole ring."""
+with as many pixels of its first row changed as its configuration's
+`stub_pixels` says, which fails if the check hands it the whole ring or a
+key it does not declare."""
 
-CONFIG_KEYS = frozenset({"steps_per_frame"})
+CONFIG_KEYS = frozenset({"steps_per_frame", "stub_pixels"})
 RENDER = {}
 FULL_RING = False
 
 
-def image(s, after, ring, colors):
+def image(s, after, ring, colors, config):
     if "pos_x" in ring:
         raise AssertionError("the harness kept the whole ring")
+    if set(config) != CONFIG_KEYS:
+        raise AssertionError(f"the check handed the stub the keys {sorted(config)}")
     img = s.image.clone()
-    img[:, 0, 0] += 1.0
+    img[:, 0, :config["stub_pixels"]] += 1.0
     return img, {}
 
 
-def control(s, after, colors):
-    return image(s, after, s.ring, colors)
+def control(s, after, colors, config):
+    return image(s, after, s.ring, colors, config)
 '''
 
 
 def test_a_new_mode_is_new_files_only(tmp_path):
     """A reference of a mode (the Engine's `instant`), a configuration with
-    a key that only that reference models, its traffic, limits and a
+    keys that only that reference models, its traffic, limits and a
     workloads entry: the check and the harness take the mode from the new
-    file, found through `here`."""
+    file, found through `here`, and hand its image the values of its keys
+    (one of them no EngineConfig field) and of no other."""
     here = _copy(tmp_path)
     (here / "reference" / "instant.py").write_text(STUB)
     cfg = json.loads((here / "tests" / "tiny" / "configs" / "tiny.json").read_text())
-    cfg.update(name="tiny_instant", steps_per_frame=1)
+    cfg.update(name="tiny_instant", steps_per_frame=1, stub_pixels=3)
     (here / "configs" / "tiny_instant.json").write_text(json.dumps(cfg))
     mix = json.loads((here / "tests" / "tiny" / "traffic" / "points.json").read_text())
     (here / "traffic" / "instant.json").write_text(json.dumps(dict(mix, mode="instant")))
@@ -173,12 +178,50 @@ def test_a_new_mode_is_new_files_only(tmp_path):
     with pytest.raises(ValueError, match="does not model steps_per_frame"):
         check.require_modeled(cell.config, dict(cell.traffic, mode="retarded"), here)
     # the whole ring for a mode named other than "points" (the stub raises
-    # if handed it), and the stub's image in the check
+    # if handed it), and the stub's image, with its `stub_pixels`, in the check
     torch.set_num_threads(2)
     result = harness.run_cell(bench, cell.name, 2 ** 33 + 5, 0.5, False, "cpu", here=here,
                               log=quiet)
-    assert result["checked"]["image_px_share"]["value"] == 1 / (96 * 64)
+    assert result["checked"]["image_px_share"]["value"] == 3 / (96 * 64)
     assert result["checked"]["ring_mismatch"]["value"] == 0
+
+
+def test_a_conical_cell_is_new_files_only(tiny_conical):
+    """The conical mode's reference, with a configuration that names its
+    defect, its traffic, its limits and a workloads entry, all new files
+    in a copy of the benchmark folder: the run reads `correct`, with the
+    program's image and counters equal to the reference's on the CPU."""
+    bench, here = tiny_conical
+    cell = harness.Cell.load(bench, "tiny_conical.conical", here)
+    check.require_modeled(cell.config, cell.traffic, here)
+    assert harness.engine_config(cell).defect == ((0.03, 0.05), 3.0)
+    torch.set_num_threads(2)
+    result = harness.run_cell(bench, cell.name, 2 ** 34 + 3, 0.5, False, "cpu", here=here,
+                              log=quiet)
+    assert result["correct"], result["checked"]
+    got = {k: v["value"] for k, v in result["checked"].items()}
+    assert got["image_px_share"] == 0.0 and got["render_counter_gap"] == 0.0
+
+
+@pytest.mark.parametrize("change", [{"defect_vel": [[0.1, 0.0]]}, {"defect_retarded": True},
+                                    {"defect_source": [[0, None]]}, {"defect_G": 1.0},
+                                    {"render": {"camera_frame": True}}])
+def test_what_the_conical_reference_does_not_model_is_refused(change):
+    cfg = json.loads((ROOT / "benchmark" / "tests" / "tiny" / "configs"
+                      / "tiny_conical.json").read_text())
+    if "render" in change:
+        cfg["render"] = {**cfg["render"], **change["render"]}
+    else:
+        cfg.update(change)
+    with pytest.raises(ValueError, match="does not model"):
+        check.require_modeled(cfg, {"mode": "conical"})
+
+
+def test_the_mode_reference_gets_its_declared_keys_only():
+    ref = spec.mode_reference("conical")
+    cfg = dict(spec.config("refdemo_116k"), defect=[[0.5, 0.55], 1.2])
+    assert check.mode_config(cfg, ref) == {"defect": [[0.5, 0.55], 1.2]}
+    assert check.mode_config(cfg, spec.mode_reference("retarded")) == {}
 
 
 @pytest.mark.parametrize("mode", ["physics", "scene", "__init__", "no_such_mode", "../check"])
@@ -189,7 +232,7 @@ def test_a_mode_without_a_reference_is_refused(mode):
 
 @pytest.mark.parametrize("change", [{"steps_per_frame": 4}, {"cam_vel": [0.1, 0.0]},
                                     {"defect": [[0.5, 0.5], 0.3]},
-                                    {"physics": {"gravity": 1.0}}, {"mode": "btz"},
+                                    {"physics": {"gravity": 1.0}}, {"mode": "warp"},
                                     {"render": {"camera_frame": True}},
                                     {"render": {"opaque": False}},
                                     {"render": {"retarded": False}}])

@@ -25,8 +25,8 @@ def _modules(code: str) -> list:
 
 def test_the_reference_imports_neither_the_program_nor_jax():
     tops = _modules("import benchmark.check, benchmark.reference.retarded, "
-                    "benchmark.reference.physics, benchmark.reference.points, "
-                    "benchmark.reference.scene")
+                    "benchmark.reference.conical, benchmark.reference.physics, "
+                    "benchmark.reference.points, benchmark.reference.scene")
     for name in ("spacetime_tpu_torch", "spacetime_tpu", "jax", "jaxlib", "flax"):
         assert name not in tops
 
