@@ -13,7 +13,7 @@ just after:
     at capacity 13,312, a T=1024 worldline ring and a 1920x1080 opaque
     retarded render) for FRAMES = 200 frames, which takes the discs
     through their impact (contact at about frame 170): every collision,
-    band and pixel-pass launch goes through the kernels, every
+    band, retina and pixel-pass launch goes through the kernels, every
     render/step diagnostic counter stays 0, the image is finite and lit;
   * the step kernels (csrc/step.cu, `step_phase`): the headline scene
     after STEP_HEADLINE_STEPS steps and the capacity scene
@@ -37,9 +37,9 @@ just after:
     replayed), FRAMES frames from a copy of the start state of two eager
     runs of the same stages: the two eager runs must be bit-equal, and
     then the graph run bit-equal to them (positions, ring, clock, image,
-    counters), with 4 collision, 1 band and 1 pixel launch a frame counted
-    from the replays, one capture and FRAMES - 1 replays, and every drop
-    counter, summed over its frames by name, 0;
+    counters), with 4 collision, 1 band, 1 retina and 1 pixel launch a
+    frame counted from the replays, one capture and FRAMES - 1 replays, and
+    every drop counter, summed over its frames by name, 0;
   * the Engine through its CLI (`cli.build` + `Engine.run`, the code of
     `python -m spacetime_tpu_torch`), fused (CUDA graphs) unless told
     otherwise: `flagship_1080p` in retarded mode for ENGINE_FRAMES frames
@@ -47,9 +47,12 @@ just after:
     `profile_stages` (per-stage device times must be > 0), and again with
     `--stage-timing` (eager frames, CUDA-event stage times > 0), the two
     frame times printed side by side; in instant mode for INSTANT_FRAMES
-    frames; after each run the band (retarded only) and pixel kernels are
-    held against plain on the Engine's final state at the render params it
-    chose (its adapted band and bin capacity, its max_age and cell size);
+    frames; after each run the band (retarded only), retina (retarded and
+    opaque: bit-equal) and pixel kernels are held against plain on the
+    Engine's final state at the render params it chose (its adapted band and
+    bin capacity, its max_age and cell size); every Engine run counts one
+    retina_march launch a frame for each retina its frame marches (one in
+    an opaque retarded frame, one a route in an opaque conical frame);
   * the fused Engine's graph cache on `flagship_1080p`: zooms on four rungs
     of the cell ladder capture four keys, a revisit replays, a fifth zoom
     evicts the oldest; device memory peaks with one and with four;
@@ -88,9 +91,11 @@ just after:
     `splat_cells=4`, rank compaction to 3 crossings, band 4): the fused
     frame's graphs bit-equal to its stages run eagerly from a copy of the
     start state for REFDEMO_COMPARE_FRAMES frames, then REFDEMO_FRAMES graph
-    frames with 4 / 1 / 1 launches a frame, every drop counter 0
-    (segment_dropped included) and the pairs within pair_budget; then the
-    pixel, band and collision kernels against plain on its final state;
+    frames with 4 / 1 / 1 / 1 launches a frame (collision, band, retina,
+    pixel), every drop counter 0 (segment_dropped included) and the pairs
+    within pair_budget; then the pixel, band and collision kernels against
+    plain on its final state, and the retina kernel (bit-equal, timed) at
+    the refdemo_116k cell's 4,096 rays x 16,384 rows;
     then, at that scale, the compacted frame against the uncompacted one
     under the pixel gate, and the drops at the reference demo's segments=2;
   * the retina mode through the CLI (`accelerated_camera --mode retina`)
@@ -153,8 +158,9 @@ just after:
     IO_REALTIME_FRAMES frames take at least IO_REALTIME_FRAMES / fps
     (less 10%); (e) `bench --scene capacity --frame` (2^20 particles,
     headline.build_capacity): steps/s, the frame's ms and device ms by
-    stage, every drop counter and the kernels' launches, then the band and
-    pixel kernels against plain on its final state;
+    stage, every drop counter and the kernels' launches, then the band,
+    pixel and retina kernels against plain on its final state (the retina
+    at the capacity_2p20 cells' 4,096 rays x 16,384 rows);
   * the mesh phase (mesh_phase): a one-rank NCCL process group (TCP store
     on a free loopback port) and `Engine(flagship_1080p, mesh=...)` for
     MESH_FRAMES fused frames, its collectives (the step's gathers and
@@ -463,9 +469,9 @@ def main_path(model, particles, objects, buf, cam, params):
           f"bonds broken (last frame) {int(aux.bonds_broken)}")
     if (counts["collision"] != 4 * FRAMES or counts["pixel_pass"] != FRAMES
             or counts["band"] != FRAMES or counts["bond_stage"] != 4 * FRAMES
-            or counts["step_finish"] != FRAMES):
-        raise AssertionError(f"main path launches {counts}, expected 4x / 1x / 1x / 4x / 1x "
-                             f"{FRAMES}")
+            or counts["step_finish"] != FRAMES or counts["retina_march"] != FRAMES):
+        raise AssertionError(f"main path launches {counts}, expected 4x / 1x / 1x / 4x / 1x / "
+                             f"1x {FRAMES}")
     if any(sums.values()):
         raise AssertionError(f"nonzero diagnostics over the run: {sums}")
     if img.shape != (3, HEIGHT, WIDTH) or not torch.isfinite(img).all() or occupied <= 0.0:
@@ -501,6 +507,84 @@ def check_band(buf, cam, params, when):
           f"{bnd[0]:.6f} ms ({bnd[1]})")
     if unequal or ours.hi0 != plain.hi0 or entered == 0:
         raise AssertionError(f"band kernel differs from plain in {unequal} ({entered} entered)")
+    return err, ms, plain_ms, bnd
+
+
+# f32 operations of one ray-pair test of the retina march (csrc/retina.cu):
+# a (6), b (2), |b|^2 (3), a . b (3), the clamps (3), the division (1), d
+# (4), |d|^2 (3), s_hit (2), the two compares and the running minimum (3)
+RETINA_OPS = 30
+
+
+def retina_bound(pairs, params):
+    """The retina kernel's needed work: each pair row's five fields and its
+    validity read once, the ray directions read and s_first written once;
+    RETINA_OPS f32 operations per ray and valid pair."""
+    rows, n = pairs.pdata.shape[0], params.num_rays
+    return bound(21 * rows + 12 * n, RETINA_OPS * n * int(pairs.pair_valid.sum()))
+
+
+def retina_inputs(run):
+    """The arguments (pairs, cam, t_now, params) of every retina march that
+    `run()` makes, in order."""
+    from spacetime_tpu_torch.ops import retina_cuda
+
+    seen, real = [], retina_cuda.retina_march
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    retina_cuda.retina_march = record
+    try:
+        run()
+    finally:
+        retina_cuda.retina_march = real
+    return seen
+
+
+def frame_retina(buf, particles, objects, cam, params, width, height):
+    """The inputs of the retina march of one retarded frame at `params`: the
+    frame's own prefix of boundary pairs, built as the Engine builds it."""
+    from spacetime_tpu_torch.ops import raytrace
+    from spacetime_tpu_torch.ops import worldline as wl
+
+    (args,) = retina_inputs(lambda: raytrace.prepare_pixel_pass(
+        buf, particles.object_index, objects, cam, width, height, params,
+        boundary=wl.boundary_mask(particles)))
+    return args
+
+
+def check_retina(args, when):
+    """Kernel vs plain on one retina march's inputs (pairs, cam, t_now,
+    params): s_first bit-equal.  The kernel alone is timed warm (the 0.3 MB
+    of pairs, as a frame finds them right after the compaction wrote them),
+    beside the wrapper's whole call (ray directions and fill included) and
+    the plain march.  Returns (max abs err, kernel ms, plain ms, (bound_ms,
+    bound_by))."""
+    from spacetime_tpu_torch.ops import raytrace, retina_cuda
+
+    pairs, cam, t_now, params = args
+    theta = raytrace._ray_angles(params.num_rays, pairs.pdata.device)
+    dhx, dhy = torch.cos(theta), torch.sin(theta)
+    out = torch.full_like(dhx, raytrace._BIG)
+    run_kernel = lambda: retina_cuda.launch(pairs, dhx, dhy, cam, t_now, params, out)
+    run_call = lambda: retina_cuda.retina_march(pairs, cam, t_now, params)
+    run_plain = lambda: retina_cuda.retina_march_plain(pairs, cam, t_now, params)
+    ours, plain = run_call(), run_plain()
+    err = (ours.double() - plain.double()).abs().max().item()
+    hits = int((plain < np.float32(raytrace._BIG)).sum())
+    ms, call_ms = cuda_ms(run_kernel), cuda_ms(run_call)
+    plain_ms = cuda_ms(run_plain, reps=5)
+    bnd = retina_bound(pairs, params)
+    print(f"retina check ({when}): {params.num_rays} rays x {pairs.pdata.shape[0]} pair rows "
+          f"({int(pairs.pair_valid.sum())} valid), {hits} rays hit, max abs err {err:.3e} "
+          f"(bit-equal required); kernel {ms:.4f} ms warm ({call_ms:.4f} the whole call), "
+          f"plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), roofline "
+          f"{100 * bnd[0] / ms:.1f}%")
+    if not torch.equal(ours, plain) or not torch.equal(out, plain) or hits == 0:
+        raise AssertionError(f"retina kernel differs from plain (max abs err {err}) or no ray "
+                             f"hits ({hits})")
     return err, ms, plain_ms, bnd
 
 
@@ -706,8 +790,8 @@ def check_graph_vs_eager(device):
           f"graph {ms_g:.4f} ms, eager {ms_a:.4f} ms; graph drop counters summed over the "
           f"run {drops}")
     if counts["collision"] != 4 * FRAMES or counts["band"] != FRAMES \
-            or counts["pixel_pass"] != FRAMES:
-        raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x {FRAMES}")
+            or counts["pixel_pass"] != FRAMES or counts["retina_march"] != FRAMES:
+        raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x / 1x {FRAMES}")
     if (stats["captures"], stats["replays"]) != (1, FRAMES - 1):
         raise AssertionError(f"graph run {stats}: expected one capture and {FRAMES - 1} replays")
     if not eager_diff:
@@ -785,11 +869,12 @@ def run_bench():
 
 
 def check_engine_kernels(eng):
-    """The band and pixel kernels against plain on the Engine's final state,
-    at the render params its last frame used (boosted band and bin capacity,
-    view-derived max_age, ladder cell size; instant mode's opaque=False,
-    retarded=False; the camera-frame flag).  Returns {kernel name: (max abs
-    err, ms, plain ms, bound)}."""
+    """The band, retina and pixel kernels against plain on the Engine's
+    final state, at the render params its last frame used (boosted band and
+    bin capacity, view-derived max_age, ladder cell size; instant mode's
+    opaque=False, retarded=False; the camera-frame flag); the retina where
+    the frame marches one (retarded and opaque).  Returns {kernel name: (max
+    abs err, ms, plain ms, bound)}."""
     cfg = eng.config
     p = eng._render_params()
     when = f"engine {cfg.render_mode}, final state"
@@ -798,6 +883,10 @@ def check_engine_kernels(eng):
         p = dataclasses.replace(p, opaque=False, retarded=False)
     else:
         errs["band"] = check_band(eng.worldline, eng.camera, p, when)
+    if p.opaque and p.retarded:
+        errs["retina_march"] = check_retina(frame_retina(
+            eng.worldline, eng.particles, eng.objects, eng.camera, p, cfg.width, cfg.height),
+            when)
     errs["pixel_pass"] = check_pixel(eng.particles, eng.objects, eng.worldline, eng.camera, p,
                                      cfg.width, cfg.height, when)
     return errs
@@ -1336,11 +1425,13 @@ def refdemo_frame(device):
     band 4, `splat_cells=4`, rank compaction) as the fused frame:
     REFDEMO_COMPARE_FRAMES graph frames bit-equal to the same stages run
     eagerly from a copy of the start state; then, with the launch counts
-    reset, REFDEMO_FRAMES graph frames: 4 collision, 1 band and 1 pixel
-    launch a frame, every drop counter summed over them 0 (segment_dropped
-    included) and the pairs within pair_budget; then the pixel, band and
-    collision kernels against plain on the final state.  Returns (state,
-    model, objects, params, {kernel: (err, ms, plain ms, bound)}, launches)."""
+    reset, REFDEMO_FRAMES graph frames: 4 collision, 1 band, 1 retina and 1
+    pixel launch a frame, every drop counter summed over them 0
+    (segment_dropped included) and the pairs within pair_budget; then the
+    pixel, band, collision and retina kernels (the retina at the
+    refdemo_116k cell's 16,384 rows) against plain on the final state.
+    Returns (state, model, objects, params, {kernel: (err, ms, plain ms,
+    bound)}, launches)."""
     from spacetime_tpu_torch import fused, headline, kernels
 
     t0 = time.perf_counter()
@@ -1388,8 +1479,9 @@ def refdemo_frame(device):
     if unequal:
         raise AssertionError(f"refdemo graph frames differ from eager ones in {unequal}")
     if (counts["collision"] != 4 * REFDEMO_FRAMES or counts["band"] != REFDEMO_FRAMES
-            or counts["pixel_pass"] != REFDEMO_FRAMES):
-        raise AssertionError(f"refdemo launches {counts}, expected 4x / 1x / 1x {REFDEMO_FRAMES}")
+            or counts["pixel_pass"] != REFDEMO_FRAMES or counts["retina_march"] != REFDEMO_FRAMES):
+        raise AssertionError(f"refdemo launches {counts}, expected 4x / 1x / 1x / 1x "
+                             f"{REFDEMO_FRAMES}")
     if any(drops.values()) or pairs > params.pair_budget:
         raise AssertionError(f"refdemo drops {drops}, pairs {pairs} of {params.pair_budget}")
     if not torch.isfinite(img).all() or occupied <= 0.0 or not torch.isfinite(p.pos).all():
@@ -1399,7 +1491,11 @@ def refdemo_frame(device):
     errs = {"pixel_pass": check_pixel(p, objects, state.buf, cam, params, headline.WIDTH,
                                       headline.HEIGHT, when),
             "band": check_band(state.buf, cam, params, when),
-            "collision": time_collision(p, model)}
+            "collision": time_collision(p, model),
+            # at the benchmark's refdemo_116k retina: 4,096 rays x 16,384 rows
+            "retina_march": check_retina(frame_retina(
+                state.buf, p, objects, cam, dataclasses.replace(params, retina_budget=16384),
+                headline.WIDTH, headline.HEIGHT), f"{when}, retina_budget 16384")}
     return state, model, objects, params, errs, counts
 
 
@@ -1530,7 +1626,8 @@ def engine_conical(device):
     t0 = time.perf_counter()
     eng, _, summary = engine_via_cli(
         ["--config", "conical_defect", "--frames", str(CONICAL_FRAMES), "--stats"],
-        CONICAL_FRAMES, {"collision": 4, "band": 1}, drops="gate_after_boost")
+        CONICAL_FRAMES, {"collision": 4, "band": 1, "retina_march": 2},
+        drops="gate_after_boost")
     unequal = graph_vs_eager(eng)
     band = check_band(eng.worldline, eng.camera, eng._render_params(),
                       "engine conical_defect, final state, route 1")
@@ -1564,7 +1661,7 @@ def engine_selfgravity(device):
     t0 = time.perf_counter()
     eng, _, summary = engine_via_cli(
         ["--config", "selfgravity", "--frames", str(SELFGRAVITY_FRAMES), "--stats"],
-        SELFGRAVITY_FRAMES, {"collision": 4, "band": 1}, drops="report")
+        SELFGRAVITY_FRAMES, {"collision": 4, "band": 1, "retina_march": 3}, drops="report")
     cfg, params = eng.config, eng._render_params()
     captures = eng.graph_stats["captures"]
     used = eng._fused_frame_fn(params).stages["render"].defects
@@ -1753,7 +1850,7 @@ def engine_aloof(device):
     # moved to the front, the padded lattice's bonds lose their constant
     # offsets: the row-gather physics, the bond-excluding collision variant
     coll = "collision" if eng.model.spring_offsets is not None else "collision_exclude"
-    want = with_step({coll: 4, "band": 1, "pixel_pass": 1})
+    want = with_step({coll: 4, "band": 1, "pixel_pass": 1, "retina_march": 1})
     g = eng.graph_stats
     keys = len(eng._fused_cache)
     if any(counts[k] != want.get(k, 0) * ALOOF_FRAMES for k in counts) \
@@ -1843,7 +1940,7 @@ def io_png_demo(tmp):
     if names != want or unequal or lit <= 0.0:
         raise AssertionError(f"png_demo frames: {names}, unequal at {unequal}, lit {lit}")
     if counts != {**{k: 0 for k in counts}, **{k: v * IO_PNG_FRAMES for k, v in with_step(
-            {"collision": 4, "band": 1, "pixel_pass": 1}).items()}}:
+            {"collision": 4, "band": 1, "pixel_pass": 1, "retina_march": 1}).items()}}:
         raise AssertionError(f"png_demo launches {counts}")
     return counts
 
@@ -2020,8 +2117,10 @@ def io_realtime():
 
 
 def io_capacity():
-    """(e): the capacity row with its frame, then band and pixel kernels
-    against plain on its final state; returns its launches and checks."""
+    """(e): the capacity row with its frame, then band, pixel and retina
+    kernels against plain on its final state (the retina at 4,096 rays x
+    16,384 rows, as in the capacity_2p20 cells); returns its launches and
+    checks."""
     from spacetime_tpu_torch import bench, fused, headline
 
     t0 = time.perf_counter()
@@ -2036,12 +2135,15 @@ def io_capacity():
     pix = check_pixel(state.particles, objects, state.buf, cam, params,
                       headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT,
                       "capacity, after its frames")
-    return counts, band[0], pix[0]
+    retina = check_retina(frame_retina(state.buf, state.particles, objects, cam, params,
+                                       headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT),
+                          "capacity, after its frames")
+    return counts, band[0], pix[0], retina
 
 
 def io_phase():
     """Phases (a)-(e) (see the module docstring): {path: launches}, the
-    band and pixel errors at 2^20."""
+    band and pixel errors and the retina check at 2^20."""
     import shutil
     import tempfile
 
@@ -2057,12 +2159,12 @@ def io_phase():
         io_sink_costs(frame, tmp)
         launches["record_replay"] = io_replay(tmp)
         launches["realtime"] = io_realtime()
-        launches["capacity"], band_err, pix_err = io_capacity()
+        launches["capacity"], band_err, pix_err, retina = io_capacity()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"io phase: {time.perf_counter() - t0:.2f} s; native sink builds failed: "
           f"{native.build_errors or 'none'}")
-    return launches, band_err, pix_err
+    return launches, band_err, pix_err, retina
 
 
 def _shares(n: int, parts: int):
@@ -2233,7 +2335,8 @@ def mesh_aloof(cfg, mesh, device):
                      object_index=2)
     # the repacked lattice takes the row-gather physics (engine_aloof)
     meshed, counts, summary, single_summary = _mesh_vs_single(
-        cfg, mesh, device, MESH_FRAMES, {"collision_exclude": 4, "band": 1, "pixel_pass": 1},
+        cfg, mesh, device, MESH_FRAMES,
+        {"collision_exclude": 4, "band": 1, "pixel_pass": 1, "retina_march": 1},
         aloof_bodies=[body])
     lo, hi = meshed._aloof_slice
     full = sharding.gather_particles(meshed.particles, mesh, meshed._n_full)
@@ -2275,8 +2378,9 @@ def mesh_phase(device):
     try:
         mesh = mesh_mod.make_mesh()
         cfg = get_config("flagship_1080p")
-        meshed, counts, _, _ = _mesh_vs_single(cfg, mesh, device, MESH_FRAMES,
-                                               {"collision": 4, "band": 1, "pixel_pass": 1})
+        meshed, counts, _, _ = _mesh_vs_single(
+            cfg, mesh, device, MESH_FRAMES,
+            {"collision": 4, "band": 1, "pixel_pass": 1, "retina_march": 1})
         unequal = graph_vs_eager(meshed)
         del meshed
         # the collectives of one eager mesh frame (the graphs replay the same)
@@ -2294,7 +2398,7 @@ def mesh_phase(device):
                 (dataclasses.replace(cfg, render_mode="points"), "points", MESH_FRAMES,
                  {"collision": 4, "points": 1}),
                 (get_config("conical_defect"), "conical", MESH_CONICAL_FRAMES,
-                 {"collision": 4, "band": 1})):
+                 {"collision": 4, "band": 1, "retina_march": 2})):
             meshed, c_counts, _, _ = _mesh_vs_single(c, mesh, device, frames, expect)
             del meshed
             for k, v in c_counts.items():
@@ -2350,14 +2454,15 @@ def main() -> int:
     # just before it)
     eng, _, fused_summary = engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats"],
-        ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1})
+        ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
     retarded_errs = check_engine_kernels(eng)
     check_profile_stages(eng)
     check_views(eng)
     del eng
     eng, _, timed_summary = engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats",
-         "--stage-timing"], ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1})
+         "--stage-timing"], ENGINE_FRAMES,
+        {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
     del eng
     print(f"flagship_1080p, {ENGINE_FRAMES} frames: frame_avg_ms fused (CUDA graphs) "
           f"{fused_summary['frame_avg_ms']:.4f} (median {fused_summary['frame_median_ms']:.4f}), "
@@ -2378,7 +2483,8 @@ def main() -> int:
     # the paths of this slice, each with its launch counts reset just before
     eng, boosted_counts, _ = engine_via_cli(
         ["--config", "boosted_observer", "--frames", str(BOOSTED_FRAMES), "--stats"],
-        BOOSTED_FRAMES, {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1},
+        BOOSTED_FRAMES,
+        {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1, "retina_march": 1},
         drops="gate")
     boosted_errs = check_engine_kernels(eng)
     SHARD_MS["pixel_pass_camera_frame"] = check_pixel_bands(
@@ -2393,7 +2499,7 @@ def main() -> int:
     del eng
     eng, _, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
                              "--stats"], PLASTIC_FRAMES,
-                            {"collision": 4, "pixel_pass": 1, "band": 1})
+                            {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
     check_plastic(eng)
     del eng
     cf_err = max(cf_err, big_cf_err)
@@ -2437,7 +2543,7 @@ def main() -> int:
         + f", together {sum(r[3] for r in btz_runs.values()):.2f} s")
 
     # the paths of this slice: I/O and tooling
-    io_launches, io_band_err, io_pix_err = io_phase()
+    io_launches, io_band_err, io_pix_err, retina_2p20 = io_phase()
     band_err = max(band_err, io_band_err)
     pix_err = max(pix_err, io_pix_err)
 
@@ -2476,12 +2582,21 @@ def main() -> int:
                       ("step_finish", "step_finish")):
         rows.append(record(name, "step.cu", "none: the JAX step's plain jnp chain",
                            counts[key], *step_rows[name]))
+    # the retina march replaces no TPU kernel; its times are at the retarded
+    # cells' 4,096 rays x 16,384 rows, on the refdemo state and on the 2^20
+    # capacity state; its launches the headline main path's
+    for name, res in (("retina_march", rd_errs["retina_march"]),
+                      ("retina_march_2p20", retina_2p20)):
+        row = record(name, "retina.cu", "none: the JAX package's plain jnp _retina "
+                     "(spacetime_tpu/ops/raytrace.py:1373)", counts["retina_march"], *res)
+        row["roofline"] = res[3][0] / res[1]
+        rows.append(row)
     # the I/O phase's launches by path and the mesh phase's, beside each
     # kernel's main-path count; the share launches' times beside the whole
     # launch's (the band kernel runs unchanged on a rank's ring columns)
     for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
                                "collision_exclude", "pixel_pass_camera_frame", "bond_stage",
-                               "step_finish", "step_finish")):
+                               "step_finish", "step_finish", "retina_march", "retina_march")):
         row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
         row["launches_mesh"] = mesh_counts[key]
         whole, shares = SHARD_MS.get(row["name"], (None, None))

@@ -15,10 +15,11 @@ so kernel-vs-plain checks on the card compare like with like.
 launches its kernel and nowhere else; `reset_launch_counts` zeroes them.
 A kernel's variants count apart: `collision` (bonded pairs included) and
 `collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`; the step's
-`bond_stage` (one a force evaluation) and `step_finish` (one a step).  A CUDA
-graph capture (fused.py) runs the wrappers but launches nothing: the counts
-it makes are taken back out (`held_apart`) and added once per replay of the
-graph (`add_launches`), so the counts stay those of kernels that ran.
+`bond_stage` (one a force evaluation) and `step_finish` (one a step);
+`retina_march` (one an occlusion retina).  A CUDA graph capture (fused.py)
+runs the wrappers but launches nothing: the counts it makes are taken back
+out (`held_apart`) and added once per replay of the graph (`add_launches`),
+so the counts stay those of kernels that ran.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu", "step.cu")
+SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu", "step.cu", "retina.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "spacetime_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,7 +44,7 @@ NVCC_FLAGS = (
 
 launches = {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
             "pixel_pass_camera_frame": 0, "band": 0, "points": 0, "bond_stage": 0,
-            "step_finish": 0}
+            "step_finish": 0, "retina_march": 0}
 
 
 class BondStageArgs(ctypes.Structure):
@@ -183,6 +184,8 @@ def library() -> ctypes.CDLL:
     lib.points_winner_launch.restype = ci
     lib.points_resolve_dense_launch.argtypes = [vp, vp, vp, ci, ci, vp, vp]
     lib.points_resolve_dense_launch.restype = ci
+    lib.retina_march_launch.argtypes = [vp, ci, vp, ci, vp, vp, ci, vp, vp, cf, cf, cf, vp, vp]
+    lib.retina_march_launch.restype = ci
     lib.step_struct_sizes.argtypes = [ctypes.POINTER(ci)]
     lib.step_struct_sizes.restype = ci
     sizes = (ci * 2)()

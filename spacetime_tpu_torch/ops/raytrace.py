@@ -16,7 +16,8 @@ Per frame (`render_retarded`):
      place: each particle's newest segment only, and no occlusion.
   2. compaction to `pair_budget`; with a boundary mask, boundary pairs go to
      the front so the occlusion retina reads a prefix of `retina_budget`.
-  3. `_retina`: the first hit per angle over the retina pairs.
+  3. `_retina`: the first hit per angle over the retina pairs (ops/
+     retina_cuda.py: a CUDA kernel on the card, a chunked march on the CPU).
   4. `_splat_csr`: every pair splats into the view cells (k x k pixel
      blocks) its capsule can reach; a stable sort on (cell, quantized
      distance) keys yields a per-cell CSR of entries, nearest first,
@@ -49,9 +50,10 @@ order), and `_cell_pixel_coords`, `_occupancy_cells`, `_field_at` and
 `_assemble_image` test every pixel of a cell against its table, in blocks
 of cells (`ROUTE_PASS_ELEMENTS`).
 
-Steps 1 (on the Euclidean route) and 5 have CUDA kernels; the compaction,
-retina, splat, the route pass and the retina mode's march are plain torch
-on every device (in the JAX package they are XLA, not Pallas).
+Steps 1 (on the Euclidean route), 3 (ops/retina_cuda.py) and 5 have CUDA
+kernels; the compaction, splat, the route pass and the retina mode's march
+are plain torch on every device (in the JAX package they are XLA, not
+Pallas).
 
 On a mesh (`mesh`, parallel/; the JAX render under GSPMD,
 `spacetime_tpu/ops/raytrace.py:196-199, 1612-1613, 1671`) the ring holds
@@ -76,7 +78,7 @@ from ..constants import C2
 from ..parallel import comm
 from ..state import Objects
 from ..utils.profiling import spanned
-from . import band_cuda, boost, render_cuda
+from . import band_cuda, boost, render_cuda, retina_cuda
 from .worldline import WorldlineBuffer, newest_time, row_at_age
 
 _BIG = 3.0e38
@@ -699,25 +701,10 @@ def _ray_angles(n_rays: int, device):
 
 @spanned("retina march")
 def _retina(pairs: PairData, cam: Camera, t_now, params: RenderParams):
-    """First-hit arclength per angle over all pairs: s_first (num_rays,)."""
-    dt, rho = params.dt, params.rho
-    dev = pairs.pdata.device
-    theta = _ray_angles(params.num_rays, dev)
-    dhx = torch.cos(theta)[:, None]
-    dhy = torch.sin(theta)[:, None]
-    pd = pairs.pdata
-    s_first = torch.full((params.num_rays,), _BIG, dtype=torch.float32, device=dev)
-    for a in range(0, pd.shape[0], params.ray_chunk):
-        c = pd[a:a + params.ray_chunk]
-        hit, s_hit = _ray_hit_xy(
-            cam.pos[0], cam.pos[1], dhx, dhy,
-            c[None, :, _F_AX], c[None, :, _F_AY], c[None, :, _F_BX],
-            c[None, :, _F_BY], c[None, :, _F_TA], t_now, dt, rho,
-        )
-        ok = hit & pairs.pair_valid[None, a:a + params.ray_chunk]
-        s_hit = torch.where(ok, s_hit, _BIG)
-        s_first = torch.minimum(s_first, s_hit.amin(dim=1))
-    return s_first
+    """First-hit arclength per angle over all pairs: s_first (num_rays,)
+    (ops/retina_cuda.py: a CUDA kernel on the card, a chunked march on the
+    CPU)."""
+    return retina_cuda.retina_march(pairs, cam, t_now, params)
 
 
 def _occlusion_ds(params: RenderParams) -> int:

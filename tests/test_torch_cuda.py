@@ -23,7 +23,7 @@ from spacetime_tpu_torch.camera import Camera
 from spacetime_tpu_torch.constants import DEFAULT_PARAMS as P
 from spacetime_tpu_torch.models.softbody import SoftbodyModel, default_bin_resolution
 from spacetime_tpu_torch.ops import (band_cuda, forces, forces_cuda, grid, points_cuda, raytrace,
-                                     render_cuda, rk4, step_cuda)
+                                     render_cuda, retina_cuda, rk4, step_cuda)
 from spacetime_tpu_torch.ops import worldline as wl
 
 CD, REP = P.collision_distance, P.collision_repulsion_coefficient
@@ -118,6 +118,10 @@ def test_wrappers_refuse_other_devices():
         band_cuda.cone_band_window(buf.to("meta"), _params(), cam)
     with pytest.raises(ValueError, match="unsupported device"):
         points_cuda.render_points(p.to("meta"), objects, cam, 48, 32)
+    pairs, rcam, t_now, rparams = _retina_case("cells", "cpu", shrink=16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        retina_cuda.retina_march(pairs._replace(pdata=pairs.pdata.to("meta")), rcam, t_now,
+                                 rparams)
     planes, gpos, coll = _stage_inputs("cpu", "shifted", "none", "slot", False)
     with pytest.raises(ValueError, match="unsupported device"):
         rk4.bond_stage(planes, P, gpos.to("meta"), coll, None, 0)
@@ -488,6 +492,114 @@ def test_band_kernel_cases(cuda_device, case):
         assert int(plain.truncated) > 0
 
 
+# the occlusion retina's cases: (num_rays, pair rows) at the retarded cells'
+# shapes (num_rays 4096, retina_budget 16384), ragged pair and ray counts,
+# and rows that no ray may hit
+RETINA_CASES = {
+    "cells": (4096, 16384), "pairs_1": (4096, 1), "pairs_8193": (4096, 8193),
+    "pairs_12345": (4096, 12345), "rays_1000": (1000, 16384), "all_invalid": (4096, 16384),
+    "far_sentinels": (4096, 16384), "behind_cone": (4096, 16384), "empty": (4096, 0),
+    "valid_prefix": (4096, 16384),
+}
+RETINA_T_NOW = 1.25
+
+
+def _retina_case(case, device, shrink=1):
+    """(pairs, cam, t_now, params) of RETINA_CASES[case], both counts cut by
+    `shrink`: pair rows on the camera's past light cone (each a capsule a
+    ray can hit), a tenth of them invalid.  `all_invalid` flags every row
+    invalid; `far_sentinels` makes a third of the rows the compaction's
+    2e9 sentinels, half of those flagged valid; `behind_cone` moves a third
+    to within rho of the camera at ta >= t_now (s_hit <= 0); `valid_prefix`
+    keeps only the first 1,126 rows valid, as a frame's retina holds its
+    boundary pairs (capacity_2p20.retarded's count)."""
+    n_rays, rows = RETINA_CASES[case]
+    n_rays, rows = max(1, n_rays // shrink), -(-rows // shrink)
+    rng = np.random.default_rng(sum(map(ord, case)))
+    cx, cy = 0.38, 0.41
+    d = rng.uniform(0.02, 1.0, rows)
+    phi = rng.uniform(-np.pi, np.pi, rows)
+    ax = cx + d * np.cos(phi) + rng.normal(0.0, 0.002, rows)
+    ay = cy + d * np.sin(phi) + rng.normal(0.0, 0.002, rows)
+    ta = RETINA_T_NOW - d - rng.uniform(0.0, H, rows)
+    vx, vy = rng.uniform(-0.6, 0.6, (2, rows))
+    valid = rng.random(rows) >= 0.1
+    if case == "behind_cone":
+        back = rng.random(rows) < 1 / 3
+        ax[back] = cx + rng.uniform(-0.001, 0.001, back.sum())
+        ay[back] = cy + rng.uniform(-0.001, 0.001, back.sum())
+        ta[back] = RETINA_T_NOW + rng.uniform(0.0, 0.3, back.sum())
+        ta[np.flatnonzero(back)[:8]] = RETINA_T_NOW
+    pdata = np.stack([ax, ay, ax + vx * H, ay + vy * H, ta, vx, vy,
+                      *rng.random((3, rows))], axis=1).astype(np.float32)
+    if case == "all_invalid":
+        valid[:] = False
+    if case == "valid_prefix":  # a frame's boundary pairs: a short valid prefix
+        valid = np.arange(rows) < max(1, 1126 // shrink)
+    if case == "far_sentinels":
+        far = rng.random(rows) < 1 / 3
+        pdata[far] = 2.0e9
+        valid[far] = rng.random(far.sum()) < 0.5
+    pairs = raytrace.PairData(pdata=torch.from_numpy(pdata).to(device),
+                              pair_valid=torch.from_numpy(valid).to(device),
+                              n_pairs=torch.tensor(int(valid.sum()), device=device))
+    cam = Camera.create(pos=(cx, cy), zoom=0.15, device=device)
+    t_now = torch.tensor(RETINA_T_NOW, dtype=torch.float32, device=device)
+    params = raytrace.RenderParams(dt=H, num_rays=n_rays, ray_chunk=8192 // shrink)
+    return pairs, cam, t_now, params
+
+
+def _retina_expected(case, s_first):
+    """What each case must show: no hit at all where no row can be hit, a
+    hit on most rays where thousands of rows can (some with the short
+    prefix); every hit ahead of the camera (s > 0)."""
+    big = torch.tensor(raytrace._BIG, dtype=torch.float32)
+    hits = s_first.cpu() < big
+    assert bool((s_first.cpu()[hits] > 0).all())
+    if case in ("all_invalid", "empty"):
+        assert not hits.any()
+    elif case == "valid_prefix":
+        assert hits.any()
+    elif case != "pairs_1":
+        assert hits.float().mean() > 0.5, hits.float().mean()
+
+
+@pytest.mark.parametrize("case", list(RETINA_CASES))
+def test_retina_takes_the_plain_path_on_cpu(case):
+    """CPU tensors: _retina is the plain march, no kernel launch is
+    counted, and the march's chunking does not change a bit (the kernel's
+    pair slices rely on that: a minimum is exact in any order)."""
+    pairs, cam, t_now, params = _retina_case(case, "cpu", shrink=16)
+    kernels.reset_launch_counts()
+    ours = raytrace._retina(pairs, cam, t_now, params)
+    assert kernels.launches["retina_march"] == 0
+    rows = pairs.pdata.shape[0]
+    for chunk in (1 if rows < 64 else 37, max(1, rows)):
+        whole = retina_cuda.retina_march_plain(pairs, cam, t_now,
+                                               dataclasses.replace(params, ray_chunk=chunk))
+        assert torch.equal(ours, whole), chunk
+    assert ours.shape == (params.num_rays,) and ours.dtype == torch.float32
+    _retina_expected(case, ours)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RETINA_CASES))
+def test_retina_kernel_matches_plain(cuda_device, case):
+    """Bit-equal to the plain march on the same card (csrc/retina.cu rounds
+    every operation as torch does), one launch a retina, and a second
+    launch bit-equal too (the slices' atomic minimum in another order)."""
+    pairs, cam, t_now, params = _retina_case(case, cuda_device)
+    kernels.reset_launch_counts()
+    ours = raytrace._retina(pairs, cam, t_now, params)
+    again = retina_cuda.retina_march(pairs, cam, t_now, params)
+    assert kernels.launches["retina_march"] == 2
+    plain = retina_cuda.retina_march_plain(pairs, cam, t_now, params)
+    differs = (ours != plain).nonzero().flatten()[:8].tolist()
+    assert torch.equal(ours, plain), (differs, ours[differs].tolist(), plain[differs].tolist())
+    assert torch.equal(again, ours)
+    _retina_expected(case, plain)
+
+
 def _scratch_clean(device, width, height) -> bool:
     winner, mask = points_cuda.scratch(torch.device(device), torch.cuda.current_stream().cuda_stream,
                                        width, height)
@@ -623,8 +735,9 @@ def test_fused_graph_replays_bit_equal_to_eager(cuda_device, spf):
     state: positions, velocities, bonds, ring, clock, images and counters
     bit-equal (every kernel is deterministic); one capture, then replays,
     with the launches of each replayed graph counted (4 collision, 4
-    bond_stage and 1 step_finish a tick, 1 band and 1 pixel pass a
-    frame)."""
+    bond_stage and 1 step_finish a tick, 1 band, 1 retina march and 1
+    pixel pass a frame; the retina reads t_now, which moves every frame,
+    on the device)."""
     state, model, objects = _fused_state(cuda_device)
     other = fused.copy_state(state)
     params = _params()
@@ -640,7 +753,7 @@ def test_fused_graph_replays_bit_equal_to_eager(cuda_device, spf):
     assert graph.stats["capture_s"] > 0
     assert counts["collision"] == 4 * spf * frames and counts["band"] == frames
     assert counts["bond_stage"] == 4 * spf * frames and counts["step_finish"] == spf * frames
-    assert counts["pixel_pass"] == frames
+    assert counts["pixel_pass"] == frames and counts["retina_march"] == frames
     for (img, ctr), (img2, ctr2) in zip(outs, want):
         assert torch.equal(img, img2) and torch.equal(ctr, ctr2)
     assert outs[0].__class__ is tuple and outs[0][0].data_ptr() != outs[1][0].data_ptr()
