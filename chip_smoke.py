@@ -1,6 +1,13 @@
-"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU: a pass/fail gate.
 
     python3 chip_smoke.py
+
+It reads no kernel or frame time: kernel times and bounds come from
+`python3 -m spacetime_tpu_torch.compare_kernels`, frame times from the
+benchmark (`python3 -m benchmark.run`).  Beside the build's seconds, the
+one time it prints, ungated, is the sinks' host cost per submit, which no
+other tool reads (io_sink_costs); the realtime phase holds the pacing to
+its budget.
 
 Builds the CUDA kernels of `spacetime_tpu_torch/csrc/` (one nvcc per
 source, in parallel) and checks each against its plain-torch version at
@@ -27,8 +34,7 @@ just after:
     each displacement fold equal to the plain amax, the first
     evaluation's broken bonds (some, not all) and crept rest lengths
     (some) exactly the plain break's and creep's, step_finish within f32
-    roundings of the plain combine; each kernel's time beside its bound
-    and the plain chain's.
+    roundings of the plain combine.
     Every launch count below that names collision launches a frame also
     expects as many bond_stage launches and a quarter as many step_finish
     launches (`with_step`);
@@ -45,8 +51,8 @@ just after:
     otherwise: `flagship_1080p` in retarded mode for ENGINE_FRAMES frames
     (the discs meet near frame 120 at a 0.9c closing speed), then
     `profile_stages` (per-stage device times must be > 0), and again with
-    `--stage-timing` (eager frames, CUDA-event stage times > 0), the two
-    frame times printed side by side; in instant mode for INSTANT_FRAMES
+    `--stage-timing` (eager frames, CUDA-event stage times > 0); in
+    instant mode for INSTANT_FRAMES
     frames; after each run the band (retarded only), retina (retarded and
     opaque: bit-equal) and pixel kernels are held against plain on the
     Engine's final state at the render params it chose (its adapted band and
@@ -56,7 +62,6 @@ just after:
   * the fused Engine's graph cache on `flagship_1080p`: zooms on four rungs
     of the cell ladder capture four keys, a revisit replays, a fifth zoom
     evicts the oldest; device memory peaks with one and with four;
-  * the bench (spacetime_tpu_torch/bench.py), once, its JSON line printed;
   * the Engine in points mode on the reference demo scene
     (headline.refdemo_config: 116,178 particles at capacity 149,248,
     1920x1080) for POINTS_FRAMES frames, its last frame bit-equal to the
@@ -94,7 +99,7 @@ just after:
     frames with 4 / 1 / 1 / 1 launches a frame (collision, band, retina,
     pixel), every drop counter 0 (segment_dropped included) and the pairs
     within pair_budget; then the pixel, band and collision kernels against
-    plain on its final state, and the retina kernel (bit-equal, timed) at
+    plain on its final state, and the retina kernel (bit-equal) at
     the refdemo_116k cell's 4,096 rays x 16,384 rows;
     then, at that scale, the compacted frame against the uncompacted one
     under the pixel gate, and the drops at the reference demo's segments=2;
@@ -153,14 +158,17 @@ just after:
     limit, with the StreamSink's path printed; (c) `bench --record` then
     `--replay` of `flagship_1080p` over IO_REPLAY_FRAMES frames of the
     bench's scripted keys: final particles, ring and last image bit-equal
-    between the two Engines, their captures and fps printed; (d)
+    between the two Engines, their captures printed; (d)
     `--realtime` on `png_demo` at a live max_fps of IO_REALTIME_FPS:
     IO_REALTIME_FRAMES frames take at least IO_REALTIME_FRAMES / fps
-    (less 10%); (e) `bench --scene capacity --frame` (2^20 particles,
-    headline.build_capacity): steps/s, the frame's ms and device ms by
-    stage, every drop counter and the kernels' launches, then the band,
-    pixel and retina kernels against plain on its final state (the retina
-    at the capacity_2p20 cells' 4,096 rays x 16,384 rows);
+    (less 10%); (e) the 2^20 capacity scene's fused frame
+    (checks.capacity_frames: headline.build_capacity, CAPACITY_STEPS
+    steps, the ring prefilled again, CAPACITY_FRAMES frames): every drop
+    counter summed over the frames 0, the pairs within pair_budget and the
+    kernels' launches printed, then the band, pixel and retina kernels
+    against plain on its final state (the retina at the capacity_2p20
+    cells' 4,096 rays x 16,384 rows); beside (b), the sinks' host cost
+    per submit at 1080p is printed, ungated (io_sink_costs);
   * the mesh phase (mesh_phase): a one-rank NCCL process group (TCP store
     on a free loopback port) and `Engine(flagship_1080p, mesh=...)` for
     MESH_FRAMES fused frames, its collectives (the step's gathers and
@@ -187,24 +195,15 @@ just after:
     after the main path, both variants), the pixel kernel over 2 and 4
     bands of cell rows (headline and boosted_observer's camera-frame
     branch), and the points kernel's winner pass over 2 and 4 particle
-    blocks, MIN-reduced and resolved (the refdemo points state); each
-    share's launch time is printed beside the whole launch's, and the JSON
-    line carries them as `shard_ms`.
+    blocks, MIN-reduced and resolved (the refdemo points state).
 
-Kernel times come from `spacetime_tpu_torch.utils.timing.cuda_ms`, which
-keeps the host's enqueue out of the reading (a device spin covers it);
-every kernel, plain and library reading uses it.  The band kernel is
-timed with the L2 evicted before each call, as a frame finds its ring.
-The card's launch floor, a trivial kernel timed the same way, is printed
-on a line of its own.  The collision inputs at RK4 stage 3 and the
-kernel-vs-plain comparisons are spacetime_tpu_torch/checks.py's, which
-compare_kernels uses too.
+The collision inputs at RK4 stage 3, the retina inputs of a frame, the
+2^20 state and the kernel-vs-plain comparisons are
+spacetime_tpu_torch/checks.py's, which compare_kernels uses too.
 
-Output: one line per phase, then a JSON line of per-kernel results (each
-with its bound: the larger of the bytes it must move over 3.35 TB/s and
-its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks of
-spacetime_tpu_torch/utils/roofline.py, from this run's inputs), the card's
-name and power limit from nvidia-smi, and as the last line
+Output: one line per phase, then a JSON line of per-kernel results (the
+launches of each path, the largest error against plain), the card's name
+and power limit from nvidia-smi, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit, no
 result line).  Needs CUDA: without it the script exits 1.
 """
@@ -219,11 +218,11 @@ import time
 import numpy as np
 import torch
 
-from spacetime_tpu_torch.checks import (BAND_FIELDS, PIXEL_SHARE, PIXEL_TOL, band_unequal,
-                                        collision_error, collision_inputs, pixel_inputs,
-                                        pixel_share)
+from spacetime_tpu_torch.checks import (BAND_FIELDS, CAPACITY_FRAMES, PIXEL_SHARE, PIXEL_TOL,
+                                        band_unequal, capacity_frames, collision_error,
+                                        collision_inputs, frame_retina, pixel_inputs,
+                                        pixel_share, step_planes)
 from spacetime_tpu_torch.device import card_line
-from spacetime_tpu_torch.utils.timing import cuda_ms, launch_floor_ms
 
 FRAMES = 200  # the discs meet at about frame 170
 REFDEMO_FRAMES = 60  # fused refdemo frames (the discs meet near frame 350)
@@ -260,94 +259,9 @@ IO_REALTIME_FRAMES, IO_REALTIME_FPS = 15, 30.0
 IO_TIMEOUT = 5.0  # seconds, every client socket of the served run
 MESH_FRAMES = 60  # flagship_1080p on a one-rank NCCL mesh (retarded, then points)
 MESH_CONICAL_FRAMES = 20  # conical_defect on that mesh
-# kernel name -> (whole launch ms, {parts: [ms of each share's launch]}),
-# filled by the share checks for the JSON line
-SHARD_MS = {}
 SHARES = (2, 4)  # ranks a kernel's work is split over in the share checks
 # flagship_1080p zooms on the cell ladder's rungs 16 (its own), 8, 24, 32, 48
 LADDER_ZOOMS = (1.2, 2.4, 0.6, 0.4, 0.25)
-
-
-def bound(nbytes: float, nops: float):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that must move `nbytes` and do `nops` f32 operations, at the H100 SXM's
-    published peaks (utils/roofline.py)."""
-    from spacetime_tpu_torch.utils.roofline import Roofline
-
-    r = Roofline(flops=nops, bytes_accessed=nbytes)
-    return r.bound_s * 1e3, r.bound_by
-
-
-def collision_bound(pos, active, order, cd, max_disp: float, neighbors=None):
-    """The collision kernel's needed work at these inputs: pos, sorted ids
-    and cells, the output (and the (N, 8) `neighbors` table of the exclude
-    variant) once, the cell_start entries its ranges read; per candidate
-    scanned 5 f32 operations (the distance test), per pair inside the
-    cutoff 9 id compares when excluding, per contact kept 6."""
-    import math
-
-    side, bres = order.side, float(order.bin_resolution)
-    r = min(max(math.ceil((np.float32(cd) + 2 * np.float32(max_disp)) / np.float32(bres)), 1),
-            side)
-    live = order.sorted_cell < order.n_cells
-    c = order.sorted_cell[live].long()
-    cy, cx = c // side, c % side
-    rows = cy[:, None] + torch.arange(-r, r + 1, device=c.device)[None, :]
-    ok = (rows >= 0) & (rows < side)
-    lo = (rows * side + (cx - r).clamp(min=0)[:, None])[ok]
-    hi = (rows * side + (cx + r).clamp(max=side - 1)[:, None] + 1)[ok]
-    cs = order.cell_start.long()
-    candidates = int((cs[hi] - cs[lo]).sum())
-    starts = int(torch.unique(torch.cat([lo, hi])).numel())
-    n = pos.shape[0]
-    hits = contacts = 0
-    cd2 = cd * cd
-    ids = torch.arange(n, device=pos.device)
-    for a in range(0, n, 2048):
-        d = pos[a:a + 2048, None, :] - pos[None, :, :]
-        d2 = (d * d).sum(-1)
-        hit = (d2 < cd2) & (d2 > 0) & active[a:a + 2048, None] & active[None, :]
-        hits += int(hit.sum())
-        if neighbors is not None:
-            hit &= ~(neighbors[a:a + 2048, :, None] == ids[None, None, :]).any(1)
-        contacts += int(hit.sum())
-    exclude = neighbors is not None
-    nbytes = n * (8 + 4 + 4 + 8) + 4 * starts + 4 + (32 * n if exclude else 0)
-    nops = 5 * candidates + (9 * hits if exclude else 0) + 6 * contacts
-    return bound(nbytes, nops)
-
-
-def pixel_bound(inputs, params, width, height):
-    """The pixel pass's needed work: each referenced entry (40 B), the
-    per-cell CSR bounds, the retina quads and the scalars read once, the
-    planar image written once; ~18 f32 operations per (pixel, candidate of
-    its cell), ~60 per pixel of shading, ~30 more for the camera-frame
-    unwarp."""
-    entries, cell_lo, cell_hi, sfq, scal, wc, hc, ds = inputs
-    k = params.cell_px
-    count = (cell_hi - cell_lo).clamp(max=params.bin_capacity).long()
-    cells = torch.arange(wc * hc, device=count.device)
-    pw = (width - (cells % wc) * k).clamp(0, k)
-    ph = (height - (cells // wc) * k).clamp(0, k)
-    cand = int((count * pw * ph).sum())
-    npx = width * height
-    nbytes = 40 * int(count.sum()) + 8 * wc * hc + 32 + 12 * npx
-    nbytes += 4 * sfq.numel() if sfq is not None else 0
-    nops = 18 * cand + (90 if params.camera_frame else 60) * npx
-    return bound(nbytes, nops)
-
-
-def band_bound(buf, params):
-    """The band kernel's needed work: the two position planes over the
-    swept ages 1..hi0 and the four planes' band + 1 window rows read once,
-    a0, alast, the four windows and their ages written once; ~10 f32
-    operations per (particle, swept age)."""
-    from spacetime_tpu_torch.ops.band_cuda import _sweep_bounds
-
-    hi0 = int(_sweep_bounds(buf, params)[3])
-    n, w = buf.num_particles, params.band + 1
-    nbytes = hi0 * n * 8 + w * n * 16 + 8 * n + 20 * w * n + 8
-    return bound(nbytes, 10 * hi0 * n)
 
 
 def check_collision(device):
@@ -399,14 +313,14 @@ def check_collision(device):
 def check_pixel(particles, objects, buf, cam, params, width, height, when):
     """Kernel vs plain on the CSR that `params` builds from `buf` (the
     path's own render params, so its cell size, bin capacity, retarded and
-    camera-frame flags); two launches must be bit-equal.  Returns (max abs
-    err, ms, plain ms, (bound_ms, bound_by))."""
+    camera-frame flags); two launches must be bit-equal.  Returns the max
+    abs err."""
     from spacetime_tpu_torch.ops import render_cuda
 
     inputs, diag = pixel_inputs(particles, objects, buf, cam, params, width, height)
     run_kernel = lambda: render_cuda.pixel_pass(inputs, params, width=width, height=height)
-    run_plain = lambda: render_cuda.pixel_pass_plain(inputs, params, width=width, height=height)
-    img_k, img_again, img_p = run_kernel(), run_kernel(), run_plain()
+    img_k, img_again = run_kernel(), run_kernel()
+    img_p = render_cuda.pixel_pass_plain(inputs, params, width=width, height=height)
     torch.cuda.synchronize()
     if img_k.shape != (3, height, width) or not torch.isfinite(img_k).all():
         raise AssertionError("pixel kernel output is not a finite (3, H, W) image")
@@ -414,59 +328,44 @@ def check_pixel(particles, objects, buf, cam, params, width, height, when):
         raise AssertionError("two pixel launches on one input differ")
     err = (img_k - img_p).abs().max().item()
     share = pixel_share(img_k, img_p)
-    ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain, reps=5)
-    bnd = pixel_bound(inputs, params, width, height)
     print(f"pixel check ({when}; {width}x{height}, cell_px {params.cell_px}, bin_capacity "
           f"{params.bin_capacity}, retarded {params.retarded}, camera_frame "
           f"{params.camera_frame}): {inputs.entries.shape[0]} "
           f"entries, pairs {int(diag.pairs_used)}, max abs err {err:.3e}, share > "
-          f"{PIXEL_TOL:g}: {share:.2e} (limit {PIXEL_SHARE:g}), two launches bit-equal; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
-    return err, ms, plain_ms, bnd
+          f"{PIXEL_TOL:g}: {share:.2e} (limit {PIXEL_SHARE:g}), two launches bit-equal")
+    return err
 
 
 def main_path(model, particles, objects, buf, cam, params):
-    """FRAMES headline frames through the entry points, each stage timed
-    with CUDA events; diagnostics summed on the device, checked once."""
+    """FRAMES headline frames through the entry points; diagnostics summed
+    on the device, checked once."""
     from spacetime_tpu_torch import kernels
     from spacetime_tpu_torch.headline import HEIGHT, WIDTH
     from spacetime_tpu_torch.ops import raytrace
     from spacetime_tpu_torch.ops import worldline as wl
 
     h = model.params.h
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(FRAMES)]
     diag_sum = torch.zeros(6, dtype=torch.int64, device=particles.pos.device)
     kernels.reset_launch_counts()
     img = None
-    t0 = time.perf_counter()
     for i in range(FRAMES):
-        e = ev[i]
-        e[0].record()
         particles, aux = model.step(particles)
-        e[1].record()
         buf = wl.push_frame(buf, particles, h * (i + 1))
-        e[2].record()
         img, diag = raytrace.render_retarded_with_diag(
             buf, particles.object_index, objects, cam, WIDTH, HEIGHT, params,
             planar=True, boundary=wl.boundary_mask(particles))
-        e[3].record()
         diag_sum += torch.stack([
             diag.band_truncated, diag.bin_dropped, diag.cell_too_small.long(),
             diag.retina_dropped, diag.entry_dropped, aux.window_truncated.long(),
         ])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
-    med = lambda a, b: float(np.median([ev[i][a].elapsed_time(ev[i][b]) for i in range(FRAMES)]))
-    step_ms, push_ms, render_ms = med(0, 1), med(1, 2), med(2, 3)
     names = ("band_truncated", "bin_dropped", "cell_too_small", "retina_dropped",
              "entry_dropped", "window_truncated")
     sums = dict(zip(names, diag_sum.tolist()))
     occupied = ((img != 1.0) & (img != np.float32(params.shadow))).any(dim=0).float().mean().item()
-    print(f"main path: {FRAMES} frames in {wall:.2f} s wall; median step {step_ms:.4f} ms, "
-          f"push {push_ms:.4f} ms, render {render_ms:.4f} ms; launches {counts}; "
-          f"diag sums {sums}; occupied share {occupied:.4f}; "
-          f"bonds broken (last frame) {int(aux.bonds_broken)}")
+    print(f"main path: {FRAMES} frames; launches {counts}; diag sums {sums}; occupied share "
+          f"{occupied:.4f}; bonds broken (last frame) {int(aux.bonds_broken)}")
     if (counts["collision"] != 4 * FRAMES or counts["pixel_pass"] != FRAMES
             or counts["band"] != FRAMES or counts["bond_stage"] != 4 * FRAMES
             or counts["step_finish"] != FRAMES or counts["retina_march"] != FRAMES):
@@ -483,120 +382,51 @@ def main_path(model, particles, objects, buf, cam, params):
 
 def check_band(buf, cam, params, when):
     """Kernel vs plain on a path's ring with its render params: a0, alast,
-    truncated, every window value and age exactly equal.  Timed with the L2
-    evicted before each call, as a frame finds the ring (the 17 MB headline
-    ring would otherwise stay in the 50 MB L2 between calls), and also
-    warm.  Returns (max abs err, ms (cold), plain ms (cold), (bound_ms,
-    bound_by))."""
+    truncated, every window value and age exactly equal.  Returns the max
+    abs err."""
     from spacetime_tpu_torch.ops import band_cuda
 
-    run_kernel = lambda: band_cuda.cone_band_window(buf, params, cam)
-    run_plain = lambda: band_cuda.cone_band_window_plain(buf, params, cam)
-    ours, plain = run_kernel(), run_plain()
+    ours = band_cuda.cone_band_window(buf, params, cam)
+    plain = band_cuda.cone_band_window_plain(buf, params, cam)
     unequal = band_unequal(ours, plain)
     err = max((getattr(ours, n).double() - getattr(plain, n).double()).abs().max().item()
               for n in BAND_FIELDS)
     entered = int((plain.a0 <= plain.hi0).sum())
-    ms, plain_ms = cuda_ms(run_kernel, cold=True), cuda_ms(run_plain, reps=5, cold=True)
-    warm_ms = cuda_ms(run_kernel)
-    bnd = band_bound(buf, params)
     print(f"band check ({when}; band {params.band}, max_age {params.max_age}): "
           f"{entered} particles in the cone band, truncated "
-          f"{int(plain.truncated)}, max abs err {err:.3e} (exact required); "
-          f"kernel {ms:.4f} ms ({warm_ms:.4f} warm), plain {plain_ms:.4f} ms, bound "
-          f"{bnd[0]:.6f} ms ({bnd[1]})")
+          f"{int(plain.truncated)}, max abs err {err:.3e} (exact required)")
     if unequal or ours.hi0 != plain.hi0 or entered == 0:
         raise AssertionError(f"band kernel differs from plain in {unequal} ({entered} entered)")
-    return err, ms, plain_ms, bnd
-
-
-# f32 operations of one ray-pair test of the retina march (csrc/retina.cu):
-# a (6), b (2), |b|^2 (3), a . b (3), the clamps (3), the division (1), d
-# (4), |d|^2 (3), s_hit (2), the two compares and the running minimum (3)
-RETINA_OPS = 30
-
-
-def retina_bound(pairs, params):
-    """The retina kernel's needed work: each pair row's five fields and its
-    validity read once, the ray directions read and s_first written once;
-    RETINA_OPS f32 operations per ray and valid pair."""
-    rows, n = pairs.pdata.shape[0], params.num_rays
-    return bound(21 * rows + 12 * n, RETINA_OPS * n * int(pairs.pair_valid.sum()))
-
-
-def retina_inputs(run):
-    """The arguments (pairs, cam, t_now, params) of every retina march that
-    `run()` makes, in order."""
-    from spacetime_tpu_torch.ops import retina_cuda
-
-    seen, real = [], retina_cuda.retina_march
-
-    def record(*args):
-        seen.append(args)
-        return real(*args)
-
-    retina_cuda.retina_march = record
-    try:
-        run()
-    finally:
-        retina_cuda.retina_march = real
-    return seen
-
-
-def frame_retina(buf, particles, objects, cam, params, width, height):
-    """The inputs of the retina march of one retarded frame at `params`: the
-    frame's own prefix of boundary pairs, built as the Engine builds it."""
-    from spacetime_tpu_torch.ops import raytrace
-    from spacetime_tpu_torch.ops import worldline as wl
-
-    (args,) = retina_inputs(lambda: raytrace.prepare_pixel_pass(
-        buf, particles.object_index, objects, cam, width, height, params,
-        boundary=wl.boundary_mask(particles)))
-    return args
+    return err
 
 
 def check_retina(args, when):
     """Kernel vs plain on one retina march's inputs (pairs, cam, t_now,
-    params): s_first bit-equal.  The kernel alone is timed warm (the 0.3 MB
-    of pairs, as a frame finds them right after the compaction wrote them),
-    beside the wrapper's whole call (ray directions and fill included) and
-    the plain march.  Returns (max abs err, kernel ms, plain ms, (bound_ms,
-    bound_by))."""
+    params): s_first of the wrapper's call and of a bare launch bit-equal.
+    Returns the max abs err."""
     from spacetime_tpu_torch.ops import raytrace, retina_cuda
 
     pairs, cam, t_now, params = args
     theta = raytrace._ray_angles(params.num_rays, pairs.pdata.device)
     dhx, dhy = torch.cos(theta), torch.sin(theta)
     out = torch.full_like(dhx, raytrace._BIG)
-    run_kernel = lambda: retina_cuda.launch(pairs, dhx, dhy, cam, t_now, params, out)
-    run_call = lambda: retina_cuda.retina_march(pairs, cam, t_now, params)
-    run_plain = lambda: retina_cuda.retina_march_plain(pairs, cam, t_now, params)
-    ours, plain = run_call(), run_plain()
+    retina_cuda.launch(pairs, dhx, dhy, cam, t_now, params, out)
+    ours = retina_cuda.retina_march(pairs, cam, t_now, params)
+    plain = retina_cuda.retina_march_plain(pairs, cam, t_now, params)
     err = (ours.double() - plain.double()).abs().max().item()
     hits = int((plain < np.float32(raytrace._BIG)).sum())
-    ms, call_ms = cuda_ms(run_kernel), cuda_ms(run_call)
-    plain_ms = cuda_ms(run_plain, reps=5)
-    bnd = retina_bound(pairs, params)
     print(f"retina check ({when}): {params.num_rays} rays x {pairs.pdata.shape[0]} pair rows "
           f"({int(pairs.pair_valid.sum())} valid), {hits} rays hit, max abs err {err:.3e} "
-          f"(bit-equal required); kernel {ms:.4f} ms warm ({call_ms:.4f} the whole call), "
-          f"plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}), roofline "
-          f"{100 * bnd[0] / ms:.1f}%")
+          f"(bit-equal required)")
     if not torch.equal(ours, plain) or not torch.equal(out, plain) or hits == 0:
         raise AssertionError(f"retina kernel differs from plain (max abs err {err}) or no ray "
                              f"hits ({hits})")
-    return err, ms, plain_ms, bnd
+    return err
 
 
 def _lit(img, params) -> float:
     """Share of pixels that show matter: neither background nor shadow."""
     return ((img != 1.0) & (img != np.float32(params.shadow))).any(dim=-1).float().mean().item()
-
-
-def _slowest(eng):
-    """The three slowest frames of an Engine's stats window, as (frame, ms)."""
-    ms = [s * 1e3 for s in eng.stats.samples]
-    return [(i, round(ms[i], 3)) for i in sorted(range(len(ms)), key=ms.__getitem__)[-3:][::-1]]
 
 
 def with_step(expect: dict) -> dict:
@@ -637,19 +467,15 @@ def engine_via_cli(argv, frames, expect, drops="report", envelope=False):
         last["img"] = img
 
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
     eng, args = cli.build(argv)
     summary = eng.run(args.frames, on_frame=watch)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     img = last["img"]
     counts = dict(kernels.launches)
     lit = _lit(img, eng._render_params())
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS}
-    print(f"engine {' '.join(argv)}: {wall:.2f} s wall incl. setup; launches {counts}; "
-          f"lit share {lit:.4f}; boosts {boosts}; graphs {eng.graph_stats}; slowest frames "
-          f"(index, ms) {_slowest(eng)}")
-    print(f"  summary {json.dumps(summary)}")
+    print(f"engine {' '.join(argv)}: launches {counts}; lit share {lit:.4f}; boosts {boosts}; "
+          f"graphs {eng.graph_stats}")
     want = {k: with_step(expect).get(k, 0) * frames for k in counts}
     if counts != want:
         raise AssertionError(f"engine launches {counts}, expected {want}")
@@ -685,7 +511,7 @@ def engine_via_cli(argv, frames, expect, drops="report", envelope=False):
     elif not 1 <= g["captures"] <= 8 or g["captures"] + g["replays"] != frames:
         # a capture a render-params key: the adaptation moves to a few keys
         raise AssertionError(f"fused engine graphs {g} over {frames} frames")
-    return eng, counts, summary
+    return eng, counts
 
 
 def drop_envelope(history, start):
@@ -748,8 +574,7 @@ def check_graph_vs_eager(device):
     every kernel is deterministic) and as CUDA graph replays, which must be
     bit-equal to them; where the eager runs differ, the differing tensors
     are named and the graph run is held to check_small_vs_cpu's tolerances
-    instead.  Returns (graph ms a frame, eager ms a frame) of the host wall
-    clock over frames 2..FRAMES (the first, the graph's capture, apart)."""
+    instead."""
     from spacetime_tpu_torch import fused, headline, kernels
 
     model, particles, objects, buf, cam, params = headline.build(device)
@@ -763,20 +588,16 @@ def check_graph_vs_eager(device):
         frame = fused.FusedFrame(stages, order, device) if name == "graph" else \
             (lambda stages=stages: fused.run_stages(stages, order))
         kernels.reset_launch_counts()
-        out = frame()  # the graph's capture frame: timed apart
-        sums = out[1]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(FRAMES - 1):
+        sums = 0
+        for _ in range(FRAMES):
             out = frame()
             sums = sums + out[1]
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / (FRAMES - 1) * 1e3
-        runs[name] = (state, out, ms, dict(kernels.launches),
-                      getattr(frame, "stats", None), fused.drops_of(sums, stages["render"]))
-    (ea, (img_a, ctr_a), ms_a, _, _, _), (eb, (img_b, ctr_b), _, _, _, _) = \
+        runs[name] = (state, out, dict(kernels.launches), getattr(frame, "stats", None),
+                      fused.drops_of(sums, stages["render"]))
+    (ea, (img_a, ctr_a), _, _, _), (eb, (img_b, ctr_b), _, _, _) = \
         runs["eager"], runs["eager again"]
-    gs, (img_g, ctr_g), ms_g, counts, stats, drops = runs["graph"]
+    gs, (img_g, ctr_g), counts, stats, drops = runs["graph"]
     eager_diff = _state_diff(ea, eb) + [n for n, x, y in (("image", img_a, img_b),
                                                           ("counters", ctr_a, ctr_b))
                                         if not torch.equal(x, y)]
@@ -785,10 +606,8 @@ def check_graph_vs_eager(device):
                                         if not torch.equal(x, y)]
     print(f"graph vs eager (headline, {FRAMES} frames each from one start state): eager runs "
           f"differ in {eager_diff or 'nothing'}; graph differs from eager in "
-          f"{graph_diff or 'nothing'}; graph launches {counts}, {stats}; wall per frame "
-          f"(frames 2-{FRAMES}): "
-          f"graph {ms_g:.4f} ms, eager {ms_a:.4f} ms; graph drop counters summed over the "
-          f"run {drops}")
+          f"{graph_diff or 'nothing'}; graph launches {counts}, {stats}; graph drop counters "
+          f"summed over the run {drops}")
     if counts["collision"] != 4 * FRAMES or counts["band"] != FRAMES \
             or counts["pixel_pass"] != FRAMES or counts["retina_march"] != FRAMES:
         raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x / 1x {FRAMES}")
@@ -808,7 +627,6 @@ def check_graph_vs_eager(device):
             raise AssertionError("the graph run disagrees with the eager run")
     if not torch.isfinite(img_g).all() or any(drops.values()):
         raise AssertionError(f"graph run image not finite or drop counters {drops} not 0")
-    return ms_g, ms_a
 
 
 def check_graph_cache(device):
@@ -856,25 +674,13 @@ def check_graph_cache(device):
     return one, peaks[-1]
 
 
-def run_bench():
-    """The bench's headline row (spacetime_tpu_torch/bench.py), printed as
-    its JSON line; every drop counter must be 0."""
-    from spacetime_tpu_torch import bench
-
-    row = bench.run_headline()
-    print(json.dumps(row))
-    if any(row["drops"].values()) or not row["value"] > 0:
-        raise AssertionError(f"bench drops {row['drops']} or fps {row['value']}")
-    return row
-
-
 def check_engine_kernels(eng):
     """The band, retina and pixel kernels against plain on the Engine's
     final state, at the render params its last frame used (boosted band and
     bin capacity, view-derived max_age, ladder cell size; instant mode's
     opaque=False, retarded=False; the camera-frame flag); the retina where
-    the frame marches one (retarded and opaque).  Returns {kernel name: (max
-    abs err, ms, plain ms, bound)}."""
+    the frame marches one (retarded and opaque).  Returns {kernel name: max
+    abs err}."""
     cfg = eng.config
     p = eng._render_params()
     when = f"engine {cfg.render_mode}, final state"
@@ -897,31 +703,20 @@ def engine_points(device):
     the Engine, then its last frame against the plain renderer on the same
     state (bit-equal), a second launch bit-equal too, and the kernel's
     scratch back at EMPTY and 0 after both, and so is the scratch of the
-    Engine's graphs.  Also times the plain version's
-    winner pass, one `scatter_reduce_(..., "amin")`, as the library
-    yardstick of that pass.
-    Returns (launches, max abs err, ms, plain ms, bound, library ms)."""
+    Engine's graphs.  Returns (launches, max abs err)."""
     from spacetime_tpu_torch import headline, kernels
     from spacetime_tpu_torch.engine import Engine
     from spacetime_tpu_torch.ops import points_cuda
 
-    t0 = time.perf_counter()
     eng = Engine(headline.refdemo_config(), device=device)
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    summary = eng.run(POINTS_FRAMES)
+    eng.run(POINTS_FRAMES)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = kernels.launches["points"]
     p, cfg = eng.particles, eng.config
-    run_kernel = lambda: points_cuda.render_points(p, eng.objects, eng.camera, cfg.width,
-                                                   cfg.height)
-    run_plain = lambda: points_cuda.render_points_plain(p, eng.objects, eng.camera, cfg.width,
-                                                        cfg.height)
     img = eng.render().permute(2, 0, 1)
-    plain, again = run_plain(), run_kernel()
+    plain = points_cuda.render_points_plain(p, eng.objects, eng.camera, cfg.width, cfg.height)
+    again = points_cuda.render_points(p, eng.objects, eng.camera, cfg.width, cfg.height)
     # every render leaves the kernel's scratch as it found it
     winner, mask = points_cuda.scratch(p.pos.device, torch.cuda.current_stream().cuda_stream,
                                        cfg.width, cfg.height)
@@ -932,37 +727,17 @@ def engine_points(device):
     torch.cuda.synchronize()
     err = (img - plain).abs().max().item()
     covered = (plain != 1.0).any(dim=0).sum().item()
-    ms, plain_ms = cuda_ms(run_kernel), cuda_ms(run_plain, reps=5)
-    # the winner pass's inputs as render_points_plain builds them
-    from spacetime_tpu_torch.camera import world_to_pixel
-
-    n, hw = p.capacity, cfg.width * cfg.height
-    px = torch.round(world_to_pixel(p.pos, cfg.width, cfg.height, eng.camera))
-    x, y = px[:, 0], px[:, 1]
-    inside = p.active & (x >= 0) & (x < cfg.width) & (y >= 0) & (y < cfg.height)
-    flat = torch.where(inside, torch.where(inside, y, 0.0).long() * cfg.width
-                       + torch.where(inside, x, 0.0).long(), hw)
-    ids = torch.arange(n, device=p.pos.device)
-    winner = torch.full((hw + 1,), n, dtype=torch.int64, device=p.pos.device)
-    library_ms = cuda_ms(lambda: winner.scatter_reduce_(0, flat, ids, "amin"))
-    # needed work: pos, active, object ids read once, the planar image
-    # written once; ~10 f32 operations per particle
-    bnd = bound(n * (8 + 1 + 4) + 12 * hw, 10 * n)
-    print(f"engine points (refdemo): {int(p.active.sum())} active of {p.capacity}, setup "
-          f"{setup:.2f} s, {POINTS_FRAMES} frames in {wall:.2f} s; points launches {launches}; "
-          f"{covered} pixels covered; kernel vs plain max abs err {err:.3e} (bit-equal "
-          f"required), relaunch bit-equal, scratch clean {clean}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms "
-          f"({bnd[1]}); one scatter_reduce_ amin (the winner pass only) {library_ms:.4f} ms")
-    print(f"  summary {json.dumps(summary)}")
+    print(f"engine points (refdemo): {int(p.active.sum())} active of {p.capacity}; points "
+          f"launches {launches}; {covered} pixels covered; kernel vs plain max abs err "
+          f"{err:.3e} (bit-equal required), relaunch bit-equal, scratch clean {clean}")
     if launches != POINTS_FRAMES:
         raise AssertionError(f"{launches} points launches, expected {POINTS_FRAMES}")
     if not torch.equal(img, plain) or not torch.equal(again, plain) or covered == 0:
         raise AssertionError("points kernel image differs from the plain renderer")
     if not clean:
         raise AssertionError("a points render left winner slots or mask bits set")
-    whole_ms, blocks, resolve_ms = check_points_blocks(eng)
-    SHARD_MS["points"] = (whole_ms, {**blocks, "resolve": resolve_ms})
-    return launches, err, ms, plain_ms, bnd, library_ms
+    check_points_blocks(eng)
+    return launches, err
 
 
 def _tiny_configs():
@@ -1055,62 +830,6 @@ def check_small_engine_vs_cpu():
               f"pixel share > {PIXEL_TOL:g}: {share:.2e}")
         if pos_err > 1e-4 or share > PIXEL_SHARE or rl_err > 1e-6:
             raise AssertionError(f"GPU Engine disagrees with the CPU path ({name})")
-
-
-def time_collision(particles, model, exclude=False):
-    """Kernel vs plain at a path's shapes (its final state): the kernel at
-    RK4 stage 3's positions, pos + vel h, with the matching per-axis
-    displacement, the widened scan that 3 of a step's 4 launches run (stage
-    0's 3 x 3 scan is also timed); two launches on that input must be
-    bit-equal.  `exclude` takes the bond-excluding variant (the state's
-    neighbour table).  Returns (max abs err at stage 3, ms, plain ms,
-    bound)."""
-    from spacetime_tpu_torch.ops import forces_cuda
-
-    P = model.params
-    act = particles.active
-    nbr = particles.neighbors.contiguous() if exclude else None
-    order, stages = collision_inputs(particles, model)
-    (moved, disp), (start, still) = stages[3], stages[0]
-    cd, rep = P.collision_distance, P.collision_repulsion_coefficient
-    run = lambda at, d: forces_cuda.collision_forces(at, act, order, cd, rep, d, neighbors=nbr)
-    f_kernel, f_again = run(moved, disp), run(moved, disp)
-    f_plain = forces_cuda.collision_forces_plain(moved, act, cd, rep, nbr)
-    err = collision_error(f_kernel, f_plain, act)
-    if not torch.equal(f_kernel, f_again):
-        raise AssertionError("two collision launches on one input differ")
-    ms = cuda_ms(lambda: run(moved, disp))
-    still_ms = cuda_ms(lambda: run(start, still))
-    plain_ms = cuda_ms(lambda: forces_cuda.collision_forces_plain(moved, act, cd, rep, nbr),
-                       reps=5)
-    dx, dy = disp.tolist()
-    # the bound counts the square scan of reach ceil((cd + 2 max D) / bin)
-    bnd = collision_bound(moved, act, order, cd, max(dx, dy), nbr)
-    name = "collision_exclude" if exclude else "collision"
-    print(f"{name} at the path's final state: max|f| {f_plain[act].abs().max().item():.3f}, "
-          f"max abs err {err:.3e} (rtol 1e-4, atol 1e-3), two launches bit-equal; kernel "
-          f"{ms:.4f} ms at stage 3's positions (disp ({dx:.3e}, {dy:.3e})), {still_ms:.4f} ms "
-          f"at stage 0's; plain {plain_ms:.4f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
-    return err, ms, plain_ms, bnd
-
-
-def step_bounds(planes, weight: int, breaking: bool):
-    """(stage bound, finish bound): the bytes bond_stage and step_finish
-    must move at these planes, each read or written once (the partners'
-    positions are the stage-position plane, read once), and ~20 f32
-    operations a bond slot plus ~30 a particle (the advance, the
-    accumulator; the finish's combine)."""
-    n = planes.rest_mass.shape[0]
-    # pos, pos0, vel0, mass, active, nbr, coll, the accumulator out, next
-    per = 8 + 8 + 8 + 4 + 1 + 32 + 8 + 8 + 8
-    per += 8 if weight else 0  # the accumulator in, after the first evaluation
-    per += sum(4 for t in (planes.k_pp, planes.c_pp) if t is not None)
-    per += 8 if planes.c_pp is not None else 0  # the partners' start velocities
-    nbytes = n * per + 4 * planes.rest.numel()
-    if breaking:
-        nbytes += n * 32 + (n * 36 if planes.creep_rate is not None else 0)
-        nbytes += 4 * n if planes.break_scale is not None else 0
-    return bound(nbytes, n * (8 * 20 + 30)), bound(n * 45, n * 30)
 
 
 def _bonded(planes):
@@ -1211,17 +930,12 @@ def check_step(particles, model, when):
     at a path's state on one device (`_compare_stages`), twice: with the
     state's own planes and a break threshold its bonds straddle, and with
     every material plane set and per-bond rest lengths that creep; the
-    finish within f32 roundings of the plain combine.  Prints each
-    kernel's ms (the state's own planes and threshold) beside its bound
-    and the plain chain's ms; returns {kernel: (max abs err over both
-    comparisons, ms, plain ms, bound)}."""
+    finish within f32 roundings of the plain combine.  Returns {kernel: max
+    abs err over both comparisons}."""
     from spacetime_tpu_torch.ops import forces_cuda, rk4
 
     P, p = model.params, particles
-    planes = rk4.StepPlanes(
-        pos0=p.pos, gpos0=p.pos, vel0=p.vel, gvel0=p.vel, rest_mass=p.rest_mass,
-        active=p.active, neighbors=p.neighbors.contiguous(), offsets=model.spring_offsets,
-        rest=p.rest_len if p.rest_len is not None else model.rest_lengths)
+    planes = step_planes(p, model)
     order, stages = collision_inputs(p, model)
     (start, still), (moved, disp) = stages[0], stages[3]
     nbrs = None if model.spring_offsets is not None else planes.neighbors
@@ -1239,35 +953,13 @@ def check_step(particles, model, when):
     fin_err = max((pos - pos_plain).abs().max().item(), (vel - vel_plain).abs().max().item())
     torch.testing.assert_close(pos, pos_plain, rtol=0, atol=1e-6)
     torch.testing.assert_close(vel, vel_plain, rtol=1e-5, atol=1e-6)
-    d_kernel, d_plain = torch.zeros(2, device=moved.device), torch.zeros(2, device=moved.device)
-    broken, broken_plain = (torch.zeros((), dtype=torch.int32, device=moved.device)
-                            for _ in range(2))
-    run = lambda: rk4.bond_stage(planes, P, moved, coll3, coll0, 2, P.h / 2.0, disp=d_kernel)
-    plain = lambda: rk4.bond_stage_plain(planes, P, moved, coll3, coll0, 2, P.h / 2.0,
-                                         disp=d_plain)
-    run0 = lambda: rk4.bond_stage(planes, P, start, coll0, None, 0, P.h / 2.0, disp=d_kernel,
-                                  broken=broken)
-    plain0 = lambda: rk4.bond_stage_plain(planes, P, start, coll0, None, 0, P.h / 2.0,
-                                          disp=d_plain, broken=broken_plain)
-    stage_ms, stage0_ms = cuda_ms(run), cuda_ms(run0)
-    finish_ms = cuda_ms(lambda: rk4.step_finish(planes, P, ours.facc))
-    plain_ms, plain0_ms = cuda_ms(plain, reps=5), cuda_ms(plain0, reps=5)
-    plain_finish_ms = cuda_ms(lambda: rk4.step_finish_plain(planes, P, ours.facc), reps=5)
-    stage_bnd, finish_bnd = step_bounds(planes, 2, False)
-    stage0_bnd, _ = step_bounds(planes, 0, True)
     n = p.pos.shape[0]
     print(f"step kernels at {when} ({n} particles, {int(p.active.sum())} active, {bonds} "
           f"bonds): bonded force and accumulators bit-equal, first evaluation's breaking equal "
           f"({broke} broken at the median length; {m_broke} with materials, rest lengths "
           f"crept equal), next positions within {stage_err:.3e} ls (first {first_err:.3e}), "
-          f"finish within {fin_err:.3e}; bond_stage {stage_ms:.4f} ms (stage 1-3 shape; plain "
-          f"chain {plain_ms:.4f} ms; bound {stage_bnd[0]:.6f} ms, {stage_bnd[1]}), stage 0 "
-          f"with breaking {stage0_ms:.4f} ms (plain {plain0_ms:.4f} ms; bound "
-          f"{stage0_bnd[0]:.6f} ms), step_finish {finish_ms:.4f} ms (plain "
-          f"{plain_finish_ms:.4f} ms; bound {finish_bnd[0]:.6f} ms, {finish_bnd[1]})")
-    return {"bond_stage": (stage_err, stage_ms, plain_ms, stage_bnd),
-            "bond_stage_first": (first_err, stage0_ms, plain0_ms, stage0_bnd),
-            "step_finish": (fin_err, finish_ms, plain_finish_ms, finish_bnd)}
+          f"finish within {fin_err:.3e}")
+    return {"bond_stage": stage_err, "bond_stage_first": first_err, "step_finish": fin_err}
 
 
 def step_phase(device):
@@ -1275,7 +967,7 @@ def step_phase(device):
     steps (through the impact) and at the capacity scene's (2^20) after
     STEP_CAPACITY_STEPS (past first contact); a step of each counts 4
     bond_stage and 1 step_finish launch beside 4 collision launches.
-    Returns {kernel: the capacity state's (err, ms, plain ms, bound)}."""
+    Returns {kernel: the larger max abs err of the two states}."""
     from spacetime_tpu_torch import headline, kernels
 
     out = {}
@@ -1288,37 +980,46 @@ def step_phase(device):
         counts = dict(kernels.launches)
         if (counts["collision"], counts["bond_stage"], counts["step_finish"]) != (4, 4, 1):
             raise AssertionError(f"a step launched {counts}, expected 4 / 4 / 1")
-        out = check_step(particles, model, f"{name}, step {steps}")
+        errs = check_step(particles, model, f"{name}, step {steps}")
+        out = {k: max(v, out.get(k, 0.0)) for k, v in errs.items()}
         del model, particles
     return out
 
 
-def check_collision_state(particles, model, when):
-    """Kernel vs plain (the include variant, as the path launches it) at a
-    path's own state: the cell order built from its positions, at those
-    positions (RK4 stage 0) and at stage 3's, pos + vel h, with the
-    per-axis displacement its particles have (the widened scan).  Prints
-    how fast the particles move; returns the max abs error."""
+def check_collision_state(particles, model, when, exclude=False):
+    """Kernel vs plain at a path's own state: the cell order built from its
+    positions, at those positions (RK4 stage 0) and at stage 3's, pos + vel
+    h, with the per-axis displacement its particles have (the widened scan
+    that 3 of a step's 4 launches run); two launches at stage 3 bit-equal.
+    The include variant, or with `exclude` the bond-excluding one (the
+    state's neighbour table), as the path launches it.  Prints how fast the
+    particles move; returns the max abs error."""
     from spacetime_tpu_torch.constants import C
     from spacetime_tpu_torch.ops import forces_cuda
 
     P = model.params
     act = particles.active
+    nbr = particles.neighbors.contiguous() if exclude else None
     order, stages = collision_inputs(particles, model)
     cd, rep = P.collision_distance, P.collision_repulsion_coefficient
     speed = particles.vel[act].norm(dim=1) / C
     errs, fmax = [], 0.0
     for k in (0, 3):
         at, disp = stages[k]
-        f_kernel = forces_cuda.collision_forces(at, act, order, cd, rep, disp)
-        f_plain = forces_cuda.collision_forces_plain(at, act, cd, rep)
+        f_kernel = forces_cuda.collision_forces(at, act, order, cd, rep, disp, neighbors=nbr)
+        f_plain = forces_cuda.collision_forces_plain(at, act, cd, rep, nbr)
         errs.append(collision_error(f_kernel, f_plain, act))
         fmax = max(fmax, f_plain[act].abs().max().item())
-    dx, dy = stages[3][1].tolist()
-    print(f"collision at {when}: {int(act.sum())} active, max |v|/c {speed.max().item():.4f} "
-          f"({int((speed > 0.9).sum())} past 0.9c), stage 3 disp ({dx:.3e}, {dy:.3e}); "
-          f"max|f| {fmax:.3f}; max abs err stage 0 {errs[0]:.3e}, stage 3 {errs[1]:.3e} "
-          f"(rtol 1e-4, atol 1e-3)")
+    moved, disp = stages[3]
+    if not torch.equal(f_kernel, forces_cuda.collision_forces(moved, act, order, cd, rep, disp,
+                                                              neighbors=nbr)):
+        raise AssertionError("two collision launches on one input differ")
+    dx, dy = disp.tolist()
+    print(f"{'collision_exclude' if exclude else 'collision'} at {when}: {int(act.sum())} "
+          f"active, max |v|/c {speed.max().item():.4f} ({int((speed > 0.9).sum())} past 0.9c), "
+          f"stage 3 disp ({dx:.3e}, {dy:.3e}); max|f| {fmax:.3f}; max abs err stage 0 "
+          f"{errs[0]:.3e}, stage 3 {errs[1]:.3e} (rtol 1e-4, atol 1e-3), two launches "
+          f"bit-equal")
     return max(errs)
 
 
@@ -1327,41 +1028,35 @@ def engine_rows(device):
     no shifted offsets, so the Engine takes the row-gather physics and the
     collision kernel's bond-excluding variant.  ROWS_FRAMES retarded frames
     through the impact; then that variant against plain on the final
-    state.  Returns (launches, max abs err, ms, plain ms, bound)."""
+    state.  Returns (launches, max abs err)."""
     from spacetime_tpu_torch import kernels
     from spacetime_tpu_torch.engine import Engine
     from spacetime_tpu_torch.utils.config import get_config
 
     cfg = get_config("flagship_1080p")
     cfg = dataclasses.replace(cfg, scene=dataclasses.replace(cfg.scene, lattice_pad=False))
-    t0 = time.perf_counter()
     eng = Engine(cfg, device=device)
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
     if eng.model.spring_offsets is not None:
         raise AssertionError("the unpadded flagship scene did not select the row physics")
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    summary = eng.run(ROWS_FRAMES)
+    eng.run(ROWS_FRAMES)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     p = eng.particles
     lit = _lit(eng.render(), eng._render_params())
     print(f"engine rows (flagship_1080p, lattice_pad=False): {int(p.active.sum())} active of "
-          f"{p.capacity}, setup {setup:.2f} s, {ROWS_FRAMES} frames in {wall:.2f} s; launches "
-          f"{counts}; lit share {lit:.4f}; bonds "
+          f"{p.capacity}, {ROWS_FRAMES} frames; launches {counts}; lit share {lit:.4f}; bonds "
           f"{int(((p.neighbors >= 0) & p.active[:, None]).sum())}; boosts "
           f"{ {f: getattr(eng, f) for f in eng._ADAPT_FIELDS} }")
-    print(f"  summary {json.dumps(summary)}")
     if counts["collision_exclude"] != 4 * ROWS_FRAMES or counts["collision"] != 0 \
             or counts["band"] != ROWS_FRAMES or counts["pixel_pass"] != ROWS_FRAMES:
         raise AssertionError(f"row-physics launches {counts}, expected 4 exclude-variant "
                              f"collision, 1 band and 1 pixel pass a frame")
     if not torch.isfinite(p.pos).all() or lit <= 0.0:
         raise AssertionError("row-physics run is not finite or shows no matter")
-    err, ms, plain_ms, bnd = time_collision(p, eng.model, exclude=True)
-    return counts["collision_exclude"], err, ms, plain_ms, bnd
+    err = check_collision_state(p, eng.model, "the unpadded flagship's final state",
+                                exclude=True)
+    return counts["collision_exclude"], err
 
 
 def check_plastic(eng):
@@ -1430,14 +1125,11 @@ def refdemo_frame(device):
     (segment_dropped included) and the pairs within pair_budget; then the
     pixel, band, collision and retina kernels (the retina at the
     refdemo_116k cell's 16,384 rows) against plain on the final state.
-    Returns (state, model, objects, params, {kernel: (err, ms, plain ms,
-    bound)}, launches)."""
+    Returns (state, model, objects, params, {kernel: max abs err},
+    launches)."""
     from spacetime_tpu_torch import fused, headline, kernels
 
-    t0 = time.perf_counter()
     model, particles, objects, buf, cam, params = headline.build_refdemo(device)
-    torch.cuda.synchronize()
-    setup = time.perf_counter() - t0
     state = fused.new_state(particles, buf, cam, 0.0)
     del particles, buf
     other = fused.copy_state(state)
@@ -1455,13 +1147,10 @@ def refdemo_frame(device):
     del other, eager
     kernels.reset_launch_counts()
     sums = None
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for _ in range(REFDEMO_FRAMES):
         img, ctr = graph()
         sums = ctr if sums is None else sums + ctr
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / REFDEMO_FRAMES * 1e3
     counts = dict(kernels.launches)
     render = graph.stages["render"]
     drops = fused.drops_of(sums, render)
@@ -1470,12 +1159,11 @@ def refdemo_frame(device):
     occupied = ((img != 1.0) & (img != np.float32(params.shadow))).any(dim=0).float().mean().item()
     p = state.particles
     print(f"refdemo frame: {int(p.active.sum())} active of {p.capacity}, ring "
-          f"{4 * state.buf.pos_x.numel() * 4 / 1e9:.2f} GB, setup {setup:.2f} s; graph vs eager "
+          f"{4 * state.buf.pos_x.numel() * 4 / 1e9:.2f} GB; graph vs eager "
           f"({REFDEMO_COMPARE_FRAMES} frames from one start state) differ in "
-          f"{unequal or 'nothing'}; then {REFDEMO_FRAMES} graph frames, {wall:.4f} ms wall a "
-          f"frame; launches {counts}; graphs {graph.stats}; drop counters summed {drops}; "
-          f"last frame pairs_used {pairs} (pair_budget {params.pair_budget}); occupied share "
-          f"{occupied:.4f}")
+          f"{unequal or 'nothing'}; then {REFDEMO_FRAMES} graph frames; launches {counts}; "
+          f"graphs {graph.stats}; drop counters summed {drops}; last frame pairs_used {pairs} "
+          f"(pair_budget {params.pair_budget}); occupied share {occupied:.4f}")
     if unequal:
         raise AssertionError(f"refdemo graph frames differ from eager ones in {unequal}")
     if (counts["collision"] != 4 * REFDEMO_FRAMES or counts["band"] != REFDEMO_FRAMES
@@ -1491,7 +1179,7 @@ def refdemo_frame(device):
     errs = {"pixel_pass": check_pixel(p, objects, state.buf, cam, params, headline.WIDTH,
                                       headline.HEIGHT, when),
             "band": check_band(state.buf, cam, params, when),
-            "collision": time_collision(p, model),
+            "collision": check_collision_state(p, model, when),
             # at the benchmark's refdemo_116k retina: 4,096 rays x 16,384 rows
             "retina_march": check_retina(frame_retina(
                 state.buf, p, objects, cam, dataclasses.replace(params, retina_budget=16384),
@@ -1621,10 +1309,9 @@ def engine_conical(device):
     REFDEMO_COMPARE_FRAMES frames from the final state, and the route-1
     band window (the Euclidean route at the Engine's params) against the
     plain sweep, exactly, and the collision kernel against plain at the
-    final state (check_collision_state).  Returns (band check, collision
-    error, seconds)."""
-    t0 = time.perf_counter()
-    eng, _, summary = engine_via_cli(
+    final state (check_collision_state).  Returns (band error, collision
+    error)."""
+    eng, _ = engine_via_cli(
         ["--config", "conical_defect", "--frames", str(CONICAL_FRAMES), "--stats"],
         CONICAL_FRAMES, {"collision": 4, "band": 1, "retina_march": 2},
         drops="gate_after_boost")
@@ -1632,13 +1319,11 @@ def engine_conical(device):
     band = check_band(eng.worldline, eng.camera, eng._render_params(),
                       "engine conical_defect, final state, route 1")
     coll = check_collision_state(eng.particles, eng.model, "conical_defect's final state")
-    seconds = time.perf_counter() - t0
-    print(f"engine conical_defect: frame median {summary['frame_median_ms']:.4f} ms; graph vs "
-          f"eager ({REFDEMO_COMPARE_FRAMES} frames from the final state) differ in "
-          f"{unequal or 'nothing'}; phase {seconds:.2f} s")
+    print(f"engine conical_defect: graph vs eager ({REFDEMO_COMPARE_FRAMES} frames from the "
+          f"final state) differ in {unequal or 'nothing'}")
     if unequal:
         raise AssertionError(f"conical graph frames differ from eager ones in {unequal}")
-    return band, coll, seconds
+    return band, coll
 
 
 def engine_selfgravity(device):
@@ -1654,12 +1339,10 @@ def engine_selfgravity(device):
     on the final state, bit-equal, the stages as graphs bit-equal to
     eager for REFDEMO_COMPARE_FRAMES frames, and the collision kernel
     against plain at the final, post-impact state, where many particles
-    move near c (check_collision_state).  Returns (collision error,
-    seconds)."""
+    move near c (check_collision_state).  Returns the collision error."""
     from spacetime_tpu_torch.ops import gravity
 
-    t0 = time.perf_counter()
-    eng, _, summary = engine_via_cli(
+    eng, _ = engine_via_cli(
         ["--config", "selfgravity", "--frames", str(SELFGRAVITY_FRAMES), "--stats"],
         SELFGRAVITY_FRAMES, {"collision": 4, "band": 1, "retina_march": 3}, drops="report")
     cfg, params = eng.config, eng._render_params()
@@ -1673,17 +1356,15 @@ def engine_selfgravity(device):
     unequal = graph_vs_eager(eng)
     coll = check_collision_state(eng.particles, eng.model,
                                  "selfgravity's final state (after the impact)")
-    seconds = time.perf_counter() - t0
-    print(f"engine selfgravity: frame median {summary['frame_median_ms']:.4f} ms; defects of "
-          f"the last graph frame {[(u.center.tolist(), float(u.deficit)) for u in used]}, "
-          f"recomputed eagerly bit-equal {equal}; graph vs eager ({REFDEMO_COMPARE_FRAMES} "
-          f"frames from the final state) differ in {unequal or 'nothing'}; phase "
-          f"{seconds:.2f} s")
+    print(f"engine selfgravity: defects of the last graph frame "
+          f"{[(u.center.tolist(), float(u.deficit)) for u in used]}, recomputed eagerly "
+          f"bit-equal {equal}; graph vs eager ({REFDEMO_COMPARE_FRAMES} frames from the final "
+          f"state) differ in {unequal or 'nothing'}")
     if eng.graph_stats["captures"] != captures or len(used) != 2 or not all(equal):
         raise AssertionError("the selfgravity graph's defects differ from the eager ones")
     if unequal:
         raise AssertionError(f"selfgravity graph frames differ from eager ones in {unequal}")
-    return coll, seconds
+    return coll
 
 
 def engine_worldline3d(device):
@@ -1693,20 +1374,17 @@ def engine_worldline3d(device):
     else (the view is plain torch: one scatter_reduce_ amin), then its
     stages as graphs bit-equal to eager for REFDEMO_COMPARE_FRAMES frames,
     and the collision kernel against plain at the final state
-    (check_collision_state).  Returns (collision error, seconds)."""
-    t0 = time.perf_counter()
-    eng, _, summary = engine_via_cli(
+    (check_collision_state).  Returns the collision error."""
+    eng, _ = engine_via_cli(
         ["--config", "worldline3d", "--frames", str(WL3D_FRAMES), "--stats"], WL3D_FRAMES,
         {"collision": 4}, drops="gate")
     unequal = graph_vs_eager(eng)
     coll = check_collision_state(eng.particles, eng.model, "worldline3d's final state")
-    seconds = time.perf_counter() - t0
-    print(f"engine worldline3d: frame median {summary['frame_median_ms']:.4f} ms; graph vs "
-          f"eager ({REFDEMO_COMPARE_FRAMES} frames) differ in {unequal or 'nothing'}; phase "
-          f"{seconds:.2f} s")
+    print(f"engine worldline3d: graph vs eager ({REFDEMO_COMPARE_FRAMES} frames) differ in "
+          f"{unequal or 'nothing'}")
     if unequal:
         raise AssertionError(f"worldline3d graph frames differ from eager ones in {unequal}")
-    return coll, seconds
+    return coll
 
 
 def check_horizon(eng, img) -> int:
@@ -1782,10 +1460,8 @@ def engine_btz(name, frames, drops):
     state with f32 and with float64 delays (sweep_truncations: where they
     differ, the f32 closed form cancels).  The frames after the last boost
     are set beside the JAX package's bin-drop tolerance (drop_envelope).
-    Returns (collision launches, collision error, frame median ms,
-    seconds)."""
-    t0 = time.perf_counter()
-    eng, counts, summary = engine_via_cli(["--config", name, "--frames", str(frames), "--stats"],
+    Returns (collision launches, collision error)."""
+    eng, counts = engine_via_cli(["--config", name, "--frames", str(frames), "--stats"],
                                           frames, {"collision": 4}, drops=drops, envelope=True)
     unequal = graph_vs_eager(eng)
     coll = check_collision_state(eng.particles, eng.model, f"{name}'s final state")
@@ -1799,14 +1475,12 @@ def engine_btz(name, frames, drops):
         trunc = sweep_truncations(eng)
         extra = ("; band truncations of each route's sweep at the final state, (f32, float64): "
                  + ", ".join(f"band {b} {c}" for b, c in trunc.items()))
-    seconds = time.perf_counter() - t0
-    print(f"engine {name}: frame median {summary['frame_median_ms']:.4f} ms; graph vs eager "
-          f"({REFDEMO_COMPARE_FRAMES} frames from the final state) differ in "
-          f"{unequal or 'nothing'}; horizon {n_black} of {n_in} pixels black{extra}; phase "
-          f"{seconds:.2f} s")
+    print(f"engine {name}: graph vs eager ({REFDEMO_COMPARE_FRAMES} frames from the final "
+          f"state) differ in {unequal or 'nothing'}; horizon {n_black} of {n_in} pixels "
+          f"black{extra}")
     if unequal:
         raise AssertionError(f"{name} graph frames differ from eager ones in {unequal}")
-    return counts["collision"], coll, summary["frame_median_ms"], seconds
+    return counts["collision"], coll
 
 
 def engine_aloof(device):
@@ -1828,10 +1502,8 @@ def engine_aloof(device):
     params = eng._render_params()
     unequal = graph_vs_eager(eng)
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    summary = eng.run(ALOOF_FRAMES)
+    eng.run(ALOOF_FRAMES)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     t = eng._state.frame_in[5]
     pos, vel = body.state_at(t)
@@ -1840,10 +1512,9 @@ def engine_aloof(device):
     img = eng.render()
     print(f"engine aloof (flagship_1080p + a {body.num_points}-point disc, circular): slots "
           f"{lo}-{hi} of {eng.particles.capacity}; graph vs eager ({REFDEMO_COMPARE_FRAMES} "
-          f"frames) differ in {unequal or 'nothing'}; {ALOOF_FRAMES} fused frames in "
-          f"{wall:.2f} s, launches {counts}, graphs {eng.graph_stats}; slots at state_at(clock "
-          f"{float(t):.4f}) {at_clock}; lit share {_lit(img, params):.4f}")
-    print(f"  summary {json.dumps(summary)}")
+          f"frames) differ in {unequal or 'nothing'}; {ALOOF_FRAMES} fused frames, launches "
+          f"{counts}, graphs {eng.graph_stats}; slots at state_at(clock {float(t):.4f}) "
+          f"{at_clock}; lit share {_lit(img, params):.4f}")
     if unequal or not at_clock:
         raise AssertionError(f"aloof frame: graph vs eager differ in {unequal}, slots at the "
                              f"clock {at_clock}")
@@ -1922,10 +1593,8 @@ def io_png_demo(tmp):
     seen = {}
     argv = ["--config", "png_demo", "--frames", str(IO_PNG_FRAMES), "--out", out, "--every",
             str(IO_EVERY)]
-    t0 = time.perf_counter()
     (eng, _, summary), counts = _io_launches(lambda: cli.run(
         argv, on_frame=lambda i, img: seen.update({i: img}) if i % IO_EVERY == 0 else None))
-    wall = time.perf_counter() - t0
     names = sorted(os.listdir(out))
     want = [f"frame_{i:08d}.png" for i in range(0, IO_PNG_FRAMES, IO_EVERY)]
     unequal = [i for i in seen
@@ -1936,7 +1605,7 @@ def io_png_demo(tmp):
     print(f"io (a) png_demo --out --every {IO_EVERY}: {len(names)} PNGs {names[0]}..{names[-1]} "
           f"({summary['sinks']['out']} FrameSink), read back unequal at frames {unequal or 'none'}"
           f"; {int(eng.particles.active.sum())} particles, lit share {lit:.4f}; launches "
-          f"{counts}; graphs {eng.graph_stats}; {wall:.2f} s")
+          f"{counts}; graphs {eng.graph_stats}")
     if names != want or unequal or lit <= 0.0:
         raise AssertionError(f"png_demo frames: {names}, unequal at {unequal}, lit {lit}")
     if counts != {**{k: 0 for k in counts}, **{k: v * IO_PNG_FRAMES for k, v in with_step(
@@ -1995,9 +1664,7 @@ def io_serve():
             got["frame"] = img
 
     pos0, zoom0 = eng._cam_pos.copy(), eng._cam_zoom
-    t0 = time.perf_counter()
     summary, counts = _io_launches(lambda: cli.drive(eng, args, sinks, on_frame=client))
-    wall = time.perf_counter() - t0
     # the same keys on the host: right held in frames 4-8
     ctl, pos, zoom = CameraController(), pos0, zoom0
     for _ in range(5):
@@ -2011,7 +1678,7 @@ def io_serve():
           f"{got['status']}; camera x {pos0[0]:.6f} -> {cam[0]:.6f} (host controller "
           f"{pos[0]:.6f}); camera_frame {eng.config.render.camera_frame}, camera-frame "
           f"launches after o {after}; q ended the run at frame {eng.frame} of "
-          f"{IO_SERVE_LIMIT}; launches {counts}; graphs {eng.graph_stats}; {wall:.2f} s")
+          f"{IO_SERVE_LIMIT}; launches {counts}; graphs {eng.graph_stats}")
     if jpeg[:2] != b"\xff\xd8" or jpeg[-2:] != b"\xff\xd9" or len(jpeg) < 5_000:
         raise AssertionError("the served part is not a whole JPEG frame")
     if got["status"] != [204] * 4 or not np.array_equal(cam, pos) or cam[0] <= pos0[0]:
@@ -2075,16 +1742,15 @@ def io_replay(tmp):
     from spacetime_tpu_torch import bench
 
     path = os.path.join(tmp, "session.jsonl")
-    (rec, rperf, rimg), rcounts = _io_launches(
+    (rec, _, rimg), rcounts = _io_launches(
         lambda: bench.record_session("flagship_1080p", IO_REPLAY_FRAMES, path))
-    (rep, pperf, pimg), pcounts = _io_launches(lambda: bench.replay_session(path))
+    (rep, _, pimg), pcounts = _io_launches(lambda: bench.replay_session(path))
     unequal = _state_diff(rec._state, rep._state)
     if not torch.equal(rimg, pimg):
         unequal.append("image")
     print(f"io (c) flagship_1080p record / replay, {IO_REPLAY_FRAMES} frames of the bench's "
-          f"scripted keys: recording {rperf['fps_avg']:.2f} fps (graphs {rec.graph_stats}), "
-          f"replay {pperf['fps_avg']:.2f} fps (graphs {rep.graph_stats}) on {card_line()}; "
-          f"zoom {float(rec.camera.zoom):.6f} / {float(rep.camera.zoom):.6f}; differ in "
+          f"scripted keys: graphs {rec.graph_stats} / {rep.graph_stats}; zoom "
+          f"{float(rec.camera.zoom):.6f} / {float(rep.camera.zoom):.6f}; differ in "
           f"{unequal or 'nothing'}; launches {rcounts} / {pcounts}")
     if unequal:
         raise AssertionError(f"replay differs from the recording in {unequal}")
@@ -2116,34 +1782,46 @@ def io_realtime():
     return counts
 
 
-def io_capacity():
-    """(e): the capacity row with its frame, then band, pixel and retina
-    kernels against plain on its final state (the retina at 4,096 rays x
-    16,384 rows, as in the capacity_2p20 cells); returns its launches and
-    checks."""
-    from spacetime_tpu_torch import bench, fused, headline
+def io_capacity(device):
+    """(e): the 2^20 capacity scene's fused frame (checks.capacity_frames):
+    every drop counter summed over its frames 0, the last frame's pairs
+    within pair_budget, 4 collision and bond_stage launches and 1
+    step_finish a step and 1 band, retina and pixel launch a frame; then
+    the band, pixel and retina kernels against plain on its final state
+    (the retina at 4,096 rays x 16,384 rows, as in the capacity_2p20
+    cells).  Returns its launches, the band, pixel and retina errors."""
+    from spacetime_tpu_torch import fused, headline
 
-    t0 = time.perf_counter()
-    (row, state, objects, params), counts = _io_launches(lambda: bench.capacity_rows(True))
-    wall = time.perf_counter() - t0
-    print(f"io (e) capacity (2^20): {json.dumps(row)}")
-    print(f"  launches {counts}; {wall:.2f} s")
-    if row["particles"] != 1 << 20 or not np.isfinite(row["frame_ms"]):
-        raise AssertionError(f"capacity row: {row}")
+    (model, objects, params, state, frame, counters), counts = _io_launches(
+        lambda: capacity_frames(device))
+    render = frame.stages["render"]
+    drops = fused.drops_of(torch.stack(counters).sum(dim=0), render)
+    pairs = int(fused.unpack(counters[-1], render)[1].pairs_used)
+    steps = counts["step_finish"]
+    want = {k: with_step({"collision": 4}).get(k, 0) * steps for k in counts}
+    want.update({k: CAPACITY_FRAMES for k in ("band", "pixel_pass", "retina_march")})
+    p = state.particles
+    print(f"io (e) capacity (2^20): {int(p.active.sum())} active of {p.capacity}, {steps} steps "
+          f"then {CAPACITY_FRAMES} fused frames; launches {counts}; graphs {frame.stats}; drop "
+          f"counters summed {drops}; last frame pairs_used {pairs} (pair_budget "
+          f"{params.pair_budget})")
+    if p.capacity != 1 << 20 or counts != want:
+        raise AssertionError(f"capacity frames: capacity {p.capacity}, launches {counts}, "
+                             f"expected {want}")
+    if any(drops.values()) or pairs > params.pair_budget:
+        raise AssertionError(f"capacity drops {drops}, pairs {pairs} of {params.pair_budget}")
     cam = fused.camera_of(state.frame_in)
-    band = check_band(state.buf, cam, params, "capacity, after its frames")
-    pix = check_pixel(state.particles, objects, state.buf, cam, params,
-                      headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT,
-                      "capacity, after its frames")
-    retina = check_retina(frame_retina(state.buf, state.particles, objects, cam, params,
-                                       headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT),
-                          "capacity, after its frames")
-    return counts, band[0], pix[0], retina
+    size = (headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT)
+    when = "capacity, after its frames"
+    band = check_band(state.buf, cam, params, when)
+    pix = check_pixel(p, objects, state.buf, cam, params, *size, when)
+    retina = check_retina(frame_retina(state.buf, p, objects, cam, params, *size), when)
+    return counts, band, pix, retina
 
 
-def io_phase():
+def io_phase(device):
     """Phases (a)-(e) (see the module docstring): {path: launches}, the
-    band and pixel errors and the retina check at 2^20."""
+    band and pixel errors and the retina error at 2^20."""
     import shutil
     import tempfile
 
@@ -2151,7 +1829,6 @@ def io_phase():
 
     print(f"io phase: device memory at its start {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
           f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
-    t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
     try:
         launches = {"png_demo": io_png_demo(tmp)}
@@ -2159,11 +1836,10 @@ def io_phase():
         io_sink_costs(frame, tmp)
         launches["record_replay"] = io_replay(tmp)
         launches["realtime"] = io_realtime()
-        launches["capacity"], band_err, pix_err, retina = io_capacity()
+        launches["capacity"], band_err, pix_err, retina = io_capacity(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"io phase: {time.perf_counter() - t0:.2f} s; native sink builds failed: "
-          f"{native.build_errors or 'none'}")
+    print(f"io phase: native sink builds failed: {native.build_errors or 'none'}")
     return launches, band_err, pix_err, retina
 
 
@@ -2179,8 +1855,7 @@ def check_collision_shares(particles, model, exclude=False):
     """The collision kernel over SHARES ranges of sorted rows (a mesh
     rank's launch) at RK4 stage 3's inputs of a path's final state: the
     shares' forces summed equal the whole launch's exactly (each particle
-    has one nonzero contributor), and each share's launch is timed.
-    Returns {parts: [ms of each share]}."""
+    has one nonzero contributor)."""
     from spacetime_tpu_torch.ops import forces_cuda
 
     P = model.params
@@ -2191,8 +1866,7 @@ def check_collision_shares(particles, model, exclude=False):
     run = lambda rows=None: forces_cuda.collision_forces(  # noqa: E731
         moved, act, order, P.collision_distance, P.collision_repulsion_coefficient, disp,
         neighbors=nbr, rows=rows)
-    whole, whole_ms = run(), cuda_ms(run)
-    out = {}
+    whole = run()
     for parts in SHARES:
         ranges = _shares(particles.capacity, parts)
         got = [run(r) for r in ranges]
@@ -2202,27 +1876,22 @@ def check_collision_shares(particles, model, exclude=False):
         if not torch.equal(total, whole):
             raise AssertionError(f"collision over {parts} row ranges differs from the whole "
                                  f"launch by {(total - whole).abs().max().item():.3e}")
-        out[parts] = [cuda_ms(lambda r=r: run(r)) for r in ranges]
     name = "collision_exclude" if exclude else "collision"
     print(f"{name} row ranges (headline, after the main path, stage 3): summed shares "
-          f"bit-equal to the whole launch for {list(SHARES)} ranges; whole {whole_ms:.4f} ms, "
-          f"shares (ms) {out}")
-    return whole_ms, out
+          f"bit-equal to the whole launch for {list(SHARES)} ranges")
 
 
 def check_pixel_bands(particles, objects, buf, cam, params, width, height, when):
     """The pixel kernel over SHARES bands of view-cell rows (a mesh rank's
     launch) on a path's CSR: the bands stacked equal the whole image
-    exactly; each band's launch is timed.  Returns (whole ms, {parts: [ms
-    of each band]})."""
+    exactly."""
     from spacetime_tpu_torch.ops import render_cuda
 
     inputs, _ = pixel_inputs(particles, objects, buf, cam, params, width, height)
     run = lambda rows=None: render_cuda.pixel_pass(inputs, params, width=width,  # noqa: E731
                                                    height=height, rows=rows)
-    whole, whole_ms = run(), cuda_ms(run)
+    whole = run()
     k, hc = params.cell_px, inputs.hc_img
-    out = {}
     for parts in SHARES:
         per = -(-hc // parts)
         bands = [(row0, count, per * k) for row0, count in _shares(hc, parts)]
@@ -2230,26 +1899,19 @@ def check_pixel_bands(particles, objects, buf, cam, params, width, height, when)
         if not torch.equal(img, whole):
             raise AssertionError(f"pixel kernel over {parts} cell-row bands ({when}) differs "
                                  "from the whole launch")
-        out[parts] = [cuda_ms(lambda b=b: run(b)) for b in bands]
     print(f"pixel cell-row bands ({when}; camera_frame {params.camera_frame}): stacked bands "
-          f"bit-equal to the whole image for {list(SHARES)} bands; whole {whole_ms:.4f} ms, "
-          f"bands (ms) {out}")
-    return whole_ms, out
+          f"bit-equal to the whole image for {list(SHARES)} bands")
 
 
 def check_points_blocks(eng):
     """The points kernel's winner pass over SHARES particle blocks with
     global indices (a mesh rank's launch), the planes MIN-reduced and
-    resolved, against the whole render, exactly; each block's winner pass
-    and the resolve pass are timed.  Returns (whole ms, {parts: [ms of
-    each block's pass]}, resolve ms)."""
+    resolved, against the whole render, exactly."""
     from spacetime_tpu_torch.ops import points_cuda
 
     p, cfg, cam = eng.particles, eng.config, eng.camera
     w, h = cfg.width, cfg.height
-    whole_run = lambda: points_cuda.render_points(p, eng.objects, cam, w, h)  # noqa: E731
-    whole, whole_ms = whole_run(), cuda_ms(whole_run)
-    out, resolve_ms = {}, None
+    whole = points_cuda.render_points(p, eng.objects, cam, w, h)
     for parts in SHARES:
         if p.capacity % parts:
             raise AssertionError(f"capacity {p.capacity} does not split into {parts} blocks")
@@ -2259,17 +1921,12 @@ def check_points_blocks(eng):
                   for r in range(parts)]
         win = lambda r: points_cuda.points_winners(blocks[r], cam, w, h, r * b)  # noqa: E731
         merged = torch.stack([win(r) for r in range(parts)]).amin(0)
-        resolve = lambda: points_cuda.points_resolve(merged, p.object_index,  # noqa: E731
-                                                     eng.objects, w, h)
-        if not torch.equal(resolve(), whole):
+        if not torch.equal(points_cuda.points_resolve(merged, p.object_index, eng.objects, w, h),
+                           whole):
             raise AssertionError(f"points over {parts} blocks, MIN-reduced, differ from the "
                                  "whole render")
-        out[parts] = [cuda_ms(lambda r=r: win(r)) for r in range(parts)]
-        resolve_ms = cuda_ms(resolve)
     print(f"points blocks (refdemo, final state): winner planes MIN-reduced and resolved "
-          f"bit-equal to the whole render for {list(SHARES)} blocks; whole {whole_ms:.4f} ms, "
-          f"winner passes (ms) {out}, resolve of a merged plane {resolve_ms:.4f} ms")
-    return whole_ms, out, resolve_ms
+          f"bit-equal to the whole render for {list(SHARES)} blocks")
 
 
 def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
@@ -2277,8 +1934,7 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
     then on `mesh`, each Engine from its own scene build: the mesh run's
     launches (`expect` per frame), its graphs, its last image against the
     single run's (bit-equal, else the pixel gate), its state and its drops
-    (equal).  Returns (mesh Engine, its launches, its summary, the single
-    summary)."""
+    (equal).  Returns (mesh Engine, its launches)."""
     from spacetime_tpu_torch import kernels
     from spacetime_tpu_torch.engine import Engine
 
@@ -2287,10 +1943,8 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
     single_summary = single.run(frames, on_frame=lambda i, img: ref.__setitem__("img", img))
     kernels.reset_launch_counts()
     meshed = Engine(cfg, mesh=mesh, aloof_bodies=aloof_bodies)
-    t0 = time.perf_counter()
     summary = meshed.run(frames, on_frame=lambda i, img: last.__setitem__("img", img))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     counts = dict(kernels.launches)
     want = {k: with_step(expect).get(k, 0) * frames for k in counts}
     g = meshed.graph_stats
@@ -2303,11 +1957,10 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
                      if getattr(meshed.particles, f.name) is not None)
     aloof = f" + {sum(b.num_points for b in aloof_bodies)} aloof points" if aloof_bodies else ""
     print(f"mesh phase ({cfg.name}{aloof}, {cfg.render_mode}, one-rank NCCL group, {frames} "
-          f"fused frames): {wall:.2f} s wall; launches {counts}; graphs {g}; last image bit-equal "
-          f"to the single-device Engine's: {same} (pixel share > {PIXEL_TOL:g}: {share:.2e}); "
-          f"state bit-equal: {state_same}; drops {summary['drops']} (single device "
-          f"{single_summary['drops']}); frame median {summary['frame_median_ms']:.4f} ms "
-          f"(single device {single_summary['frame_median_ms']:.4f} ms)")
+          f"fused frames): launches {counts}; graphs {g}; last image bit-equal to the "
+          f"single-device Engine's: {same} (pixel share > {PIXEL_TOL:g}: {share:.2e}); state "
+          f"bit-equal: {state_same}; drops {summary['drops']} (single device "
+          f"{single_summary['drops']})")
     if counts != want:
         raise AssertionError(f"mesh engine launches {counts}, expected {want}")
     if not 1 <= g["captures"] <= 8 or g["captures"] + g["replays"] != frames:
@@ -2320,7 +1973,7 @@ def _mesh_vs_single(cfg, mesh, device, frames, expect, aloof_bodies=()):
                              f"the single device's {single_summary['drops']}")
     if not torch.isfinite(img).all() or _lit(img, meshed._render_params()) <= 0.0:
         raise AssertionError("mesh image not finite or shows no matter")
-    return meshed, counts, summary, single_summary
+    return meshed, counts
 
 
 def mesh_aloof(cfg, mesh, device):
@@ -2334,7 +1987,7 @@ def mesh_aloof(cfg, mesh, device):
     body = AloofBody(disc_template(20), circular_trajectory((0.7, 0.5), 0.15, 0.3),
                      object_index=2)
     # the repacked lattice takes the row-gather physics (engine_aloof)
-    meshed, counts, summary, single_summary = _mesh_vs_single(
+    meshed, counts = _mesh_vs_single(
         cfg, mesh, device, MESH_FRAMES,
         {"collision_exclude": 4, "band": 1, "pixel_pass": 1, "retina_march": 1},
         aloof_bodies=[body])
@@ -2345,9 +1998,7 @@ def mesh_aloof(cfg, mesh, device):
     at_clock = torch.equal(full.pos[lo:hi], pos) and torch.equal(full.vel[lo:hi], vel)
     g, keys = meshed.graph_stats, len(meshed._fused_cache)
     print(f"  aloof flagship_1080p on the mesh: slots {lo}-{hi} of {meshed._n_full}; graphs {g} "
-          f"for {keys} key(s); slots at state_at(clock {float(t):.4f}) {at_clock}; frame "
-          f"median {summary['frame_median_ms']:.4f} ms, single-device aloof Engine "
-          f"{single_summary['frame_median_ms']:.4f} ms")
+          f"for {keys} key(s); slots at state_at(clock {float(t):.4f}) {at_clock}")
     if not at_clock or g["captures"] != keys:
         raise AssertionError(f"aloof mesh engine: slots at the clock {at_clock}, graphs {g} for "
                              f"{keys} keys")
@@ -2372,13 +2023,12 @@ def mesh_phase(device):
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    t0 = time.perf_counter()
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
                             world_size=1, device_id=device)
     try:
         mesh = mesh_mod.make_mesh()
         cfg = get_config("flagship_1080p")
-        meshed, counts, _, _ = _mesh_vs_single(
+        meshed, counts = _mesh_vs_single(
             cfg, mesh, device, MESH_FRAMES,
             {"collision": 4, "band": 1, "pixel_pass": 1, "retina_march": 1})
         unequal = graph_vs_eager(meshed)
@@ -2399,11 +2049,10 @@ def mesh_phase(device):
                  {"collision": 4, "points": 1}),
                 (get_config("conical_defect"), "conical", MESH_CONICAL_FRAMES,
                  {"collision": 4, "band": 1, "retina_march": 2})):
-            meshed, c_counts, _, _ = _mesh_vs_single(c, mesh, device, frames, expect)
+            meshed, c_counts = _mesh_vs_single(c, mesh, device, frames, expect)
             del meshed
             for k, v in c_counts.items():
                 total[k] += v
-        print(f"  mesh phase: {time.perf_counter() - t0:.2f} s")
         return total
     finally:
         dist.destroy_process_group()
@@ -2418,92 +2067,77 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    card = card_line()
-    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     kernels.library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {kernels.build_seconds} s) "
           f"-> {kernels.build()}")
-    print(f"launch floor: {launch_floor_ms():.4f} ms a launch (torch.cuda._sleep(0) "
-          f"back to back, timed as every kernel below)")
     coll_err = check_collision(device)
     model, particles, objects, buf, cam, params = headline.build(device)
-    pix_err, pix_ms, pix_plain_ms, pix_bound = check_pixel(
-        particles, objects, buf, cam, params, headline.WIDTH, headline.HEIGHT,
-        "headline, prefilled ring")
-    band_err0 = check_band(buf, cam, params, "headline, prefilled ring")[0]
+    pix_err = check_pixel(particles, objects, buf, cam, params, headline.WIDTH, headline.HEIGHT,
+                          "headline, prefilled ring")
+    band_err = check_band(buf, cam, params, "headline, prefilled ring")
     particles, buf, counts = main_path(model, particles, objects, buf, cam, params)
-    band_err, band_ms, band_plain_ms, band_bnd = check_band(buf, cam, params,
-                                                            "headline, after the main path")
-    big_err = check_pixel(particles, objects, buf, cam,
-                          dataclasses.replace(params, bin_capacity=BIG_BIN_CAPACITY),
-                          headline.WIDTH, headline.HEIGHT, "headline, after the main path")[0]
-    coll_err2, coll_ms, coll_plain_ms, coll_bnd = time_collision(particles, model)
-    SHARD_MS["collision"] = check_collision_shares(particles, model)
-    SHARD_MS["collision_exclude_bonds"] = check_collision_shares(particles, model, exclude=True)
-    SHARD_MS["pixel_pass"] = check_pixel_bands(particles, objects, buf, cam, params,
-                                               headline.WIDTH, headline.HEIGHT,
-                                               "headline, after the main path")
-    coll_err = max(coll_err, coll_err2)
+    when = "headline, after the main path"
+    band_err = max(band_err, check_band(buf, cam, params, when))
+    pix_err = max(pix_err, check_pixel(
+        particles, objects, buf, cam, dataclasses.replace(params, bin_capacity=BIG_BIN_CAPACITY),
+        headline.WIDTH, headline.HEIGHT, when))
+    coll_err = max(coll_err, check_collision_state(particles, model, when))
+    check_collision_shares(particles, model)
+    check_collision_shares(particles, model, exclude=True)
+    check_pixel_bands(particles, objects, buf, cam, params, headline.WIDTH, headline.HEIGHT, when)
     del model, particles, objects, buf
-    step_rows = step_phase(device)
-    graph_ms, eager_ms = check_graph_vs_eager(device)
+    step_errs = step_phase(device)
+    check_graph_vs_eager(device)
 
     # the Engine, fused by default (each path with its launch counts reset
     # just before it)
-    eng, _, fused_summary = engine_via_cli(
+    eng, _ = engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats"],
         ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
     retarded_errs = check_engine_kernels(eng)
     check_profile_stages(eng)
     check_views(eng)
     del eng
-    eng, _, timed_summary = engine_via_cli(
+    engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats",
          "--stage-timing"], ENGINE_FRAMES,
         {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
-    del eng
-    print(f"flagship_1080p, {ENGINE_FRAMES} frames: frame_avg_ms fused (CUDA graphs) "
-          f"{fused_summary['frame_avg_ms']:.4f} (median {fused_summary['frame_median_ms']:.4f}), "
-          f"eager with --stage-timing {timed_summary['frame_avg_ms']:.4f} (median "
-          f"{timed_summary['frame_median_ms']:.4f}); "
-          f"headline frame wall: graph {graph_ms:.4f} ms, eager {eager_ms:.4f} ms")
-    eng, _, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(INSTANT_FRAMES),
+    eng, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(INSTANT_FRAMES),
                                 "--mode", "instant"], INSTANT_FRAMES,
                                {"collision": 4, "pixel_pass": 1, "band": 0})
     instant_errs = check_engine_kernels(eng)
     del eng
     check_graph_cache(device)
-    run_bench()
-    pix_err = max(pix_err, retarded_errs["pixel_pass"][0], instant_errs["pixel_pass"][0], big_err)
-    band_err = max(band_err0, band_err, retarded_errs["band"][0])
-    pts_launches, pts_err, pts_ms, pts_plain_ms, pts_bnd, pts_lib_ms = engine_points(device)
+    pix_err = max(pix_err, retarded_errs["pixel_pass"], instant_errs["pixel_pass"])
+    band_err = max(band_err, retarded_errs["band"])
+    retina_err = retarded_errs["retina_march"]
+    pts_launches, pts_err = engine_points(device)
 
     # the paths of this slice, each with its launch counts reset just before
-    eng, boosted_counts, _ = engine_via_cli(
+    eng, boosted_counts = engine_via_cli(
         ["--config", "boosted_observer", "--frames", str(BOOSTED_FRAMES), "--stats"],
         BOOSTED_FRAMES,
         {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1, "retina_march": 1},
         drops="gate")
     boosted_errs = check_engine_kernels(eng)
-    SHARD_MS["pixel_pass_camera_frame"] = check_pixel_bands(
-        eng.particles, eng.objects, eng.worldline, eng.camera, eng._render_params(),
-        eng.config.width, eng.config.height, "engine boosted_observer, final state")
-    cf_err, cf_ms, cf_plain_ms, cf_bnd = boosted_errs["pixel_pass"]
-    band_err = max(band_err, boosted_errs["band"][0])
-    big_cf_err = check_pixel(
+    when = "engine boosted_observer, final state"
+    check_pixel_bands(eng.particles, eng.objects, eng.worldline, eng.camera,
+                      eng._render_params(), eng.config.width, eng.config.height, when)
+    band_err = max(band_err, boosted_errs["band"])
+    cf_err = max(boosted_errs["pixel_pass"], check_pixel(
         eng.particles, eng.objects, eng.worldline, eng.camera,
         dataclasses.replace(eng._render_params(), bin_capacity=BIG_BIN_CAPACITY),
-        eng.config.width, eng.config.height, "engine boosted_observer, final state")[0]
+        eng.config.width, eng.config.height, when))
     del eng
-    eng, _, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
+    eng, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
                              "--stats"], PLASTIC_FRAMES,
                             {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
     check_plastic(eng)
     del eng
-    cf_err = max(cf_err, big_cf_err)
-    ex_launches, ex_err, ex_ms, ex_plain_ms, ex_bnd = engine_rows(device)
+    ex_launches, ex_err = engine_rows(device)
     check_small_vs_cpu()
     check_small_engine_vs_cpu()
 
@@ -2511,9 +2145,10 @@ def main() -> int:
     # segments check at its scale, the retina mode, aloof bodies and Euler
     state, _, objects, rd_params, rd_errs, _ = refdemo_frame(device)
     check_segments(state, objects, rd_params)
-    pix_err = max(pix_err, rd_errs["pixel_pass"][0])
-    band_err = max(band_err, rd_errs["band"][0])
-    coll_err = max(coll_err, rd_errs["collision"][0])
+    pix_err = max(pix_err, rd_errs["pixel_pass"])
+    band_err = max(band_err, rd_errs["band"])
+    coll_err = max(coll_err, rd_errs["collision"])
+    retina_err = max(retina_err, rd_errs["retina_march"])
     del state, objects
     engine_via_cli(["--config", "accelerated_camera", "--mode", "retina", "--frames",
                     str(RETINA_FRAMES), "--stats"], RETINA_FRAMES, {"collision": 4, "band": 1})
@@ -2522,13 +2157,10 @@ def main() -> int:
 
     # the paths of this slice: the conical mode (a static defect and
     # matter-sourced ones) and the worldline3d view
-    (conical_band, conical_coll, conical_s), (sg_coll, selfgravity_s), (wl3d_coll, wl3d_s) = (
-        engine_conical(device), engine_selfgravity(device), engine_worldline3d(device))
-    band_err = max(band_err, conical_band[0])
-    coll_err = max(coll_err, conical_coll, sg_coll, wl3d_coll)
-    print(f"this slice's phases: conical_defect {conical_s:.2f} s, selfgravity "
-          f"{selfgravity_s:.2f} s, worldline3d {wl3d_s:.2f} s, together "
-          f"{conical_s + selfgravity_s + wl3d_s:.2f} s")
+    conical_band, conical_coll = engine_conical(device)
+    band_err = max(band_err, conical_band)
+    coll_err = max(coll_err, conical_coll, engine_selfgravity(device),
+                   engine_worldline3d(device))
 
     # the paths of this slice: the btz mode, its five configs
     btz_runs = {name: engine_btz(name, frames, drops) for name, frames, drops in (
@@ -2538,70 +2170,56 @@ def main() -> int:
         ("btz_photon_ring", BTZ_FRAMES, "report"),
         ("btz_extremal", BTZ_EXTREMAL_FRAMES, "report"))}
     coll_err = max(coll_err, *(r[1] for r in btz_runs.values()))
-    print("this slice's phases: " + ", ".join(
-        f"{name} {r[3]:.2f} s (frame median {r[2]:.4f} ms)" for name, r in btz_runs.items())
-        + f", together {sum(r[3] for r in btz_runs.values()):.2f} s")
 
     # the paths of this slice: I/O and tooling
-    io_launches, io_band_err, io_pix_err, retina_2p20 = io_phase()
+    io_launches, io_band_err, io_pix_err, io_retina_err = io_phase(device)
     band_err = max(band_err, io_band_err)
     pix_err = max(pix_err, io_pix_err)
+    retina_err = max(retina_err, io_retina_err)
 
     # the path of this slice: the Engine on a one-rank NCCL mesh
     mesh_counts = mesh_phase(device)
 
-    record = lambda name, src, replaces, launches, err, ms, plain_ms, bnd, lib=None: {
+    record = lambda name, src, replaces, launches, err: {
         "name": name, "route": "cuda", "source": f"spacetime_tpu_torch/csrc/{src}",
-        "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib}
+        "replaces": replaces, "launches": launches, "max_abs_err": err}
     # `launches` counts the headline main path; the btz configs' own runs
     # beside it
     collision = record("collision", "collision.cu", "spacetime_tpu/ops/forces_pallas.py:52",
-                       counts["collision"], coll_err, coll_ms, coll_plain_ms, coll_bnd)
+                       counts["collision"], coll_err)
     collision["launches_btz"] = {name: r[0] for name, r in btz_runs.items()}
+    step = "none: the JAX step's plain jnp chain"
     rows = [
         collision,
         record("pixel_pass", "pixel_pass.cu", "spacetime_tpu/ops/render_pallas.py:57",
-               counts["pixel_pass"], pix_err, pix_ms, pix_plain_ms, pix_bound),
+               counts["pixel_pass"], pix_err),
         record("band", "band.cu", "spacetime_tpu/ops/band_pallas.py:52", counts["band"],
-               band_err, band_ms, band_plain_ms, band_bnd),
+               band_err),
         record("points", "points.cu", "spacetime_tpu/ops/points_pallas.py:58", pts_launches,
-               pts_err, pts_ms, pts_plain_ms, pts_bnd, pts_lib_ms),
+               pts_err),
         record("collision_exclude_bonds", "collision.cu",
-               "spacetime_tpu/ops/forces_pallas.py:68", ex_launches, ex_err, ex_ms,
-               ex_plain_ms, ex_bnd),
+               "spacetime_tpu/ops/forces_pallas.py:68", ex_launches, ex_err),
         record("pixel_pass_camera_frame", "pixel_pass.cu",
                "spacetime_tpu/ops/render_pallas.py:110",
-               boosted_counts["pixel_pass_camera_frame"], cf_err, cf_ms, cf_plain_ms, cf_bnd),
+               boosted_counts["pixel_pass_camera_frame"], cf_err),
+        # the step kernels replace no TPU kernel; their launches are the
+        # headline main path's: bond_stage's every evaluation (4 a step),
+        # the first evaluation's one a step, as many as step_finish's
+        record("bond_stage", "step.cu", step, counts["bond_stage"], step_errs["bond_stage"]),
+        record("bond_stage_first", "step.cu", step, counts["step_finish"],
+               step_errs["bond_stage_first"]),
+        record("step_finish", "step.cu", step, counts["step_finish"], step_errs["step_finish"]),
+        # the retina march replaces no TPU kernel
+        record("retina_march", "retina.cu", "none: the JAX package's plain jnp _retina "
+               "(spacetime_tpu/ops/raytrace.py:1373)", counts["retina_march"], retina_err),
     ]
-    # the step kernels replace no TPU kernel; their times are the capacity
-    # state's (2^20), their launches the headline main path's: bond_stage's
-    # every evaluation (4 a step), the first evaluation's one a step, as
-    # many as step_finish's
-    for name, key in (("bond_stage", "bond_stage"), ("bond_stage_first", "step_finish"),
-                      ("step_finish", "step_finish")):
-        rows.append(record(name, "step.cu", "none: the JAX step's plain jnp chain",
-                           counts[key], *step_rows[name]))
-    # the retina march replaces no TPU kernel; its times are at the retarded
-    # cells' 4,096 rays x 16,384 rows, on the refdemo state and on the 2^20
-    # capacity state; its launches the headline main path's
-    for name, res in (("retina_march", rd_errs["retina_march"]),
-                      ("retina_march_2p20", retina_2p20)):
-        row = record(name, "retina.cu", "none: the JAX package's plain jnp _retina "
-                     "(spacetime_tpu/ops/raytrace.py:1373)", counts["retina_march"], *res)
-        row["roofline"] = res[3][0] / res[1]
-        rows.append(row)
     # the I/O phase's launches by path and the mesh phase's, beside each
-    # kernel's main-path count; the share launches' times beside the whole
-    # launch's (the band kernel runs unchanged on a rank's ring columns)
+    # kernel's main-path count
     for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
                                "collision_exclude", "pixel_pass_camera_frame", "bond_stage",
-                               "step_finish", "step_finish", "retina_march", "retina_march")):
+                               "step_finish", "step_finish", "retina_march")):
         row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
         row["launches_mesh"] = mesh_counts[key]
-        whole, shares = SHARD_MS.get(row["name"], (None, None))
-        row["shard_ms"] = None if whole is None else {"whole": whole, **{
-            str(k): v for k, v in shares.items()}}
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """The inputs and tolerances that hold the port's kernels to their plain
 versions on the card: chip_smoke.py and compare_kernels.py both use them,
-so both hold the kernels to the same inputs and tolerances."""
+so both hold the kernels to the same inputs and tolerances, and the gate
+checks a kernel at the state its timer reads it."""
 
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ COLLISION_TOL = {"rtol": 1e-4, "atol": 1e-3}
 BAND_FIELDS = ("a0", "alast", "truncated", "wx", "wy", "wvx", "wvy", "ages")
 PIXEL_TOL = 1e-3  # per-pixel difference counted as a mismatch
 PIXEL_SHARE = 1e-3  # largest share of mismatched pixels, kernel vs plain
+# the 2^20 capacity scene's first steps (one, then 30 more) and the fused
+# frames run after its ring is prefilled again (capacity_frames)
+CAPACITY_STEPS, CAPACITY_FRAMES = 31, 24
 
 
 def collision_inputs(particles, model):
@@ -62,3 +66,71 @@ def pixel_share(ours, plain) -> float:
     if share > PIXEL_SHARE:
         raise AssertionError(f"pixel kernel disagrees with plain on {share:.2e} of pixels")
     return share
+
+
+def step_planes(particles, model):
+    """The rk4.StepPlanes of one step from `particles` on one device: the
+    state's own planes, no material planes."""
+    from .ops import rk4
+
+    p = particles
+    return rk4.StepPlanes(
+        pos0=p.pos, gpos0=p.pos, vel0=p.vel, gvel0=p.vel, rest_mass=p.rest_mass,
+        active=p.active, neighbors=p.neighbors.contiguous(), offsets=model.spring_offsets,
+        rest=p.rest_len if p.rest_len is not None else model.rest_lengths)
+
+
+def retina_inputs(run):
+    """The arguments (pairs, cam, t_now, params) of every retina march that
+    `run()` makes, in order."""
+    from .ops import retina_cuda
+
+    seen, real = [], retina_cuda.retina_march
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    retina_cuda.retina_march = record
+    try:
+        run()
+    finally:
+        retina_cuda.retina_march = real
+    return seen
+
+
+def frame_retina(buf, particles, objects, cam, params, width, height):
+    """The inputs of the retina march of one retarded frame at `params`: the
+    frame's own prefix of boundary pairs, built as the Engine builds it."""
+    from .ops import raytrace
+    from .ops import worldline as wl
+
+    (args,) = retina_inputs(lambda: raytrace.prepare_pixel_pass(
+        buf, particles.object_index, objects, cam, width, height, params,
+        boundary=wl.boundary_mask(particles)))
+    return args
+
+
+def capacity_frames(device):
+    """The 2^20 capacity scene (headline.build_capacity: 960x540, a 128-tick
+    ring) as the fused frame leaves it: CAPACITY_STEPS steps of the step
+    stage alone, the ring prefilled again from the stepped state, then
+    CAPACITY_FRAMES fused frames (step, push, retarded render).  Returns
+    (model, objects, render params, the fused.FrameState, the
+    fused.FusedFrame, the counters of each of its frames)."""
+    from . import fused, headline
+    from .ops import worldline as wl
+
+    model, particles, objects, buf, cam, params = headline.build_capacity(device)
+    state = fused.new_state(particles, buf, cam, 0.0)
+    stages = fused.frame_stages(model, None, state, objects, headline.CAPACITY_WIDTH,
+                                headline.CAPACITY_HEIGHT, params, "retarded", model.params.h)
+    step = fused.FusedFrame(stages, [("step", "step")], device)
+    for _ in range(CAPACITY_STEPS):
+        step()
+    p = state.particles
+    fused.commit(state.buf, wl.prefill_inertial(state.buf, p.pos, p.vel, p.active, 0.0,
+                                                model.params.h))
+    frame = fused.FusedFrame(stages, fused.schedule(1), device)
+    counters = [frame()[1] for _ in range(CAPACITY_FRAMES)]
+    return model, objects, params, state, frame, counters

@@ -84,8 +84,8 @@ def refdemo_config() -> EngineConfig:
 
 def refdemo_params(h: float) -> raytrace.RenderParams:
     """`tools/refdemo.py:70-76`'s render params with two changes, each
-    because the reference's value drops work every frame and the port's
-    bench fails on any drop:
+    because the reference's value drops work every frame and
+    chip_smoke.py's refdemo gate fails on any drop:
 
       * bin_capacity 128, not 96: at 96 full view bins drop candidates
         (VERDICT.md:16-19; 21 on an NVIDIA H100 after 70 frames,

@@ -21,65 +21,54 @@ route (every route on the plain sweep), the pair compaction, the view
 tables, the bearing retina, the routes' optics at every pixel and the
 route pass (over its blocks of view cells).  A config on the exact
 rotating-metric solver (`btz_exact_spin`, as btz_extremal) makes a frame of
-over half a million launches: it warms EXACT_SOLVER_FRAMES[0] frames, times
-EXACT_SOLVER_FRAMES[1] and traces EXACT_SOLVER_FRAMES[2].
+over half a million launches: it warms EXACT_SOLVER_FRAMES[0] frames and
+traces EXACT_SOLVER_FRAMES[1].
 
 Runs the headline frame (headline.py) eagerly WARM_FRAMES times, which
-takes the discs into contact, then WALL_FRAMES frames timed on the host
-clock without the profiler, then PROFILE_FRAMES frames under
+takes the discs into contact, then PROFILE_FRAMES frames under
 `torch.profiler`.  Every device kernel, memcpy and memset of that trace is
 attributed (utils/profiling.attribute), through the correlation id of its
 launch, to the innermost named range (the program's sub-stage spans,
 `utils/profiling.spanned` on the functions of ops/, inside the stages step /
-push / render) that was open on the host when it was launched.  Then the same frame, from the state the eager frames left,
-as the fused frame (fused.py: one CUDA graph a stage, captured at its first
-frame): WALL_FRAMES frames timed the same way and PROFILE_FRAMES traced,
-where a graph's kernels fall in the stage range its replay ran in (the
-sub-stage ranges do not survive into a graph).  It prints, per frame and
-for each of the two: the device time and launches per range and per kind
-of kernel, the device's busy time (the union of the device intervals) and
-its busy share of the unprofiled frame's wall time.
+push / render) that was open on the host when it was launched.  Then the
+same frame, from the state the eager frames left, as the fused frame
+(fused.py: one CUDA graph a stage, captured at its first frame):
+PROFILE_FRAMES traced, where a graph's kernels fall in the stage range its
+replay ran in (the sub-stage ranges do not survive into a graph).  It
+prints, per frame and for each of the two: the device time and launches
+per range and per kind of kernel, and the device's busy time (the union of
+the device intervals).  Frame times are the benchmark's
+(`python3 -m benchmark.run`).
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 import torch
 
 from .utils.profiling import attribute, span, traced_events
 
-WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES = 185, 10, 5
-EXACT_SOLVER_FRAMES = (10, 3, 1)
+WARM_FRAMES, PROFILE_FRAMES = 185, 5
+EXACT_SOLVER_FRAMES = (10, 1)
 ENGINE_SCENES = ("conical_defect", "selfgravity", "btz_hole", "btz_extremal")
 
 
-def report(title: str, res: dict, wall_ms: float) -> None:
-    print(f"{title}: {wall_ms:.3f} ms wall per frame without the profiler")
+def report(title: str, res: dict) -> None:
+    print(f"{title}:")
     for name, table in (("range", res["by_range"]), ("kind", res["by_kind"])):
         print(f"{'device time by ' + name:<28} {'ms/frame':>9} {'launches':>9} {'share':>7}")
         total = sum(v[0] for v in table.values())
         for key, (ms, n) in sorted(table.items(), key=lambda kv: -kv[1][0]):
             print(f"  {key:<26} {ms:9.4f} {n:9.1f} {ms / total:7.1%}")
         print(f"  {'total':<26} {total:9.4f} {sum(v[1] for v in table.values()):9.1f}")
-    print(f"device busy {res['busy_ms']:.4f} ms per frame (union of device intervals), "
-          f"{res['busy_ms'] / wall_ms:.1%} of the unprofiled frame")
+    print(f"device busy {res['busy_ms']:.4f} ms per frame (union of device intervals)")
 
 
-def _profile(title: str, run_one, wall_frames: int = WALL_FRAMES,
-             profile_frames: int = PROFILE_FRAMES) -> None:
-    """`wall_frames` frames of `run_one` on the host clock, then
-    `profile_frames` traced, and the report."""
+def _profile(title: str, run_one, profile_frames: int = PROFILE_FRAMES) -> None:
+    """`profile_frames` frames of `run_one` traced, and the report."""
     from . import kernels
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(wall_frames):
-        run_one()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) / wall_frames * 1e3
 
     def traced():
         for _ in range(profile_frames):
@@ -89,7 +78,7 @@ def _profile(title: str, run_one, wall_frames: int = WALL_FRAMES,
     res = attribute(traced_events(traced, kernels.BUILD_DIR), profile_frames)
     if not res["by_range"]:
         raise RuntimeError(f"{title}: the trace holds no device activity")
-    report(title, res, wall_ms)
+    report(title, res)
 
 
 def profile_engine(name: str, device) -> int:
@@ -104,23 +93,18 @@ def profile_engine(name: str, device) -> int:
     from .utils.config import get_config
 
     cfg = get_config(name)
-    warm, wall, prof = (EXACT_SOLVER_FRAMES if cfg.render.btz_exact_spin
-                        else (WARM_FRAMES, WALL_FRAMES, PROFILE_FRAMES))
+    warm, prof = (EXACT_SOLVER_FRAMES if cfg.render.btz_exact_spin
+                  else (WARM_FRAMES, PROFILE_FRAMES))
     eng = Engine(dataclasses.replace(cfg, stage_timing=True), device=device)
     for _ in range(warm):
         eng.run_frame()
     boosts = {f: getattr(eng, f) for f in eng._ADAPT_FIELDS if getattr(eng, f)}
     print(f"{name}: boosts after {warm} frames {boosts}, frozen from here on")
     eng.config = dataclasses.replace(cfg, stage_timing=True, diag_every=0)
-    _profile(f"{name}: eager frames {warm + 1}-{warm + wall}", eng.run_frame, wall, prof)
+    _profile(f"{name}: eager frames {warm + 1}-{warm + prof}", eng.run_frame, prof)
     eng.config = dataclasses.replace(cfg, diag_every=0)  # fused from here on
-    t0 = time.perf_counter()
     eng.run_frame()  # the eager frame the capture follows, and the capture
-    torch.cuda.synchronize()
-    print(f"{name}: the first fused frame (eager run and capture) took "
-          f"{time.perf_counter() - t0:.2f} s")
-    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, wall,
-             prof)
+    _profile(f"{name}: graph frames (CUDA graphs; {eng.graph_stats})", eng.run_frame, prof)
     return 0
 
 
@@ -162,30 +146,13 @@ def main(argv=None) -> int:
     for _ in range(WARM_FRAMES):
         p, i = frame(p, i), i + 1
 
-    def timed(run_one) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(WALL_FRAMES):
-            run_one()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / WALL_FRAMES * 1e3
-
     state = {"p": p, "i": i}
 
     def eager_one():
         state["p"], state["i"] = frame(state["p"], state["i"]), state["i"] + 1
 
-    def eager_traced():
-        for _ in range(PROFILE_FRAMES):
-            eager_one()
-        torch.cuda.synchronize()
-
-    wall_ms = timed(eager_one)
-    res = attribute(traced_events(eager_traced, kernels.BUILD_DIR), PROFILE_FRAMES)
-    if not res["by_range"]:
-        raise RuntimeError("the trace holds no device activity")
     first = WARM_FRAMES + 1
-    report(f"eager frames {first}-{first + WALL_FRAMES - 1}", res, wall_ms)
+    _profile(f"eager frames {first}-{first + PROFILE_FRAMES - 1}", eager_one)
 
     # the fused frame from the eager frames' last state and clock
     fs = fused.new_state(state["p"], buf, cam, h * state["i"])
@@ -193,18 +160,7 @@ def main(argv=None) -> int:
         fused.frame_stages(model, None, fs, objects, headline.WIDTH, headline.HEIGHT, params,
                            "retarded", h), fused.schedule(1), device)
     graph()  # the eager frame the capture follows, and the capture
-
-    def graph_traced():
-        for _ in range(PROFILE_FRAMES):
-            graph()
-        torch.cuda.synchronize()
-
-    wall_ms = timed(graph)
-    res = attribute(traced_events(graph_traced, kernels.BUILD_DIR), PROFILE_FRAMES)
-    if not res["by_range"]:
-        raise RuntimeError("the graph frame's trace holds no device activity")
-    report(f"graph frames (CUDA graphs; {graph.stats['captures']} capture, "
-           f"{graph.stats['replays']} replays)", res, wall_ms)
+    _profile(f"graph frames (CUDA graphs; {graph.stats['captures']} capture)", graph)
     return 0
 
 

@@ -16,22 +16,17 @@
     trace, by the innermost named range open on the host when it was
     launched (the correlation id of its launch) and by kind of kernel, per
     frame, with the device's busy time (the union of the device
-    intervals);
-  * `stage_breakdown(events, n)`: a trace's device seconds per frame by
-    stage (step, worldline, render) and in all.  The fused frame (fused.py)
-    replays one CUDA graph per stage inside a range named after the stage
-    while a trace runs; the kernels of a graph replay carry the correlation
-    id of its graph launch, so they fall in that range, though the ranges
-    of the code the graph was captured from do not survive into it;
-  * `measured_roofline(run, n)`: trace `run()` and return its device
-    seconds per frame, the device's busy time and the stage split;
+    intervals).  The fused frame (fused.py) replays one CUDA graph per
+    stage inside a range named after the stage while a trace runs; the
+    kernels of a graph replay carry the correlation id of its graph launch,
+    so they fall in that range, though the ranges of the code the graph was
+    captured from do not survive into it;
+  * `traced_events(run)`: the Chrome trace events of `run()`;
   * `device_memory_stats()`: bytes in use, peak and the card's total.
 
 The JAX package also reads each op's HBM bytes from its profiler; the torch
-profiler does not report bytes moved, so `measured_roofline`'s
-`hbm_bytes` is None.  Without device activity (a CPU run) the functions
-that measure device time return empty results: a CPU run gives no device
-time.
+profiler does not report bytes moved.  Without device activity (a CPU run)
+`attribute` returns empty tables: a CPU run gives no device time.
 """
 
 from __future__ import annotations
@@ -49,7 +44,6 @@ import torch
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
-STAGES = ("step", "worldline", "render")
 # kind of device op, by the first pattern its name matches
 KINDS = (
     ("collision kernel", r"collision_kernel"),
@@ -157,32 +151,6 @@ def traced_events(run, tmp_dir: Optional[str] = None) -> list:
             run()
         with open(path) as f:
             return json.load(f)["traceEvents"]
-
-
-def stage_breakdown(events, n_frames: int) -> Dict[str, float]:
-    """Device seconds per frame of a trace's events (`n_frames` frames), by
-    the stage range each device op was launched in, plus 'total' over every
-    device op; empty without device activity."""
-    res = attribute(events, n_frames)
-    out = {k: v[0] / 1e3 for k, v in res["by_range"].items() if k in STAGES}
-    if res["by_range"]:
-        out["total"] = sum(v[0] for v in res["by_range"].values()) / 1e3
-    return out
-
-
-def measured_roofline(run, n_frames: int, tmp_dir: Optional[str] = None) -> Dict[str, object]:
-    """Trace `run()` (`n_frames` frames, synchronized at the end) and return
-    {"device_s": device seconds per frame summed over every device op,
-    "busy_s": the union of the device intervals per frame, "hbm_bytes":
-    None (not reported by the torch profiler), "stages": stage_breakdown
-    without its total}; empty without device activity."""
-    events = traced_events(run, tmp_dir)
-    stages = stage_breakdown(events, n_frames)
-    if not stages:
-        return {}
-    return {"device_s": stages.pop("total"),
-            "busy_s": attribute(events, n_frames)["busy_ms"] / 1e3, "hbm_bytes": None,
-            "stages": stages}
 
 
 def device_memory_stats(device=None) -> Dict[str, int]:

@@ -3,8 +3,8 @@
 JAX Engine's fused path (which `_can_fuse` selects on a JAX CPU run), on
 the tiny config of tests/test_engine.py; the stage-timing path against
 JAX's; the cache of fused frames; what the Engine keeps in its fixed
-state tensors; the bench's timing function on a tiny scene; and the pixel
-pass at a bin_capacity above what a 48 KB slice holds, against the JAX
+state tensors; the replay harness's refusal without CUDA; the attribution
+of a graph replay's kernels to its stage range; and the pixel pass at a bin_capacity above what a 48 KB slice holds, against the JAX
 Pallas kernel in interpret mode.  The CUDA graphs themselves are held to
 the eager frame on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -24,9 +24,7 @@ from spacetime_tpu.ops import worldline as jwl
 from spacetime_tpu.utils import config as jconfig
 from spacetime_tpu_torch import bench, convert, fused
 from spacetime_tpu_torch.camera import Camera
-from spacetime_tpu_torch.engine import Engine, build_scene
-from spacetime_tpu_torch.models.softbody import SoftbodyModel
-from spacetime_tpu_torch.ops import forces
+from spacetime_tpu_torch.engine import Engine
 from spacetime_tpu_torch.ops import raytrace as rt
 from spacetime_tpu_torch.ops import worldline as wl
 from spacetime_tpu_torch.utils import config
@@ -305,49 +303,14 @@ def test_checkpoint_loads_into_the_state_tensors(tmp_path):
     assert torch.equal(eng.worldline.times, eng2.worldline.times)
 
 
-def _tiny_frame(bin_capacity=256):
-    """A fused.FusedFrame of the tiny disc scene on the CPU."""
-    particles, objects = build_scene(_configs()[1].scene, device="cpu")
-    model = SoftbodyModel(particles.capacity,
-                          forces.derive_spring_offsets(particles.neighbors.numpy()), device="cpu")
-    buf = wl.prefill_inertial(wl.create(32, particles.capacity, device="cpu"), particles.pos,
-                              particles.vel, particles.active, 0.0, model.params.h)
-    state = fused.new_state(particles, buf,
-                            Camera.create(pos=(0.5, 0.5), zoom=1.0, device="cpu"), 0.0)
-    params = rt.RenderParams(num_rays=256, bin_capacity=bin_capacity)
-    stages = fused.frame_stages(model, None, state, objects, 48, 48, params, "retarded",
-                                model.params.h)
-    return fused.FusedFrame(stages, fused.schedule(1), torch.device("cpu")), state
-
-
-def test_bench_times_a_tiny_fused_frame_on_the_cpu():
-    """bench.time_frames / time_steps / report on the tiny scene: the JSON
-    row's keys, fps > 0, every drop counter 0 (the bench's own gate)."""
-    frame, state = _tiny_frame()
-    built = fused.copy_state(state)
-    per_frame, counters = bench.time_frames(frame, lambda: None,
-                                            lambda: fused.restore(state, built),
-                                            frames=3, repeats=2, warmup=1)
-    assert len(per_frame) == 2 and all(s > 0 for s in per_frame)
-    drops = fused.drops_of(counters, frame.stages["render"])
-    assert list(drops) == list(fused.DROP_FIELDS) and not any(drops.values())
-    # each repeat starts from the built state: 4 pushes after the prefill
-    assert int(state.buf.cursor) == (31 + 4) % 32
-    steps = bench.time_steps(lambda: frame.stages["step"](), lambda: None, steps=2)
-    row = bench.report(per_frame, steps, 48, 48, drops, {}, dict(frame.stats), "cpu")
-    assert {"metric", "value", "unit", "vs_baseline", "fps_min", "fps_max", "frame_ms",
-            "steps_per_s", "mrays_per_s", "device_ms_measured", "stage_ms_measured",
-            "drops", "graphs", "card"} <= set(row)
-    assert row["unit"] == "fps" and row["value"] > 0 and row["steps_per_s"] > 0
-    assert row["fps_min"] <= row["value"] <= row["fps_max"]
-    assert row["vs_baseline"] == pytest.approx(row["value"] / 60.0)
-    assert row["device_ms_measured"] is None  # a CPU run measures no device time
-
-
-def test_bench_without_cuda_exits_nonzero(monkeypatch, capsys):
+def test_bench_without_cuda_exits_nonzero(monkeypatch, capsys, tmp_path):
+    """A session flag on a box without CUDA: exit 1, no result line, no
+    session file."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert bench.main([]) == 1
-    assert capsys.readouterr().out == ""
+    session = tmp_path / "s.jsonl"
+    assert bench.main(["--record", str(session)]) == 1
+    assert bench.main(["--replay", str(session)]) == 1
+    assert capsys.readouterr().out == "" and not session.exists()
 
 
 def _fields(x):
@@ -393,11 +356,12 @@ def test_pixel_pass_above_a_48kb_slice_matches_pallas_interpret():
 
 
 def test_stage_breakdown_of_graph_replays():
-    """utils.profiling.stage_breakdown on a trace of the fused frame's shape:
-    the kernels of a graph replay carry the correlation id of its graph
-    launch, so they fall in the stage range open at that launch; per frame,
-    with the total over every device op (the image copy outside any
-    stage); empty for a trace without device activity (a CPU run)."""
+    """utils.profiling.attribute on a trace of the fused frame's shape: the
+    kernels of a graph replay carry the correlation id of its graph
+    launch, so they fall in the stage range open at that launch, per frame
+    (the image copy outside any stage); empty for a trace without device
+    activity (a CPU run).  And utils/roofline.py's bound of a piece of
+    work: bytes or operations, whichever sets it."""
     from spacetime_tpu_torch.utils import profiling, roofline
 
     def x(cat, name, ts, dur, tid=1, corr=None):
@@ -416,10 +380,10 @@ def test_stage_breakdown_of_graph_replays():
     for corr, durs in ((1, (400, 600)), (2, (100,)), (3, (3000, 1000)), (4, (200,))):
         events += [x("kernel", "k", 1000 * corr + i, d, tid=7, corr=corr)
                    for i, d in enumerate(durs)]
-    stages = profiling.stage_breakdown(events, 2)
-    assert stages == pytest.approx({"step": 0.0005, "worldline": 0.00005, "render": 0.002,
-                                    "total": 0.00265})
-    assert profiling.stage_breakdown([e for e in events if e["cat"] != "kernel"], 2) == {}
+    by_range = profiling.attribute(events, 2)["by_range"]
+    assert {k: v[0] for k, v in by_range.items()} == pytest.approx(
+        {"step": 0.5, "worldline": 0.05, "render": 2.0, "(no range)": 0.1})
+    assert profiling.attribute([e for e in events if e["cat"] != "kernel"], 2)["by_range"] == {}
     # the bound of work at the H100 SXM's published peaks: bytes or operations
     assert roofline.Roofline(flops=67e9, bytes_accessed=3.35e9).bound_s == pytest.approx(1e-3)
     assert roofline.Roofline(flops=134e9, bytes_accessed=3.35e9).bound_by == "operations"

@@ -383,20 +383,6 @@ def test_bench_diff_matches_jax(case, tmp_path, capsys):
     assert ours == ref and code == jcode == {"regression": 1, "within": 0, "unknown": 2}[case]
 
 
-def test_bench_config_row_on_the_cpu(tiny_config, monkeypatch):
-    """The named-config row's protocol, shrunk: its slow-frame schedule
-    switches on what the first frames take."""
-    monkeypatch.setattr(bench, "CONFIG_WINDOWS", 2)
-    monkeypatch.setattr(bench, "SLOW_FRAME_S", 0.0)  # every frame "slow"
-    monkeypatch.setattr(bench, "SLOW_SCHEDULE", (6, 2))
-    row = bench.config_row(tiny_config, device="cpu")
-    assert row["config"] == tiny_config and row["particles"] > 0
-    assert row["schedule"] == "warm 6, best of 2 x 2 (slow-frame schedule)"
-    assert row["frame_ms"] > 0 and set(row["drops"]) == set(
-        ("grid_overflow", "window_truncated", "band_truncated", "bin_dropped", "cell_too_small",
-         "retina_dropped", "entry_dropped", "segment_dropped"))
-
-
 def test_build_capacity_is_bench_1m_scene():
     """The capacity scene at 2^20 particles (with a 2-tick ring here)."""
     from spacetime_tpu_torch import headline

@@ -9,6 +9,7 @@ collision kernel (interpret mode) and the XLA pixel path.
 
 import dataclasses
 import importlib
+import shutil
 import sys
 from pathlib import Path
 
@@ -188,23 +189,35 @@ def test_profile_attribution_of_a_trace():
     assert res["busy_ms"] == pytest.approx(2.0)
 
 
-def test_compare_kernels_binds_another_tree():
+def test_compare_kernels_binds_another_tree(tmp_path):
     """load_other imports another tree's package under a name of its own:
     its modules, its launch counts and its kernel build directory (under
-    that tree's build/) are its own, not this package's."""
+    that tree's build/) are its own, not this package's.  A tree from
+    before the step and retina kernels came in (no ops/step_cuda.py, no
+    ops/retina_cuda.py) has no module for them: tree_module gives None,
+    and its rows read absent (test_compare_kernels_needs_cuda)."""
     root = Path(__file__).resolve().parents[1]
-    name = "other_test_spacetime_tpu_torch"
+    old = tmp_path / "old"
+    shutil.copytree(root / "spacetime_tpu_torch", old / "spacetime_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "step_cuda.py",
+                                                  "retina_cuda.py"))
+    names = {"other_test_spacetime_tpu_torch": root, "old_test_spacetime_tpu_torch": old}
     try:
-        other = compare_kernels.load_other(str(root), name)
-        assert other.__name__ == name
-        okern = importlib.import_module(name + ".kernels")
-        ofc = importlib.import_module(name + ".ops.forces_cuda")
-        assert okern is not kernels and okern.launches is not kernels.launches
-        assert ofc.kernels is okern  # its wrappers count into its own table
-        assert okern.BUILD_DIR == root / "build" / "spacetime_tpu_torch"
+        for name, tree in names.items():
+            other = compare_kernels.load_other(str(tree), name)
+            assert other.__name__ == name
+            okern = importlib.import_module(name + ".kernels")
+            ofc = compare_kernels.tree_module(name, "ops.forces_cuda")
+            assert okern is not kernels and okern.launches is not kernels.launches
+            assert ofc.kernels is okern  # its wrappers count into its own table
+            assert okern.BUILD_DIR == tree / "build" / "spacetime_tpu_torch"
+            for module in ("ops.step_cuda", "ops.retina_cuda"):
+                got = compare_kernels.tree_module(name, module)
+                assert (got is None) == (tree == old), (name, module)
     finally:
-        for mod in [m for m in sys.modules if m == name or m.startswith(name + ".")]:
-            del sys.modules[mod]
+        for name in names:
+            for mod in [m for m in sys.modules if m == name or m.startswith(name + ".")]:
+                del sys.modules[mod]
 
 
 def test_compare_kernels_collision_inputs():
@@ -264,7 +277,27 @@ def test_pixel_share_counts_mismatched_pixels():
         checks.pixel_share(ours, plain)
 
 
-def test_compare_kernels_needs_cuda():
+def test_compare_kernels_needs_cuda(capsys):
+    """Without CUDA the tool refuses (exit 1).  A row reads each tree in
+    order, a tree without the kernel as absent, not as an error; then the
+    plain and library times, and the bound's share of this tree's mean."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert compare_kernels.main([]) == 1
+    times = {"this": 2.0, "plain": 30.0, "library": 0.5}
+    runs = {"old": None, "this": lambda: "this"}
+    timer = lambda run, reps: times[run()]
+    readings, row = compare_kernels.read_row(
+        "retina, 2^20", runs, ["old", "this", "this", "old"], timer,
+        plain=lambda: "plain", library=lambda: "library", bound=(0.5, "operations"))
+    assert [(r["tree"], r["ms"]) for r in readings] == [
+        ("old", None), ("this", 2.0), ("this", 2.0), ("old", None)]
+    assert row == {"kernel": "retina, 2^20", "ms": 2.0, "plain_ms": 30.0, "library_ms": 0.5,
+                   "bound_ms": 0.5, "bound_by": "operations", "roofline": 0.25}
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].split()[-1] == "absent" and lines[1].endswith("2.00000 ms")
+    assert "roofline 25.0%" in lines[-1]
+    # a row no tree has: every reading absent, no share
+    _, row = compare_kernels.read_row("retina", {"old": None}, ["old"], timer,
+                                      bound=(0.5, "operations"))
+    assert row["ms"] is None and row["roofline"] is None
