@@ -197,8 +197,19 @@ just after:
     branch), and the points kernel's winner pass over 2 and 4 particle
     blocks, MIN-reduced and resolved (the refdemo points state).
 
-The collision inputs at RK4 stage 3, the retina inputs of a frame, the
-2^20 state and the kernel-vs-plain comparisons are
+Every retarded frame off a mesh also counts one `pairs` launch (the
+pair-rows kernel, csrc/pairs.cu: the main path, the fused headline, the
+retarded, boosted and plastic Engines, render_views, the unpadded
+flagship, the refdemo frame, aloof bodies, png_demo and the capacity
+frames); the instant, retina, conical, worldline3d, BTZ and points modes
+and every mesh run count none (the points Engine's 0 is gated).  Wherever
+the retina kernel is held to plain on a retarded frame's inputs, the
+pair-rows kernel is too (`check_pairs`: rows, flags and counts bit-equal
+to the plain chain), and on the refdemo frame also at the refdemo_116k
+cell's budgets.
+
+The collision inputs at RK4 stage 3, the retina and pair-rows inputs of
+a frame, the 2^20 state and the kernel-vs-plain comparisons are
 spacetime_tpu_torch/checks.py's, which compare_kernels uses too.
 
 Output: one line per phase, then a JSON line of per-kernel results (the
@@ -220,8 +231,8 @@ import torch
 
 from spacetime_tpu_torch.checks import (BAND_FIELDS, CAPACITY_FRAMES, PIXEL_SHARE, PIXEL_TOL,
                                         band_unequal, capacity_frames, collision_error,
-                                        collision_inputs, frame_retina, pixel_inputs,
-                                        pixel_share, step_planes)
+                                        collision_inputs, frame_pairs, frame_retina,
+                                        pairs_unequal, pixel_inputs, pixel_share, step_planes)
 from spacetime_tpu_torch.device import card_line
 
 FRAMES = 200  # the discs meet at about frame 170
@@ -368,9 +379,10 @@ def main_path(model, particles, objects, buf, cam, params):
           f"{occupied:.4f}; bonds broken (last frame) {int(aux.bonds_broken)}")
     if (counts["collision"] != 4 * FRAMES or counts["pixel_pass"] != FRAMES
             or counts["band"] != FRAMES or counts["bond_stage"] != 4 * FRAMES
-            or counts["step_finish"] != FRAMES or counts["retina_march"] != FRAMES):
+            or counts["step_finish"] != FRAMES or counts["retina_march"] != FRAMES
+            or counts["pairs"] != FRAMES):
         raise AssertionError(f"main path launches {counts}, expected 4x / 1x / 1x / 4x / 1x / "
-                             f"1x {FRAMES}")
+                             f"1x / 1x {FRAMES}")
     if any(sums.values()):
         raise AssertionError(f"nonzero diagnostics over the run: {sums}")
     if img.shape != (3, HEIGHT, WIDTH) or not torch.isfinite(img).all() or occupied <= 0.0:
@@ -421,6 +433,28 @@ def check_retina(args, when):
     if not torch.equal(ours, plain) or not torch.equal(out, plain) or hits == 0:
         raise AssertionError(f"retina kernel differs from plain (max abs err {err}) or no ray "
                              f"hits ({hits})")
+    return err
+
+
+def check_pairs(args, when):
+    """The pair-rows kernel against the plain chain on one frame's inputs
+    (checks.frame_pairs): rows, pair_valid and counts bit-equal.  Returns
+    the max abs err of the rows."""
+    from spacetime_tpu_torch.ops import pairs_cuda
+
+    ours = pairs_cuda.pair_rows(*args)
+    plain = pairs_cuda.pair_rows_plain(*args)
+    unequal = pairs_unequal(ours, plain)
+    a, b = ours[0].pdata, plain[0].pdata
+    err = ((a.double() - b.double()).abs().max().item()
+           if a.shape == b.shape and a.numel() else 0.0)
+    print(f"pairs check ({when}; band {args[7].band}, segments {args[7].segments}, pair_budget "
+          f"{args[7].pair_budget}): {int(plain[0].n_pairs)} valid rows, "
+          f"{tuple(plain[0].pdata.shape)} out, boundary rows first "
+          f"{None if plain[1] is None else int(plain[1])}, max abs err {err:.3e} (bit-equal "
+          f"required)")
+    if unequal or int(plain[0].n_pairs) == 0:
+        raise AssertionError(f"pair-rows kernel differs from plain in {unequal} or no valid row")
     return err
 
 
@@ -609,8 +643,10 @@ def check_graph_vs_eager(device):
           f"{graph_diff or 'nothing'}; graph launches {counts}, {stats}; graph drop counters "
           f"summed over the run {drops}")
     if counts["collision"] != 4 * FRAMES or counts["band"] != FRAMES \
-            or counts["pixel_pass"] != FRAMES or counts["retina_march"] != FRAMES:
-        raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x / 1x {FRAMES}")
+            or counts["pixel_pass"] != FRAMES or counts["retina_march"] != FRAMES \
+            or counts["pairs"] != FRAMES:
+        raise AssertionError(f"graph launches {counts}, expected 4x / 1x / 1x / 1x / 1x "
+                             f"{FRAMES}")
     if (stats["captures"], stats["replays"]) != (1, FRAMES - 1):
         raise AssertionError(f"graph run {stats}: expected one capture and {FRAMES - 1} replays")
     if not eager_diff:
@@ -675,7 +711,8 @@ def check_graph_cache(device):
 
 
 def check_engine_kernels(eng):
-    """The band, retina and pixel kernels against plain on the Engine's
+    """The band, retina, pair-rows (retarded mode) and pixel kernels against
+    plain on the Engine's
     final state, at the render params its last frame used (boosted band and
     bin capacity, view-derived max_age, ladder cell size; instant mode's
     opaque=False, retarded=False; the camera-frame flag); the retina where
@@ -691,6 +728,10 @@ def check_engine_kernels(eng):
         errs["band"] = check_band(eng.worldline, eng.camera, p, when)
     if p.opaque and p.retarded:
         errs["retina_march"] = check_retina(frame_retina(
+            eng.worldline, eng.particles, eng.objects, eng.camera, p, cfg.width, cfg.height),
+            when)
+    if cfg.render_mode == "retarded":
+        errs["pairs"] = check_pairs(frame_pairs(
             eng.worldline, eng.particles, eng.objects, eng.camera, p, cfg.width, cfg.height),
             when)
     errs["pixel_pass"] = check_pixel(eng.particles, eng.objects, eng.worldline, eng.camera, p,
@@ -713,6 +754,7 @@ def engine_points(device):
     eng.run(POINTS_FRAMES)
     torch.cuda.synchronize()
     launches = kernels.launches["points"]
+    pairs_launches = kernels.launches["pairs"]
     p, cfg = eng.particles, eng.config
     img = eng.render().permute(2, 0, 1)
     plain = points_cuda.render_points_plain(p, eng.objects, eng.camera, cfg.width, cfg.height)
@@ -730,8 +772,9 @@ def engine_points(device):
     print(f"engine points (refdemo): {int(p.active.sum())} active of {p.capacity}; points "
           f"launches {launches}; {covered} pixels covered; kernel vs plain max abs err "
           f"{err:.3e} (bit-equal required), relaunch bit-equal, scratch clean {clean}")
-    if launches != POINTS_FRAMES:
-        raise AssertionError(f"{launches} points launches, expected {POINTS_FRAMES}")
+    if launches != POINTS_FRAMES or pairs_launches != 0:
+        raise AssertionError(f"{launches} points and {pairs_launches} pairs launches, expected "
+                             f"{POINTS_FRAMES} and 0")
     if not torch.equal(img, plain) or not torch.equal(again, plain) or covered == 0:
         raise AssertionError("points kernel image differs from the plain renderer")
     if not clean:
@@ -1049,9 +1092,10 @@ def engine_rows(device):
           f"{int(((p.neighbors >= 0) & p.active[:, None]).sum())}; boosts "
           f"{ {f: getattr(eng, f) for f in eng._ADAPT_FIELDS} }")
     if counts["collision_exclude"] != 4 * ROWS_FRAMES or counts["collision"] != 0 \
-            or counts["band"] != ROWS_FRAMES or counts["pixel_pass"] != ROWS_FRAMES:
+            or counts["band"] != ROWS_FRAMES or counts["pixel_pass"] != ROWS_FRAMES \
+            or counts["pairs"] != ROWS_FRAMES:
         raise AssertionError(f"row-physics launches {counts}, expected 4 exclude-variant "
-                             f"collision, 1 band and 1 pixel pass a frame")
+                             f"collision, 1 band, 1 pairs and 1 pixel pass a frame")
     if not torch.isfinite(p.pos).all() or lit <= 0.0:
         raise AssertionError("row-physics run is not finite or shows no matter")
     err = check_collision_state(p, eng.model, "the unpadded flagship's final state",
@@ -1167,8 +1211,9 @@ def refdemo_frame(device):
     if unequal:
         raise AssertionError(f"refdemo graph frames differ from eager ones in {unequal}")
     if (counts["collision"] != 4 * REFDEMO_FRAMES or counts["band"] != REFDEMO_FRAMES
-            or counts["pixel_pass"] != REFDEMO_FRAMES or counts["retina_march"] != REFDEMO_FRAMES):
-        raise AssertionError(f"refdemo launches {counts}, expected 4x / 1x / 1x / 1x "
+            or counts["pixel_pass"] != REFDEMO_FRAMES or counts["retina_march"] != REFDEMO_FRAMES
+            or counts["pairs"] != REFDEMO_FRAMES):
+        raise AssertionError(f"refdemo launches {counts}, expected 4x / 1x / 1x / 1x / 1x "
                              f"{REFDEMO_FRAMES}")
     if any(drops.values()) or pairs > params.pair_budget:
         raise AssertionError(f"refdemo drops {drops}, pairs {pairs} of {params.pair_budget}")
@@ -1183,7 +1228,12 @@ def refdemo_frame(device):
             # at the benchmark's refdemo_116k retina: 4,096 rays x 16,384 rows
             "retina_march": check_retina(frame_retina(
                 state.buf, p, objects, cam, dataclasses.replace(params, retina_budget=16384),
-                headline.WIDTH, headline.HEIGHT), f"{when}, retina_budget 16384")}
+                headline.WIDTH, headline.HEIGHT), f"{when}, retina_budget 16384"),
+            # at the frame's rank compaction, and at the refdemo_116k cell's budgets
+            "pairs": max(check_pairs(frame_pairs(
+                state.buf, p, objects, cam, cell, headline.WIDTH, headline.HEIGHT), when)
+                for cell in (params, dataclasses.replace(
+                    params, band=6, segments=6, pair_budget=262144, retina_budget=16384)))}
     return state, model, objects, params, errs, counts
 
 
@@ -1263,8 +1313,9 @@ def check_views(eng):
           f"render {equal}, lit shares {[round(_lit(s, params), 4) for s in singles]}")
     if batch.shape != (3, cfg.height, cfg.width, 3) or not all(equal):
         raise AssertionError("render_views differs from single renders")
-    if counts["band"] != 3 or counts["pixel_pass"] != 3:
-        raise AssertionError(f"render_views launches {counts}, expected 3 band and 3 pixel")
+    if counts["band"] != 3 or counts["pixel_pass"] != 3 or counts["pairs"] != 3:
+        raise AssertionError(f"render_views launches {counts}, expected 3 band, 3 pairs and 3 "
+                             f"pixel")
 
 
 def graph_vs_eager(eng, frames=REFDEMO_COMPARE_FRAMES):
@@ -1521,7 +1572,7 @@ def engine_aloof(device):
     # moved to the front, the padded lattice's bonds lose their constant
     # offsets: the row-gather physics, the bond-excluding collision variant
     coll = "collision" if eng.model.spring_offsets is not None else "collision_exclude"
-    want = with_step({coll: 4, "band": 1, "pixel_pass": 1, "retina_march": 1})
+    want = with_step({coll: 4, "band": 1, "pairs": 1, "pixel_pass": 1, "retina_march": 1})
     g = eng.graph_stats
     keys = len(eng._fused_cache)
     if any(counts[k] != want.get(k, 0) * ALOOF_FRAMES for k in counts) \
@@ -1609,7 +1660,8 @@ def io_png_demo(tmp):
     if names != want or unequal or lit <= 0.0:
         raise AssertionError(f"png_demo frames: {names}, unequal at {unequal}, lit {lit}")
     if counts != {**{k: 0 for k in counts}, **{k: v * IO_PNG_FRAMES for k, v in with_step(
-            {"collision": 4, "band": 1, "pixel_pass": 1, "retina_march": 1}).items()}}:
+            {"collision": 4, "band": 1, "pairs": 1, "pixel_pass": 1,
+             "retina_march": 1}).items()}}:
         raise AssertionError(f"png_demo launches {counts}")
     return counts
 
@@ -1799,7 +1851,7 @@ def io_capacity(device):
     pairs = int(fused.unpack(counters[-1], render)[1].pairs_used)
     steps = counts["step_finish"]
     want = {k: with_step({"collision": 4}).get(k, 0) * steps for k in counts}
-    want.update({k: CAPACITY_FRAMES for k in ("band", "pixel_pass", "retina_march")})
+    want.update({k: CAPACITY_FRAMES for k in ("band", "pairs", "pixel_pass", "retina_march")})
     p = state.particles
     print(f"io (e) capacity (2^20): {int(p.active.sum())} active of {p.capacity}, {steps} steps "
           f"then {CAPACITY_FRAMES} fused frames; launches {counts}; graphs {frame.stats}; drop "
@@ -1813,15 +1865,18 @@ def io_capacity(device):
     cam = fused.camera_of(state.frame_in)
     size = (headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT)
     when = "capacity, after its frames"
-    band = check_band(state.buf, cam, params, when)
-    pix = check_pixel(p, objects, state.buf, cam, params, *size, when)
-    retina = check_retina(frame_retina(state.buf, p, objects, cam, params, *size), when)
-    return counts, band, pix, retina
+    errs = {"band": check_band(state.buf, cam, params, when),
+            "pixel_pass": check_pixel(p, objects, state.buf, cam, params, *size, when),
+            "retina_march": check_retina(frame_retina(state.buf, p, objects, cam, params, *size),
+                                         when),
+            "pairs": check_pairs(frame_pairs(state.buf, p, objects, cam, params, *size), when)}
+    return counts, errs
 
 
 def io_phase(device):
-    """Phases (a)-(e) (see the module docstring): {path: launches}, the
-    band and pixel errors and the retina error at 2^20."""
+    """Phases (a)-(e) (see the module docstring): {path: launches} and
+    the band, pixel, retina and pair-rows errors at 2^20 ({kernel: max abs
+    err})."""
     import shutil
     import tempfile
 
@@ -1836,11 +1891,11 @@ def io_phase(device):
         io_sink_costs(frame, tmp)
         launches["record_replay"] = io_replay(tmp)
         launches["realtime"] = io_realtime()
-        launches["capacity"], band_err, pix_err, retina = io_capacity(device)
+        launches["capacity"], errs = io_capacity(device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"io phase: native sink builds failed: {native.build_errors or 'none'}")
-    return launches, band_err, pix_err, retina
+    return launches, errs
 
 
 def _shares(n: int, parts: int):
@@ -2096,7 +2151,8 @@ def main() -> int:
     # just before it)
     eng, _ = engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats"],
-        ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
+        ENGINE_FRAMES, {"collision": 4, "pixel_pass": 1, "band": 1, "pairs": 1,
+                        "retina_march": 1})
     retarded_errs = check_engine_kernels(eng)
     check_profile_stages(eng)
     check_views(eng)
@@ -2104,7 +2160,7 @@ def main() -> int:
     engine_via_cli(
         ["--config", "flagship_1080p", "--frames", str(ENGINE_FRAMES), "--stats",
          "--stage-timing"], ENGINE_FRAMES,
-        {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
+        {"collision": 4, "pixel_pass": 1, "band": 1, "pairs": 1, "retina_march": 1})
     eng, _ = engine_via_cli(["--config", "flagship_1080p", "--frames", str(INSTANT_FRAMES),
                                 "--mode", "instant"], INSTANT_FRAMES,
                                {"collision": 4, "pixel_pass": 1, "band": 0})
@@ -2114,19 +2170,21 @@ def main() -> int:
     pix_err = max(pix_err, retarded_errs["pixel_pass"], instant_errs["pixel_pass"])
     band_err = max(band_err, retarded_errs["band"])
     retina_err = retarded_errs["retina_march"]
+    pairs_err = retarded_errs["pairs"]
     pts_launches, pts_err = engine_points(device)
 
     # the paths of this slice, each with its launch counts reset just before
     eng, boosted_counts = engine_via_cli(
         ["--config", "boosted_observer", "--frames", str(BOOSTED_FRAMES), "--stats"],
         BOOSTED_FRAMES,
-        {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1, "retina_march": 1},
-        drops="gate")
+        {"collision": 4, "pixel_pass_camera_frame": 1, "band": 1, "pairs": 1,
+         "retina_march": 1}, drops="gate")
     boosted_errs = check_engine_kernels(eng)
     when = "engine boosted_observer, final state"
     check_pixel_bands(eng.particles, eng.objects, eng.worldline, eng.camera,
                       eng._render_params(), eng.config.width, eng.config.height, when)
     band_err = max(band_err, boosted_errs["band"])
+    pairs_err = max(pairs_err, boosted_errs["pairs"])
     cf_err = max(boosted_errs["pixel_pass"], check_pixel(
         eng.particles, eng.objects, eng.worldline, eng.camera,
         dataclasses.replace(eng._render_params(), bin_capacity=BIG_BIN_CAPACITY),
@@ -2134,7 +2192,8 @@ def main() -> int:
     del eng
     eng, _ = engine_via_cli(["--config", "plastic_collision", "--frames", str(PLASTIC_FRAMES),
                              "--stats"], PLASTIC_FRAMES,
-                            {"collision": 4, "pixel_pass": 1, "band": 1, "retina_march": 1})
+                            {"collision": 4, "pixel_pass": 1, "band": 1, "pairs": 1,
+                             "retina_march": 1})
     check_plastic(eng)
     del eng
     ex_launches, ex_err = engine_rows(device)
@@ -2149,6 +2208,7 @@ def main() -> int:
     band_err = max(band_err, rd_errs["band"])
     coll_err = max(coll_err, rd_errs["collision"])
     retina_err = max(retina_err, rd_errs["retina_march"])
+    pairs_err = max(pairs_err, rd_errs["pairs"])
     del state, objects
     engine_via_cli(["--config", "accelerated_camera", "--mode", "retina", "--frames",
                     str(RETINA_FRAMES), "--stats"], RETINA_FRAMES, {"collision": 4, "band": 1})
@@ -2172,10 +2232,11 @@ def main() -> int:
     coll_err = max(coll_err, *(r[1] for r in btz_runs.values()))
 
     # the paths of this slice: I/O and tooling
-    io_launches, io_band_err, io_pix_err, io_retina_err = io_phase(device)
-    band_err = max(band_err, io_band_err)
-    pix_err = max(pix_err, io_pix_err)
-    retina_err = max(retina_err, io_retina_err)
+    io_launches, io_errs = io_phase(device)
+    band_err = max(band_err, io_errs["band"])
+    pix_err = max(pix_err, io_errs["pixel_pass"])
+    retina_err = max(retina_err, io_errs["retina_march"])
+    pairs_err = max(pairs_err, io_errs["pairs"])
 
     # the path of this slice: the Engine on a one-rank NCCL mesh
     mesh_counts = mesh_phase(device)
@@ -2212,12 +2273,16 @@ def main() -> int:
         # the retina march replaces no TPU kernel
         record("retina_march", "retina.cu", "none: the JAX package's plain jnp _retina "
                "(spacetime_tpu/ops/raytrace.py:1373)", counts["retina_march"], retina_err),
+        # nor does the pair-rows kernel
+        record("pairs", "pairs.cu", "none: the JAX package's plain jnp _band_pairs and "
+               "_compact_pairs_two_segment (spacetime_tpu/ops/raytrace.py)", counts["pairs"],
+               pairs_err),
     ]
     # the I/O phase's launches by path and the mesh phase's, beside each
     # kernel's main-path count
     for row, key in zip(rows, ("collision", "pixel_pass", "band", "points",
                                "collision_exclude", "pixel_pass_camera_frame", "bond_stage",
-                               "step_finish", "step_finish", "retina_march")):
+                               "step_finish", "step_finish", "retina_march", "pairs")):
         row["launches_io"] = {path: c[key] for path, c in io_launches.items()}
         row["launches_mesh"] = mesh_counts[key]
     print(json.dumps({"kernels": rows}))

@@ -48,6 +48,21 @@ def band_unequal(ours, plain) -> list:
     return [n for n in BAND_FIELDS if not torch.equal(getattr(ours, n), getattr(plain, n))]
 
 
+def pairs_unequal(ours, plain) -> list:
+    """The parts in which two (PairData, n_first, segment_dropped) results,
+    the pair-rows kernel's and the plain chain's, differ: the rows bit for
+    bit, pair_valid and each count exactly (the kernel must match it)."""
+    bits = lambda x: x.view(torch.int32) if x.dtype == torch.float32 else x
+    (po, *counts_o), (pp, *counts_p) = ours, plain
+    bad = [name for name in ("pdata", "pair_valid", "n_pairs")
+           if getattr(po, name).shape != getattr(pp, name).shape
+           or not torch.equal(bits(getattr(po, name)), bits(getattr(pp, name)))]
+    for name, a, b in zip(("n_first", "segment_dropped"), counts_o, counts_p):
+        if (a is None) != (b is None) or (a is not None and int(a) != int(b)):
+            bad.append(name)
+    return bad
+
+
 def pixel_inputs(particles, objects, buf, cam, params, width, height):
     """(PixelInputs, RenderDiag) of a frame's pixel pass: the CSR that
     `params` builds from the ring `buf`, as raytrace.render_retarded does."""
@@ -80,35 +95,52 @@ def step_planes(particles, model):
         rest=p.rest_len if p.rest_len is not None else model.rest_lengths)
 
 
-def retina_inputs(run):
-    """The arguments (pairs, cam, t_now, params) of every retina march that
-    `run()` makes, in order."""
-    from .ops import retina_cuda
-
-    seen, real = [], retina_cuda.retina_march
+def calls_of(module, name, run):
+    """The arguments of every call of `module.name` that `run()` makes, in
+    order (the calls still run)."""
+    seen, real = [], getattr(module, name)
 
     def record(*args):
         seen.append(args)
         return real(*args)
 
-    retina_cuda.retina_march = record
+    setattr(module, name, record)
     try:
         run()
     finally:
-        retina_cuda.retina_march = real
+        setattr(module, name, real)
     return seen
+
+
+def _frame_calls(module, name, buf, particles, objects, cam, params, width, height):
+    """The arguments of the one call of `module.name` in one retarded frame
+    at `params`, built as the Engine builds it."""
+    from .ops import raytrace
+    from .ops import worldline as wl
+
+    (args,) = calls_of(module, name, lambda: raytrace.prepare_pixel_pass(
+        buf, particles.object_index, objects, cam, width, height, params,
+        boundary=wl.boundary_mask(particles)))
+    return args
 
 
 def frame_retina(buf, particles, objects, cam, params, width, height):
     """The inputs of the retina march of one retarded frame at `params`: the
-    frame's own prefix of boundary pairs, built as the Engine builds it."""
-    from .ops import raytrace
-    from .ops import worldline as wl
+    frame's own prefix of boundary pairs."""
+    from .ops import retina_cuda
 
-    (args,) = retina_inputs(lambda: raytrace.prepare_pixel_pass(
-        buf, particles.object_index, objects, cam, width, height, params,
-        boundary=wl.boundary_mask(particles)))
-    return args
+    return _frame_calls(retina_cuda, "retina_march", buf, particles, objects, cam, params,
+                        width, height)
+
+
+def frame_pairs(buf, particles, objects, cam, params, width, height):
+    """The inputs of the pair-rows kernel in one retarded frame at `params`
+    (a card frame): (band window, object ids, objects, cam, t_now, width,
+    height, params, the boundary mask or None)."""
+    from .ops import pairs_cuda
+
+    return _frame_calls(pairs_cuda, "pair_rows", buf, particles, objects, cam, params, width,
+                        height)
 
 
 def capacity_frames(device):

@@ -30,7 +30,11 @@ reading (utils/timing.cuda_ms):
     breaking), and `step_finish`, on the 2^20 state's own planes;
   * the retina kernel's launch at the refdemo_116k and capacity_2p20
     cells' 4,096 rays x 16,384 pair rows, on the refdemo and 2^20 frames'
-    boundary pairs (`checks.frame_retina`), warm.
+    boundary pairs (`checks.frame_retina`), warm;
+  * the pair-rows kernel on the same two frames' band windows at their
+    cells' render budgets (`checks.frame_pairs`), warm on the refdemo
+    frame (its window fits the L2) and with the L2 evicted at 2^20 (a
+    frame finds its 105 MB window there in device memory).
 
 Each `--other DIR` loads `DIR/spacetime_tpu_torch` as another package, its
 kernels built from its own sources under DIR/build/: a parent commit
@@ -39,12 +43,13 @@ edited to re-tune them (`kLanesInclude`, `kLanesExclude`, `kThreads` in
 csrc/collision.cu; `kSlices` in csrc/band.cu; `kLanesGround`,
 `kLanesCamera`, `kWarps` in csrc/pixel_pass.cu: lanes per run of 4 pixels
 in each branch, warps per block).  A tree without a kernel's module (one
-from before the kernel came in: `ops/step_cuda.py`, `ops/retina_cuda.py`)
+from before the kernel came in: `ops/step_cuda.py`, `ops/retina_cuda.py`,
+`ops/pairs_cuda.py`)
 reads "absent" on that row.  Every reading is taken in the order: the
 other trees, this tree twice, the other trees in reverse.  Every tree's
 result is first held against the plain version by chip_smoke.py's checks
 (checks.py: `collision_error`, `band_unequal`, `pixel_share`; points,
-retina and the step's accumulators bit-equal).  Prints the card, the
+retina, pair rows and the step's accumulators bit-equal).  Prints the card, the
 launch floor, one line per reading, one line per row with the plain
 version's time, the library call's where one stands for part of the work,
 and the bound (utils/roofline.py) with this tree's roofline share, and,
@@ -64,8 +69,8 @@ from pathlib import Path
 import torch
 
 from .checks import (CAPACITY_FRAMES, CAPACITY_STEPS, band_unequal, capacity_frames,
-                     collision_error, collision_inputs, frame_retina, pixel_inputs, pixel_share,
-                     step_planes)
+                     collision_error, collision_inputs, frame_pairs, frame_retina, pairs_unequal,
+                     pixel_inputs, pixel_share, step_planes)
 
 FRAMES = 200  # the headline discs meet at about frame 170
 ROWS_FRAMES = 200  # the unpadded flagship discs meet near frame 120
@@ -74,6 +79,8 @@ POINTS_FRAMES = 100  # chip_smoke.py's points run
 REFDEMO_FRAMES = 70  # chip_smoke.py's refdemo frames (the discs meet near frame 350)
 STEP_CAPACITY_STEPS = 130  # the capacity boxes touch in step 119
 RETINA_ROWS = 16384  # the retarded cells' retina_budget
+# the refdemo_116k cell's render budgets (benchmark/configs/refdemo_116k.json)
+REFDEMO_CELL = dict(band=6, segments=6, pair_budget=262144, retina_budget=RETINA_ROWS)
 REPS = 50
 PLAIN_REPS = 5
 
@@ -177,7 +184,8 @@ def main(argv=None) -> int:
     from . import fused, headline, kernels
     from .camera import world_to_pixel
     from .device import card_line
-    from .ops import band_cuda, forces_cuda, points_cuda, raytrace, render_cuda, retina_cuda, rk4
+    from .ops import (band_cuda, forces_cuda, pairs_cuda, points_cuda, raytrace, render_cuda,
+                      retina_cuda, rk4)
     from .utils import roofline
     from .utils.timing import cuda_ms, launch_floor_ms
 
@@ -389,6 +397,27 @@ def main(argv=None) -> int:
             "ops.retina_cuda", retina_run, retina_check,
             plain=lambda: retina_cuda.retina_march_plain(pairs, rcam_, t_now, rpar),
             bound=roofline.retina_bound(pairs, rpar))
+
+    for label, frame, cold in (
+            ("pairs, refdemo", (rbuf, rp_, robjects, rcam,
+                                dataclasses.replace(rparams, **REFDEMO_CELL),
+                                headline.WIDTH, headline.HEIGHT), False),
+            ("pairs, 2^20, L2 evicted", (cstate.buf, cp, cobjects, ccam, cparams,
+                                         headline.CAPACITY_WIDTH, headline.CAPACITY_HEIGHT),
+             True)):
+        args = frame_pairs(*frame)
+        want = pairs_cuda.pair_rows_plain(*args)
+
+        def pairs_check(tree, ours):
+            bad = pairs_unequal(ours, want)
+            if bad:
+                raise AssertionError(f"pair-rows kernel of {tree} differs from plain in {bad}")
+
+        rows, n_pairs = want[0].pdata.shape[0], int(want[0].n_pairs)
+        row(f"{label} ({n_pairs} valid, {rows} rows out)", "ops.pairs_cuda",
+            lambda pkg: lambda: imported(pkg, "ops.pairs_cuda").pair_rows(*args), pairs_check,
+            cold=cold, plain=lambda: pairs_cuda.pair_rows_plain(*args),
+            bound=roofline.pairs_bound(args[0], args[7], rows, min(n_pairs, rows)))
     print(json.dumps(out))
     return 0
 

@@ -16,10 +16,12 @@ launches its kernel and nowhere else; `reset_launch_counts` zeroes them.
 A kernel's variants count apart: `collision` (bonded pairs included) and
 `collision_exclude`, `pixel_pass` and `pixel_pass_camera_frame`; the step's
 `bond_stage` (one a force evaluation) and `step_finish` (one a step);
-`retina_march` (one an occlusion retina).  A CUDA graph capture (fused.py)
-runs the wrappers but launches nothing: the counts it makes are taken back
-out (`held_apart`) and added once per replay of the graph (`add_launches`),
-so the counts stay those of kernels that ran.
+`retina_march` (one an occlusion retina); `pairs` (one a retarded frame's
+pair rows: one call of csrc/pairs.cu, whose two kernels count as one).  A
+CUDA graph capture (fused.py) runs the wrappers but launches nothing: the
+counts it makes are taken back out (`held_apart`) and added once per
+replay of the graph (`add_launches`), so the counts stay those of kernels
+that ran.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu", "step.cu", "retina.cu")
+SOURCES = ("collision.cu", "pixel_pass.cu", "band.cu", "points.cu", "step.cu", "retina.cu",
+           "pairs.cu")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "spacetime_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,7 +47,7 @@ NVCC_FLAGS = (
 
 launches = {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
             "pixel_pass_camera_frame": 0, "band": 0, "points": 0, "bond_stage": 0,
-            "step_finish": 0, "retina_march": 0}
+            "step_finish": 0, "retina_march": 0, "pairs": 0}
 
 
 class BondStageArgs(ctypes.Structure):
@@ -58,6 +61,17 @@ class BondStageArgs(ctypes.Structure):
                                                    "rest_stride", "weight")]
     _fields_ += [(name, ctypes.c_float) for name in ("k", "k_half", "cd2", "repulsion",
                                                      "h_adv", "c2", "threshold", "h")]
+
+
+class PairRowsArgs(ctypes.Structure):
+    """csrc/pairs.cu's PairRowsArgs, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "wx", "wy", "wvx", "wvy", "ages", "hi0", "cam_pos", "t_now", "pixel_size", "obj_index",
+        "base_color", "boundary", "mask", "tiles", "pdata", "pair_valid", "totals")]
+    _fields_ += [(name, ctypes.c_int) for name in ("n", "band", "k", "out_rows", "dense",
+                                                   "width", "height")]
+    _fields_ += [(name, ctypes.c_float) for name in ("dt", "rho", "margin")]
 
 
 class StepFinishArgs(ctypes.Structure):
@@ -197,6 +211,14 @@ def library() -> ctypes.CDLL:
     lib.bond_stage_launch.restype = ci
     lib.step_finish_launch.argtypes = [ctypes.POINTER(StepFinishArgs), vp]
     lib.step_finish_launch.restype = ci
+    lib.pairs_struct_size.argtypes = lib.pairs_tile.argtypes = []
+    lib.pairs_struct_size.restype = lib.pairs_tile.restype = ci
+    if lib.pairs_struct_size() != ctypes.sizeof(PairRowsArgs):
+        raise RuntimeError(f"csrc/pairs.cu's PairRowsArgs ({lib.pairs_struct_size()} bytes) "
+                           f"does not match kernels.PairRowsArgs "
+                           f"({ctypes.sizeof(PairRowsArgs)})")
+    lib.pair_rows_launch.argtypes = [ctypes.POINTER(PairRowsArgs), vp]
+    lib.pair_rows_launch.restype = ci
     _lib = lib
     return lib
 

@@ -8,14 +8,21 @@ radius-rho discs; between stored ticks each disc sweeps a linear capsule
 in (x, y, t).
 
 Per frame (`render_retarded`):
-  1. `_band_pairs`: the cone band search (ops/band_cuda.py: a CUDA kernel
-     on the card, a dense sweep on the CPU) finds each particle's
-     cone-crossing tick band; its (N, band) segments become pair rows of
-     10 fields (`_F_*`), culled to the view hull.  With
+  1. the cone band search (ops/band_cuda.py: the band kernel, csrc/band.cu,
+     on the card, a dense sweep over every swept age on the CPU; the JAX
+     package's module docstring, `spacetime_tpu/ops/raytrace.py:28-34`,
+     still describes a binary search, but both packages sweep densely)
+     finds each particle's cone-crossing tick band; its (N, band) segments
+     become pair rows of 10 fields (`_F_*`), culled to the view hull.  With
      `retarded=False` (the instantaneous view) `_instant_pairs` takes its
      place: each particle's newest segment only, and no occlusion.
   2. compaction to `pair_budget`; with a boundary mask, boundary pairs go to
      the front so the occlusion retina reads a prefix of `retina_budget`.
+  `_frame_pairs` does both: on the card (no mesh) the pair-rows kernel
+  (ops/pairs_cuda.py, csrc/pairs.cu) writes the compacted rows from the
+  band kernel's window; on the CPU and on a mesh the plain chain
+  (`_band_pairs`, then `_compact_pairs`) builds all N * k rows and sorts
+  them.
   3. `_retina`: the first hit per angle over the retina pairs (ops/
      retina_cuda.py: a CUDA kernel on the card, a chunked march on the CPU).
   4. `_splat_csr`: every pair splats into the view cells (k x k pixel
@@ -50,10 +57,10 @@ order), and `_cell_pixel_coords`, `_occupancy_cells`, `_field_at` and
 `_assemble_image` test every pixel of a cell against its table, in blocks
 of cells (`ROUTE_PASS_ELEMENTS`).
 
-Steps 1 (on the Euclidean route), 3 (ops/retina_cuda.py) and 5 have CUDA
-kernels; the compaction, splat, the route pass and the retina mode's march
-are plain torch on every device (in the JAX package they are XLA, not
-Pallas).
+Steps 1 and 2 (on the Euclidean route), 3 (ops/retina_cuda.py) and 5 have
+CUDA kernels; the splat, the route pass, the curved modes' compaction and
+the retina mode's march are plain torch on every device (in the JAX
+package they are XLA, not Pallas).
 
 On a mesh (`mesh`, parallel/; the JAX render under GSPMD,
 `spacetime_tpu/ops/raytrace.py:196-199, 1612-1613, 1671`) the ring holds
@@ -78,7 +85,7 @@ from ..constants import C2
 from ..parallel import comm
 from ..state import Objects
 from ..utils.profiling import spanned
-from . import band_cuda, boost, render_cuda, retina_cuda
+from . import band_cuda, boost, pairs_cuda, render_cuda, retina_cuda
 from .worldline import WorldlineBuffer, newest_time, row_at_age
 
 _BIG = 3.0e38
@@ -311,6 +318,12 @@ def _view_grid(width, height, cam, k):
     return wc_img, hc_img, pixel_size, x0, y0
 
 
+def _pair_slots(params: RenderParams) -> int:
+    """Pair rows a particle owns: `segments` with rank compaction, else
+    `band`."""
+    return params.segments if 0 < params.segments < params.band else params.band
+
+
 def _band_search(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
                  t_now, width: int, height: int, params: RenderParams,
                  cull_hull: bool = True, route_lengths=None):
@@ -324,13 +337,22 @@ def _band_search(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,
     Euclidean distance to the camera by default.  Returns (PairData,
     band_truncated, segment_dropped), the last a () i64 device tensor with
     compaction on, else None."""
-    dt, rho, band = params.dt, params.rho, params.band
-    n = buf.num_particles
-    cxm, cym = cam.pos[0], cam.pos[1]
     # the cone band search: the kernel for CUDA tensors on the Euclidean
     # route, the dense sweep for CPU tensors and for any other route
     bw = (band_cuda.cone_band_window(buf, params, cam) if route_lengths is None
           else band_cuda.cone_band_window_plain(buf, params, cam, route_lengths))
+    return _window_pairs(bw, obj_index, objects, cam, t_now, width, height, params, cull_hull,
+                         route_lengths)
+
+
+def _window_pairs(bw: band_cuda.BandWindow, obj_index, objects: Objects, cam: Camera, t_now,
+                  width: int, height: int, params: RenderParams, cull_hull: bool = True,
+                  route_lengths=None):
+    """`_band_search` after the band window `bw`: the segment tests, rank
+    compaction and pair rows."""
+    dt, rho, band = params.dt, params.rho, params.band
+    n = bw.wx.shape[0]
+    cxm, cym = cam.pos[0], cam.pos[1]
     hi0, truncated = bw.hi0, bw.truncated
     wx, wy, wvx, wvy, ages = bw.wx, bw.wy, bw.wvx, bw.wvy, bw.ages
     route = route_lengths or _euclid_route(cxm, cym)
@@ -476,6 +498,58 @@ def _compact_pairs_two_segment(pairs: PairData, first_mask, budget: int):
         budget = rows
     key = torch.where(fm, 0, torch.where(mask, 1, 2)).to(torch.int32)
     return _compact_by_class(pairs, key, budget, 2), n_first
+
+
+@spanned("cone sweep + pairs")
+def _band_pair_rows(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera, t_now,
+                    width: int, height: int, params: RenderParams, boundary=None):
+    """Steps 1-2 on the card: the band kernel's window, then the pair-rows
+    kernel's compacted rows (ops/pairs_cuda.py).  Returns (PairData,
+    n_first, band_truncated, segment_dropped)."""
+    bw = band_cuda.cone_band_window(buf, params, cam)
+    pairs, n_first, seg_dropped = pairs_cuda.pair_rows(bw, obj_index, objects, cam, t_now,
+                                                       width, height, params, boundary)
+    return pairs, n_first, bw.truncated, seg_dropped
+
+
+def _frame_pairs(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera, t_now,
+                 width: int, height: int, params: RenderParams, boundary=None, mesh=None):
+    """Steps 1-2 of a retarded frame: the pair rows compacted to
+    `pair_budget`, and with `boundary` ((N,) bool, the occlusion retina's
+    rows) while the retina budget is under the row count, the boundary
+    particles' valid rows first.  The pair-rows kernel where
+    `pairs_cuda.takes_kernel`, else the plain chain: all N * k rows
+    (`_band_pairs`; on a mesh every rank's, gathered), then a stable sort by
+    class (`_compact_pairs`).  Returns (PairData, n_first, band_truncated,
+    segment_dropped); n_first, the boundary rows before the budget, is None
+    without the split."""
+    rows = buf.num_particles * _pair_slots(params) * (1 if mesh is None else mesh.size)
+    if not (boundary is not None and 0 < params.retina_budget < rows):
+        boundary = None
+    if pairs_cuda.takes_kernel(buf.pos_x.device, params, mesh):
+        return _band_pair_rows(buf, obj_index, objects, cam, t_now, width, height, params,
+                               boundary)
+    pairs_raw, band_truncated, segment_dropped = _band_pairs(
+        buf, obj_index, objects, cam, t_now, width, height, params)
+    pairs, n_first, (band_truncated, segment_dropped) = _compact_pairs(
+        pairs_raw, boundary, params, mesh, (band_truncated, segment_dropped))
+    return pairs, n_first, band_truncated, segment_dropped
+
+
+def _compact_pairs(pairs: PairData, boundary, params: RenderParams, mesh=None, counters=()):
+    """(PairData, n_first, counters): the rows of N particles
+    (`_pair_slots` each) cut to `pair_budget`; with `boundary` ((N,) bool)
+    by `_compact_pairs_two_segment`, the boundary particles' rows first (the
+    retina reads a prefix), else by `_compact_pairs_to_budget` and None.
+    On a mesh every rank's rows are gathered first and `counters` summed
+    over the ranks (`_gather_pairs`); off it `counters` come back as given."""
+    rmask = (None if boundary is None
+             else boundary[:, None].expand(-1, _pair_slots(params)).reshape(-1))
+    if mesh is not None:
+        pairs, rmask, counters = _gather_pairs(mesh, pairs, rmask, counters)
+    if rmask is None:
+        return _compact_pairs_to_budget(pairs, params.pair_budget), None, counters
+    return (*_compact_pairs_two_segment(pairs, rmask, params.pair_budget), counters)
 
 
 # ---------------------------------------------------------------------------
@@ -828,21 +902,10 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
         rpairs = pairs
         band_truncated = torch.zeros((), dtype=torch.int64, device=pairs.pdata.device)
     else:
-        pairs_raw, band_truncated, segment_dropped = _band_pairs(
-            buf, obj_index, objects, cam, t_now, width, height, params)
-        rows = pairs_raw.pdata.shape[0] * (1 if mesh is None else mesh.size)
-        rmask = None
-        if use_rays and boundary is not None and 0 < params.retina_budget < rows:
-            # boundary pairs at the buffer front; the retina reads a prefix.
-            # A particle owns `segments` rows with rank compaction, else `band`
-            n = boundary.shape[0]
-            k_rows = params.segments if 0 < params.segments < params.band else params.band
-            rmask = boundary[:, None].expand(n, k_rows).reshape(-1)
-        if mesh is not None:
-            pairs_raw, rmask, (band_truncated, segment_dropped) = _gather_pairs(
-                mesh, pairs_raw, rmask, (band_truncated, segment_dropped))
-        if rmask is not None:
-            pairs, n_b = _compact_pairs_two_segment(pairs_raw, rmask, params.pair_budget)
+        pairs, n_b, band_truncated, segment_dropped = _frame_pairs(
+            buf, obj_index, objects, cam, t_now, width, height, params,
+            boundary if use_rays else None, mesh)
+        if n_b is not None:
             rb = min(params.retina_budget, pairs.pdata.shape[0])
             n_r = torch.clamp(n_b, max=rb)
             in_prefix = torch.arange(rb, device=n_b.device) < n_r
@@ -850,7 +913,6 @@ def prepare_pixel_pass(buf: WorldlineBuffer, obj_index: torch.Tensor,
                               pair_valid=pairs.pair_valid[:rb] & in_prefix, n_pairs=n_r)
             retina_dropped = torch.clamp(n_b - rb, min=0)
         else:
-            pairs = _compact_pairs_to_budget(pairs_raw, params.pair_budget)
             rpairs = pairs
 
     entries, cell_lo, cell_hi, bin_dropped, entry_dropped, cell_too_small, geom = _splat_csr(

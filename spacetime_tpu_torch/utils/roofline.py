@@ -28,6 +28,13 @@ HBM_BYTES_PER_S = 3.35e12
 RETINA_OPS = 30
 
 
+# f32 operations of one segment test of the pair-rows kernel (csrc/pairs.cu):
+# the younger endpoint's distance (6), t_a and s_hi (3), the cone bounds
+# (3), max, min and their compares (4), |x| and its compare (2), the
+# view hull's max / min and compares (8)
+PAIR_OPS = 26
+
+
 class Roofline(NamedTuple):
     """A piece of work on the H100 SXM: the f32 operations it must do and
     the bytes it must move, each input read once and each output written
@@ -140,6 +147,17 @@ def retina_bound(pairs, params):
     RETINA_OPS f32 operations per ray and valid pair."""
     rows, n = pairs.pdata.shape[0], params.num_rays
     return bound(21 * rows + 12 * n, RETINA_OPS * n * int(pairs.pair_valid.sum()))
+
+
+def pairs_bound(bw, params, out_rows: int, kept: int):
+    """The pair-rows kernel's needed work at band window `bw`: the window's
+    positions and ages read once (12 B per entry), the boundary flags, per
+    kept row its velocity and object id (12 B), the out_rows rows and
+    flags (41 B each) and the three counts written once; PAIR_OPS f32
+    operations per segment."""
+    n, w = bw.wx.shape
+    nbytes = 12 * n * w + n + 12 * kept + 41 * out_rows + 24
+    return bound(nbytes, PAIR_OPS * n * params.band)
 
 
 def step_bounds(planes, weight: int, breaking: bool):

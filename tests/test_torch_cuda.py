@@ -20,10 +20,13 @@ import torch
 
 from spacetime_tpu_torch import fused, kernels, scene
 from spacetime_tpu_torch.camera import Camera
+from spacetime_tpu_torch.checks import pairs_unequal
 from spacetime_tpu_torch.constants import DEFAULT_PARAMS as P
 from spacetime_tpu_torch.models.softbody import SoftbodyModel, default_bin_resolution
-from spacetime_tpu_torch.ops import (band_cuda, forces, forces_cuda, grid, points_cuda, raytrace,
-                                     render_cuda, retina_cuda, rk4, step_cuda)
+from spacetime_tpu_torch.state import make_objects
+from spacetime_tpu_torch.ops import (band_cuda, forces, forces_cuda, grid, pairs_cuda,
+                                     points_cuda, raytrace, render_cuda, retina_cuda, rk4,
+                                     step_cuda)
 from spacetime_tpu_torch.ops import worldline as wl
 
 CD, REP = P.collision_distance, P.collision_repulsion_coefficient
@@ -598,6 +601,311 @@ def test_retina_kernel_matches_plain(cuda_device, case):
     assert torch.equal(ours, plain), (differs, ours[differs].tolist(), plain[differs].tolist())
     assert torch.equal(again, ours)
     _retina_expected(case, plain)
+
+
+def test_pair_rows_take_the_kernel_only_on_the_card():
+    """The dispatch (raytrace._frame_pairs) observes its inputs: CUDA
+    tensors with no mesh take the kernel, whatever the band (the wrapper
+    refuses a band it cannot run); CPU tensors and a mesh (whose ranks
+    gather raw rows) take the plain chain."""
+    params = raytrace.RenderParams()
+    card = torch.device("cuda", 0)
+    assert pairs_cuda.takes_kernel(card, params)
+    assert pairs_cuda.takes_kernel(card, dataclasses.replace(params, band=32))
+    assert pairs_cuda.takes_kernel(card, dataclasses.replace(params, band=33))
+    assert not pairs_cuda.takes_kernel(torch.device("cpu"), params)
+    assert not pairs_cuda.takes_kernel(card, params, mesh=object())
+
+
+def test_pair_rows_refuse_cpu_tensors():
+    p, objects, buf, cam = _frame("cpu", frames=1)
+    bw = band_cuda.cone_band_window(buf, _params(), cam)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pairs_cuda.pair_rows(bw, p.object_index, objects, cam, wl.newest_time(buf), 48, 32,
+                             _params())
+
+
+@pytest.mark.parametrize("band", [0, 33])
+def test_pair_rows_refuse_a_band_past_the_mask(band):
+    """The kernel keeps a particle's valid segments in one 32-bit mask:
+    the wrapper refuses a band outside [1, 32] before it looks at a tensor,
+    and raises instead of handing the frame to the plain chain."""
+    p, objects, buf, cam = _frame("cpu", frames=1)
+    bw = band_cuda.cone_band_window(buf, _params(), cam)
+    with pytest.raises(ValueError, match=r"band must be in \[1, 32\]"):
+        pairs_cuda.pair_rows(bw, p.object_index, objects, cam, wl.newest_time(buf), 48, 32,
+                             _params(band=band))
+
+
+@pytest.mark.parametrize("mode", ["retarded", "conical", "retina"])
+def test_pair_rows_take_the_plain_chain_on_cpu(mode, monkeypatch):
+    """CPU tensors never reach the kernel's wrapper, nor do the conical
+    mode's geodesic routes (their own cone metric) or the retina mode's
+    unculled panorama on any device: each renders with the wrapper (and,
+    off the retarded mode, the dispatch) refusing every call and counts no
+    pairs launch; the retarded frame's pairs are the plain chain's."""
+    from spacetime_tpu_torch.ops import curved
+
+    def refuse(*args, **kw):
+        raise AssertionError("the pair-rows kernel's path was taken")
+
+    p, objects, buf, cam = _frame("cpu")
+    params = _params()
+    boundary = wl.boundary_mask(p)
+    monkeypatch.setattr(pairs_cuda, "pair_rows", refuse)
+    if mode != "retarded":
+        monkeypatch.setattr(raytrace, "_frame_pairs", refuse)
+    kernels.reset_launch_counts()
+    if mode == "retarded":
+        t_now = wl.newest_time(buf)
+        ours = raytrace._frame_pairs(buf, p.object_index, objects, cam, t_now, 48, 32, params,
+                                     boundary)
+        bw = band_cuda.cone_band_window(buf, params, cam)
+        plain = pairs_cuda.pair_rows_plain(bw, p.object_index, objects, cam, t_now, 48, 32,
+                                           params, boundary)
+        assert not pairs_unequal((ours[0], ours[1], ours[3]), plain) and ours[1] is not None
+        img = raytrace.render_retarded(buf, p.object_index, objects, cam, 48, 32, params,
+                                       boundary=boundary)
+    elif mode == "conical":
+        defect = curved.ConicalDefect.create((0.36, 0.42), 0.8, device="cpu")
+        img, _ = curved.render_retarded_conical_with_diag(buf, p.object_index, objects, cam,
+                                                          defect, 48, 32, params)
+    else:
+        img = raytrace.render_retina(buf, p.object_index, objects, cam, params, height=4)
+    assert kernels.launches["pairs"] == 0 and torch.isfinite(img).all()
+
+
+@pytest.mark.parametrize("budget", ["under_first", "between", "above_valid", "rows", "none"])
+def test_plain_pair_compaction_order(budget):
+    """The order the pair-rows kernel copies, on the plain chain: the
+    valid rows of the first class (boundary particles) in row order, then
+    the other valid rows in row order, then sentinel rows (all ten fields
+    2e9, pair_valid false), cut to the budget (all rows with a budget of 0
+    or at least the row count); n_pairs the valid count before the budget
+    and n_first the first class's.  Without the split: the valid rows in
+    row order, then sentinels, under a budget below the row count, else the
+    rows as they were."""
+    rng = np.random.default_rng(11)
+    n, k = 16, 3
+    rows = n * k
+    pdata = torch.from_numpy(rng.random((rows, 10)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(rows) < 0.55)
+    first = torch.from_numpy(rng.random(n) < 0.4)[:, None].expand(n, k).reshape(-1)
+    pairs = raytrace.PairData(pdata=pdata, pair_valid=valid, n_pairs=valid.sum())
+    idx0 = [r for r in range(rows) if valid[r] and first[r]]
+    idx1 = [r for r in range(rows) if valid[r] and not first[r]]
+    assert 0 < len(idx0) < len(idx0) + len(idx1) < rows
+    cut = {"under_first": len(idx0) // 2, "between": len(idx0) + len(idx1) // 2,
+           "above_valid": len(idx0) + len(idx1) + 3, "rows": rows, "none": 0}[budget]
+    keep = cut if 0 < cut < rows else rows
+
+    def expected(order):
+        want = torch.full((keep, 10), 2.0e9)
+        used = order[:keep]
+        want[:len(used)] = pdata[used]
+        return want, torch.arange(keep) < len(used)
+
+    out, n_first = raytrace._compact_pairs_two_segment(pairs, first, cut)
+    want, want_valid = expected(idx0 + idx1)
+    assert torch.equal(out.pdata, want) and torch.equal(out.pair_valid, want_valid)
+    assert int(out.n_pairs) == len(idx0) + len(idx1) and int(n_first) == len(idx0)
+    one = raytrace._compact_pairs_to_budget(pairs, cut)
+    if 0 < cut < rows:
+        want, want_valid = expected(sorted(idx0 + idx1))
+        assert torch.equal(one.pdata, want) and torch.equal(one.pair_valid, want_valid)
+    else:
+        assert one is pairs
+    assert int(one.n_pairs) == len(idx0) + len(idx1)
+
+
+# --------------------------------------------------------------------------
+# the pair rows (csrc/pairs.cu) against the plain chain
+# --------------------------------------------------------------------------
+
+# the retarded cells' particle counts: refdemo_116k's capacity (no multiple
+# of the kernel's 1,024-particle tiles) and capacity_2p20's
+PAIR_SHAPES = {"refdemo": 149248, "2p20": 1 << 20}
+PAIR_TICKS = 48
+
+
+def _pair_scene(device, n, ticks=PAIR_TICKS, spread=0.9, seed=5, young=0):
+    """(buf, obj_index, objects, boundary, cam): n particles in a disc
+    around the camera whose radius is `spread` x the ring's light travel
+    (so they cross the cone at every age), moving inertially at up to
+    0.35c in each axis, 5% parked (never present), three objects, 30% on a
+    boundary; the view (960 x 540 at a zoom of half the disc) culls part of
+    the disc.  With `young` the ring holds only that many pushed ticks."""
+    rng = np.random.default_rng(seed + n)
+    r = spread * ticks * H * np.sqrt(rng.random(n))
+    phi = rng.uniform(-np.pi, np.pi, n)
+    t = lambda a, dtype=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(
+        device=device, dtype=dtype)
+    pos = t(np.stack([0.1 + r * np.cos(phi), -0.2 + r * np.sin(phi)], axis=1))
+    vel = t(rng.uniform(-0.35, 0.35, (n, 2)))
+    present = t(rng.random(n) >= 0.05, torch.bool)
+    if young:
+        buf = wl.create(ticks, n, device=device)
+        for i in range(young):
+            wl.push_raw(buf, pos + vel * (H * i), vel, present, 1.25 + H * i)
+    else:
+        buf = wl.prefill_inertial(wl.create(ticks, n, device=device), pos, vel, present, 1.25,
+                                  H)
+    objects = make_objects(3, [{"base_color": c} for c in
+                               ((0.2, 0.3, 1.0), (1.0, 0.3, 0.2), (0.4, 0.9, 0.3))],
+                           device=device)
+    obj_index = t(rng.integers(0, 3, n), torch.int32)
+    boundary = t(rng.random(n) < 0.3, torch.bool) & present
+    cam = Camera.create(pos=(0.1, -0.2), zoom=0.45 * ticks * H, device=device)
+    return buf, obj_index, objects, boundary, cam
+
+
+def _pair_budgets(plain_all, n_first, rows):
+    """A budget under the first class's count, one between it and the valid
+    count, one above the valid count, the row count and 0 (no budget)."""
+    n_pairs = int(plain_all.n_pairs)
+    nf = int(n_first) if n_first is not None else n_pairs // 3
+    return sorted({max(1, nf // 2), max(1, (nf + n_pairs) // 2), min(rows, n_pairs + 7), rows, 0})
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _check_pair_rows(buf, obj_index, objects, boundary, cam, params, split_counts=True):
+    """Every budget of _pair_budgets, each boundary split (mixed, all, none
+    and no split) and the hull cull on and off: the kernel's rows bit-equal
+    to the plain chain's.  Returns the plain valid counts by cull."""
+    bw = band_cuda.cone_band_window(buf, params, cam)
+    t_now = wl.newest_time(buf)
+    n = buf.num_particles
+    k = params.segments if 0 < params.segments < params.band else params.band
+    splits = {"mixed": boundary, "all": torch.ones_like(boundary),
+              "none": torch.zeros_like(boundary), "no split": None}
+    counts = {}
+    for camera_frame in (False, True):
+        p = dataclasses.replace(params, camera_frame=camera_frame, pair_budget=0)
+        whole = pairs_cuda.pair_rows_plain(bw, obj_index, objects, cam, t_now, 960, 540, p,
+                                           boundary)
+        counts[camera_frame] = int(whole[0].n_pairs)
+        for budget in _pair_budgets(whole[0], whole[1], n * k):
+            for split, mask in splits.items():
+                q = dataclasses.replace(p, pair_budget=budget)
+                kernels.reset_launch_counts()
+                ours = pairs_cuda.pair_rows(bw, obj_index, objects, cam, t_now, 960, 540, q, mask)
+                assert kernels.launches["pairs"] == 1
+                plain = pairs_cuda.pair_rows_plain(bw, obj_index, objects, cam, t_now, 960, 540,
+                                                   q, mask)
+                bad = pairs_unequal(ours, plain)
+                assert not bad, (bad, camera_frame, budget, split)
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [0, 2], ids=["all_crossings", "rank_2"])
+@pytest.mark.parametrize("band", [4, 6])
+@pytest.mark.parametrize("shape", list(PAIR_SHAPES))
+def test_pair_rows_kernel_matches_plain(cuda_device, shape, band, segments):
+    """At the retarded cells' particle counts, bands 4 and 6, with and
+    without rank compaction: rows, pair_valid, n_pairs, n_first and
+    segment_dropped bit-equal to the plain chain at every budget (under
+    the boundary rows, between them and the valid rows, above those, the
+    row count, none), every boundary split and with the hull cull on and
+    off; the cull takes rows away."""
+    scene_ = _pair_scene(cuda_device, PAIR_SHAPES[shape])
+    params = _params(band=band, segments=segments, max_age=0)
+    counts = _check_pair_rows(*scene_, params)
+    assert 0 < counts[False] < counts[True], counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_cone", "young_ring", "ragged_n"])
+def test_pair_rows_kernel_cases(cuda_device, case):
+    """Bit-equal to the plain chain with no valid row at all (every
+    particle beyond the ring's light travel: sentinel rows only), on a ring
+    that holds 3 ticks of 48 (hi0 2), and at 1,001 particles (one partial
+    tile)."""
+    n = 1001 if case == "ragged_n" else PAIR_SHAPES["refdemo"]
+    scene_ = _pair_scene(cuda_device, n, spread=4.0 if case == "empty_cone" else 0.9,
+                         young=3 if case == "young_ring" else 0)
+    if case == "empty_cone":
+        buf, obj_index, objects, boundary, cam = scene_
+        far = torch.where(buf.pos_x < 1e8, buf.pos_x + 10.0, buf.pos_x)
+        scene_ = (dataclasses.replace(buf, pos_x=far.contiguous()), *scene_[1:])
+    for segments in (0, 2):
+        counts = _check_pair_rows(*scene_, _params(band=4, segments=segments, max_age=0))
+        assert (counts[True] == 0) == (case == "empty_cone"), counts
+
+
+@pytest.mark.cuda
+def test_frame_pairs_on_the_card_raise_on_a_band_past_the_mask(cuda_device):
+    """A retarded frame on the card with a band the pair-rows kernel cannot
+    run raises; it does not fall back to the plain chain."""
+    p, objects, buf, cam = _frame(cuda_device)
+    params = _params(band=33)
+    with pytest.raises(ValueError, match=r"band must be in \[1, 32\]"):
+        raytrace._frame_pairs(buf, p.object_index, objects, cam, wl.newest_time(buf), 48, 32,
+                              params, wl.boundary_mask(p))
+
+
+@pytest.mark.cuda
+def test_fused_frames_with_pair_rows_match_the_plain_chain(cuda_device, monkeypatch):
+    """Fused frames (graph replays) whose pair rows come from the kernel,
+    against the same frames run eagerly with the plain chain: images,
+    counters (every RenderDiag field), positions and ring bit-equal, one
+    pairs launch a frame; the frames split the boundary rows (the retina
+    budget under the rows) and compact to a pair budget under them."""
+    state, model, objects = _fused_state(cuda_device)
+    other = fused.copy_state(state)
+    params = _params()
+    order = fused.schedule(1)
+    graph = fused.FusedFrame(_stages(state, model, objects, params), order, cuda_device)
+    eager = _stages(other, model, objects, params)
+    frames = 5
+    kernels.reset_launch_counts()
+    outs = [graph() for _ in range(frames)]
+    assert kernels.launches["pairs"] == frames and kernels.launches["band"] == frames
+    monkeypatch.setattr(pairs_cuda, "takes_kernel", lambda *args, **kw: False)
+    kernels.reset_launch_counts()
+    want = [fused.run_stages(eager, order) for _ in range(frames)]
+    assert kernels.launches["pairs"] == 0 and kernels.launches["band"] == frames
+    for (img, ctr), (img2, ctr2) in zip(outs, want):
+        assert torch.equal(img, img2) and torch.equal(ctr, ctr2)
+    assert torch.equal(state.buf.pos_x, other.buf.pos_x)
+    rows = state.particles.capacity * params.band
+    assert 0 < params.retina_budget < params.pair_budget < rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(PAIR_SHAPES))
+def test_frame_pairs_retina_prefix_matches_plain(cuda_device, shape, monkeypatch):
+    """prepare_pixel_pass at the retarded cells' budgets (pair 262,144 /
+    131,072, retina 16,384): the retina's prefix of boundary rows, the
+    pixel pass's CSR and every RenderDiag field bit-equal with the kernel
+    and with the plain chain (one pairs launch, then none)."""
+    from spacetime_tpu_torch.checks import calls_of
+
+    buf, obj_index, objects, boundary, cam = _pair_scene(cuda_device, PAIR_SHAPES[shape])
+    budget = 262144 if shape == "refdemo" else 131072
+    params = _params(band=4, segments=3 if shape == "refdemo" else 0, max_age=0,
+                     pair_budget=budget, retina_budget=16384, num_rays=4096)
+    runs = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            monkeypatch.setattr(pairs_cuda, "takes_kernel", lambda *args, **kw: False)
+        kernels.reset_launch_counts()
+        seen = []
+        (args,) = calls_of(retina_cuda, "retina_march", lambda: seen.append(
+            raytrace.prepare_pixel_pass(buf, obj_index, objects, cam, 960, 540, params,
+                                        boundary=boundary)))
+        assert kernels.launches["pairs"] == (path == "kernel")
+        runs[path] = (args[0], *seen[0])
+    (rk, ik, dk), (rp, ip, dp) = runs["kernel"], runs["plain"]
+    assert not pairs_unequal((rk, None, None), (rp, None, None))
+    for name in ("entries", "cell_lo", "cell_hi", "sfq", "scal"):
+        assert torch.equal(_bits(getattr(ik, name)), _bits(getattr(ip, name))), name
+    for name, a, b in zip(dk._fields, dk, dp):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert rp.pair_valid.any() and dp.retina_dropped is not None and int(dp.pairs_used) > 0
 
 
 def _scratch_clean(device, width, height) -> bool:

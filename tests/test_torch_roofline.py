@@ -6,7 +6,7 @@ bytes or operations, that sets the bound at the H100 SXM's peaks."""
 import pytest
 import torch
 
-from spacetime_tpu_torch.ops import forces_cuda, raytrace, rk4
+from spacetime_tpu_torch.ops import band_cuda, forces_cuda, raytrace, rk4
 from spacetime_tpu_torch.ops import worldline as wl
 from spacetime_tpu_torch.utils import roofline
 
@@ -110,6 +110,18 @@ def _retina():
             roofline.RETINA_OPS * 256 * 16, "operations")
 
 
+def _pairs():
+    """A band-4 window of 10 particles (5 entries each), 7 rows kept of 12
+    written: 12 bytes an entry, a boundary flag a particle, 12 a kept row,
+    41 a row written, the three counts; 26 operations a segment."""
+    bw = band_cuda.BandWindow(*(torch.zeros(()) for _ in range(4)),
+                              *(torch.zeros(10, 5) for _ in range(4)),
+                              torch.zeros(10, 5, dtype=torch.int32))
+    params = raytrace.RenderParams(band=4)
+    return (lambda: roofline.pairs_bound(bw, params, 12, 7),
+            12 * 10 * 5 + 10 + 12 * 7 + 41 * 12 + 24, roofline.PAIR_OPS * 10 * 4, "bytes")
+
+
 ROWS = {
     "collision include": lambda: _collision(False),
     "collision exclude": lambda: _collision(True),
@@ -121,6 +133,7 @@ ROWS = {
     "bond_stage first": _first,
     "step_finish": _finish,
     "retina": _retina,
+    "pairs": _pairs,
 }
 
 

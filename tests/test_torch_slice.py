@@ -138,7 +138,8 @@ def test_cpu_slice_launches_no_kernel(runs):
     _run_port("cpu", 1)
     assert kernels.launches == {"collision": 0, "collision_exclude": 0, "pixel_pass": 0,
                                 "pixel_pass_camera_frame": 0, "band": 0, "points": 0,
-                                "bond_stage": 0, "step_finish": 0, "retina_march": 0}
+                                "bond_stage": 0, "step_finish": 0, "retina_march": 0,
+                                "pairs": 0}
 
 
 def test_profile_ranges_reach_every_sub_stage(monkeypatch):
