@@ -290,6 +290,10 @@ class Engine:
         self._graph_stream = None
         self._graph_pool = None
         self.graph_stats = fused.new_stats()
+        # running totals over every run_frame, graph replays included: the
+        # frames and the conical frame's work (curved.frame_work; 0 in the
+        # other modes), host arithmetic on the frame's shapes
+        self.render_work = {"frames": 0, "route_pass_tests": 0, "route2_sweep_rows": 0}
         # the FULL history primed with inertially extrapolated past states,
         # so retarded visibility does not ramp in over `history` frames
         present = particles.active
@@ -661,7 +665,8 @@ class Engine:
             clock = None
             if self._can_fuse():
                 with span("engine.params"):
-                    frame = self._fused_frame_fn(self._render_params())
+                    rparams = self._render_params()
+                    frame = self._fused_frame_fn(rparams)
                 timed = StageClock(self.device) if self._profile_clocks is not None else None
                 with span("engine.capture") if frame.captures else contextlib.nullcontext():
                     img, counters = frame(timed)
@@ -671,7 +676,8 @@ class Engine:
                 render = frame.stages["render"]
             else:
                 with span("engine.params"):
-                    stages = self._stages(self._render_params(), tick_time=self._tick)
+                    rparams = self._render_params()
+                    stages = self._stages(rparams, tick_time=self._tick)
                 clock = StageClock(self.device)
                 img, counters = fused.run_stages(
                     stages, fused.schedule(cfg.steps_per_frame, ticks=not self.paused), clock)
@@ -680,6 +686,7 @@ class Engine:
             with span("engine.outputs"):
                 self.last_aux, self.last_diag = fused.unpack(counters, render)
                 self._drops += fused.drop_counts(counters, render)
+                self._count_work(rparams, render)
             if self.device.type == "cuda":
                 with span("engine.wait.prev_frame"):
                     end = torch.cuda.Event()
@@ -693,6 +700,18 @@ class Engine:
             with span("engine.adapt"):
                 self._check_diag()
             return img.permute(1, 2, 0)
+
+    def _count_work(self, rparams, render) -> None:
+        """Add a frame to `render_work`: in the conical mode, the work of
+        curved.frame_work at the frame's params for the defects its render
+        stage used (a replay's are the capture's)."""
+        work = self.render_work
+        work["frames"] += 1
+        if render.defects is not None:
+            cfg = self.config
+            for k, v in curved.frame_work(self.worldline, cfg.width, cfg.height, rparams,
+                                          len(render.defects)).items():
+                work[k] += v
 
     def _flush_stats(self) -> None:
         """Add the pending frame to the stats window; an eager frame's stage

@@ -64,7 +64,7 @@ from .. import device as device_mod
 from ..camera import Camera, pixel_centers
 from ..state import Objects
 from ..utils.profiling import spanned
-from . import raytrace
+from . import band_cuda, raytrace
 from .raytrace import (
     _BIG, _F_AX, _F_AY, _F_BX, _F_BY, _F_CB, _F_CG, _F_CR, _F_TA, _F_VX, _F_VY, _PI,
     PairData, RenderDiag, RenderParams, _assemble_image, _gather_pairs,
@@ -355,6 +355,22 @@ def render_retarded_conical(buf: WorldlineBuffer, obj_index, objects: Objects, c
     """The image of render_retarded_conical_with_diag."""
     return _render_conical_impl(buf, obj_index, objects, cam, defect, width, height, params,
                                 planar, mesh)[0]
+
+
+def frame_work(buf: WorldlineBuffer, width: int, height: int, params: RenderParams,
+               n_defects: int) -> dict:
+    """A frame's work at its static shapes, as host ints (no device read):
+    `route_pass_tests`, the route pass's (pixel, candidate) tests, every
+    pixel of the view-cell grid against its cell's `bin_capacity` rows on
+    each of the 1 + `n_defects` routes; `route2_sweep_rows`, the (age,
+    particle) rows that the back routes' plain band sweeps scan, the swept
+    ages times the ring's particles for each defect (on a mesh, this
+    rank's particles)."""
+    k = params.cell_px
+    pixels = -(-width // k) * k * (-(-height // k) * k)
+    return {"route_pass_tests": pixels * params.bin_capacity * (1 + n_defects),
+            "route2_sweep_rows": (band_cuda._swept_ages(buf, params) * buf.num_particles
+                                  * n_defects)}
 
 
 def render_conical_brute(buf: WorldlineBuffer, obj_index, objects: Objects, cam: Camera,

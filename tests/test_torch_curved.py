@@ -466,3 +466,26 @@ def test_defect_vel_refusals(over, match):
     eng = Engine(_small(config, **over), device="cpu")
     with pytest.raises(ValueError, match=match):
         eng._defects()
+
+
+@pytest.mark.parametrize("over,routes2", [
+    (dict(stage_timing=True), 1),  # eager frames
+    ({}, 1),  # fused frames
+    (dict(defect=TWO), 2),  # two defects: two back routes
+    (dict(render_mode="retarded"), 0),  # a mode without a defect
+])
+def test_engine_counts_the_route_work_of_each_frame(over, routes2):
+    """Engine.render_work after two frames: the route pass's tests (the
+    view-cell grid's pixels x bin_capacity x routes) and the back routes'
+    swept rows (ring ticks x particles, one sweep a defect), from the
+    frames' shapes; every other mode counts frames only."""
+    eng = Engine(_small(config, **over), device="cpu")
+    for _ in range(2):
+        eng.run_frame()
+    assert eng._can_fuse() == ("stage_timing" not in over)
+    p = eng._render_params()
+    pixels = (-(-W // p.cell_px) * p.cell_px) * (-(-HT // p.cell_px) * p.cell_px)
+    tests = pixels * p.bin_capacity * (1 + routes2) if routes2 else 0
+    rows = eng.config.history * eng.worldline.num_particles * routes2
+    assert eng.render_work == {"frames": 2, "route_pass_tests": 2 * tests,
+                               "route2_sweep_rows": 2 * rows}
